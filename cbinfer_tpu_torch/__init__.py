@@ -1,0 +1,19 @@
+"""cbinfer_tpu_torch: the PyTorch + CUDA port of cbinfer_tpu (change-based
+video CNN inference) for NVIDIA Hopper.
+
+It stands alone: it imports torch and numpy, never jax and nothing of
+cbinfer_tpu. Entry points run on the card unless the caller passes
+``device="cpu"``, where every kernel wrapper takes its plain PyTorch
+version. Layout:
+
+  config, models      layer-spec IR and the scene model family
+  network, checkpoint dense baseline path, weights
+  ops/                detect, compact, delta-conv/pool helpers, geometry
+  ops/kernels/        the hand-written CUDA kernels' wrappers, plain
+                      versions and launch counters; sources in csrc/
+  layers, convert     change-based layers and the network converter
+  runner              the streaming frame loop
+  video, metrics      synthetic labelled video, mIoU and FLOP accounting
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,399 @@
+"""Change-based conv and max-pool layers (PyTorch port of the parts of
+``cbinfer_tpu.layers`` that the scene path reaches).
+
+Each CB layer keeps two tensors on the device: ``in_cache``, the last input
+it accepted (stored spatially padded, in the JAX package's storage layout),
+and ``out_cache``, its output on the tile grid. Per frame a layer finds the
+pixels that moved by more than its threshold, accepts them, and recomputes
+only the output tiles whose receptive field holds such a pixel. Both caches
+are UPDATED IN PLACE, where the JAX package donates and aliases them; the
+state objects returned are the ones passed in.
+
+Cold start needs no branch: ``in_cache`` starts at ``COLD_START_FILL`` so
+frame 0 sees every pixel as changed. Dirty hints: each layer emits a
+conservative changed-tile mask over its output on a fixed 8x8 grid, and
+the next layer's sparse detect visits only those tiles.
+
+Backends: ``"cuda"`` (the hand-written kernels; on CPU tensors their plain
+versions) and ``"dense_cached"`` (full-map detect plus a dense conv from
+the accepted cache: the stem of this slice). The capacity-bounded jnp
+path, ``patch_stem``, ``band_cached``, ``dense_cached_flat``,
+forward-hint convs, non-forward pools and the fused conv+detect are not
+ported; asking for them raises.
+
+Lane padding: the JAX package pads every channel dim to 128 on its
+``"pallas"`` backend; the port stores logical widths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import network
+from .config import ConvSpec, PipelineConfig, PoolSpec
+from .ops import compact, detect
+from .ops.delta_conv import make_storage, storage_interior
+from .ops.delta_pool import dense_pool
+from .ops.geometry import TileGeometry, cdiv, conv_tile_geometry
+from .ops.kernels.delta_conv import delta_conv
+from .ops.kernels.detect_sparse import detect_sparse
+from .ops.kernels.pool_fused import detect_pool_fused
+
+NEG_FILL = -3.0e38  # pool margin fill (finite "-inf")
+HINT_TILE = 8       # fixed tile size of inter-layer dirty hints
+BACKENDS = ("cuda", "dense_cached")
+
+
+@dataclasses.dataclass
+class CBLayerState:
+    in_cache: torch.Tensor   # padded storage of the last accepted input
+    out_cache: torch.Tensor  # (Ho_pad, Wo_pad, Cout) cached output
+
+
+class DirtyHint(NamedTuple):
+    """Conservative changed-region mask over a tensor, 8x8 granularity."""
+    mask: torch.Tensor  # (ceil(H/8), ceil(W/8)) bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Feature:
+    """A layer output in its padded storage form plus logical dims. CB
+    consumers read logical coordinates straight out of the padded array;
+    others call ``crop()`` (a view, no copy)."""
+    data: torch.Tensor
+    h: int
+    w: int
+    c: int
+
+    def crop(self) -> torch.Tensor:
+        return self.data[:self.h, :self.w, :self.c]
+
+
+def _unwrap(x):
+    if isinstance(x, Feature):
+        return x.data, x.h, x.w, x.c
+    return x, x.shape[0], x.shape[1], x.shape[2]
+
+
+def _layer_cfg(spec, cfg: PipelineConfig) -> PipelineConfig:
+    """Apply the spec's per-layer backend override to the pipeline cfg."""
+    if spec.backend is not None and spec.backend != cfg.backend:
+        cfg = dataclasses.replace(cfg, backend=spec.backend)
+    if cfg.backend not in BACKENDS:
+        raise NotImplementedError(
+            f"backend {cfg.backend!r} is not ported (have {BACKENDS})")
+    return cfg
+
+
+def _geometry(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
+              ) -> TileGeometry:
+    th, tw = cfg.tile.tile_h, cfg.tile.tile_w
+    if isinstance(spec, ConvSpec):
+        return conv_tile_geometry(in_shape, spec.kernel, spec.stride,
+                                  spec.dilation, spec.padding, th, tw)
+    return conv_tile_geometry(in_shape, spec.window, spec.stride, (1, 1),
+                              spec.padding, th, tw)
+
+
+def cb_layer_init(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
+                  ) -> CBLayerState:
+    """Allocate a layer's caches on ``cfg.device``."""
+    cfg = _layer_cfg(spec, cfg)
+    dev = network.resolve_device(cfg.device)
+    dtype = network.torch_dtype(cfg.cache_dtype)
+    cout = spec.features if isinstance(spec, ConvSpec) else in_shape[2]
+    g = _geometry(spec, in_shape, cfg)
+    out_cache = torch.zeros((g.out_h_pad, g.out_w_pad, cout), dtype=dtype,
+                            device=dev)
+    if isinstance(spec, PoolSpec) and spec.elide_in_cache:
+        # fused forward-hint pool: the input cache is never read
+        return CBLayerState(
+            in_cache=torch.zeros((1, 1, 1), dtype=dtype, device=dev),
+            out_cache=out_cache)
+    margin = NEG_FILL if isinstance(spec, PoolSpec) else 0.0
+    return CBLayerState(
+        in_cache=make_storage(g, detect.COLD_START_FILL, margin, dtype, dev),
+        out_cache=out_cache)
+
+
+# ----------------------------- dirty hints ----------------------------------
+
+
+def _out_hint(tile_mask: torch.Tensor, g: TileGeometry) -> DirtyHint:
+    """Map this layer's changed-output-tile mask onto the 8x8 hint grid of
+    the CROPPED output."""
+    hh, hw = cdiv(g.out_h, HINT_TILE), cdiv(g.out_w, HINT_TILE)
+    if (g.th, g.tw) == (HINT_TILE, HINT_TILE):  # the grids coincide
+        m = tile_mask[:hh, :hw]
+    elif g.th % HINT_TILE == 0 and g.tw % HINT_TILE == 0:
+        m = tile_mask.repeat_interleave(g.th // HINT_TILE, 0)
+        m = m.repeat_interleave(g.tw // HINT_TILE, 1)[:hh, :hw]
+    else:  # via pixel space (small bool map)
+        pix = tile_mask.repeat_interleave(g.th, 0).repeat_interleave(g.tw, 1)
+        pix = pix[:g.out_h, :g.out_w].float()
+        pix = F.pad(pix, (0, hw * HINT_TILE - g.out_w,
+                          0, hh * HINT_TILE - g.out_h))
+        m = F.max_pool2d(pix[None, None], HINT_TILE)[0, 0] > 0
+    return DirtyHint(mask=m.contiguous())
+
+
+# ------------------------------ detection -----------------------------------
+
+
+def _detect_xla(x: torch.Tensor, in_cache: torch.Tensor, tau,
+                g: TileGeometry, hint: Optional[DirtyHint]):
+    """Full-map detect + accepted-cache update IN PLACE (the interior view
+    of the storage; margins are constant). Returns (storage, per-pixel
+    changed map, changed pixels, detect tiles). Named after the JAX
+    package's function it ports."""
+    H, W = g.in_h, g.in_w
+    x = x[:H, :W]
+    interior = storage_interior(in_cache, g)
+    # |x - cache| in float32, max over channels
+    diff = (x.float() - interior).abs_().amax(dim=-1)
+    changed = diff > detect.tau32(tau)
+    if hint is not None:
+        pix_hint = hint.mask.repeat_interleave(HINT_TILE, 0) \
+            .repeat_interleave(HINT_TILE, 1)[:H, :W]
+        changed = changed & pix_hint
+    torch.where(changed[..., None], x.to(interior.dtype), interior,
+                out=interior)
+    n_detect = (hint.mask.sum(dtype=torch.int32) if hint is not None
+                else cdiv(H, HINT_TILE) * cdiv(W, HINT_TILE))
+    return in_cache, changed, changed.sum(dtype=torch.int32), n_detect
+
+
+def _detect_and_mask(x: torch.Tensor, in_cache: torch.Tensor, tau,
+                     g: TileGeometry, cfg: PipelineConfig,
+                     hint: Optional[DirtyHint]):
+    """C1+C2: returns (storage, changed_out_tile_mask bool, changed_pixels,
+    detect_tiles). ``"cuda"`` layers run the sparse detect kernel over the
+    producer's hint; ``"dense_cached"`` layers detect the full map."""
+    H, W = g.in_h, g.in_w
+    if cfg.backend == "cuda":
+        if hint is None or H < HINT_TILE or W % HINT_TILE:
+            raise NotImplementedError(
+                "a 'cuda' layer needs a producer hint on an 8-aligned map "
+                "(the full-map detect kernel, detect_full_pallas, is not "
+                f"ported); got hint={hint is not None}, map {(H, W)}")
+        dcomp = compact.compact_mask(hint.mask, hint.mask.numel())
+        storage, maskf, npix = detect_sparse(x, in_cache, tau, dcomp.idx,
+                                             dcomp.count, g)
+        return storage, maskf > 0.5, npix[0], dcomp.count
+    storage, changed, n_pix, n_detect = _detect_xla(x, in_cache, tau, g, hint)
+    return storage, detect.changed_tile_mask(changed, g), n_pix, n_detect
+
+
+# ------------------------------ layer steps ---------------------------------
+
+
+def _run_gated(spec, state: CBLayerState, x: torch.Tensor, g: TileGeometry,
+               cfg: PipelineConfig, tile_fn, tau=None,
+               hint: Optional[DirtyHint] = None):
+    """Shared detect -> compact -> delta-kernel skeleton. Cond-free: the
+    kernels walk the device-side count, so the index list holds every tile
+    (capacity = n_tiles, as on the JAX package's ``"pallas"`` backend) and
+    there is no overflow branch. Returns (state, stats, out_hint)."""
+    if tau is None:
+        tau = spec.threshold
+    in_cache, mask, n_pix, n_detect = _detect_and_mask(
+        x, state.in_cache, tau, g, cfg, hint)
+    comp = compact.compact_mask(mask, g.n_tiles)
+    tile_fn(in_cache, comp.idx, comp.count, state.out_cache)
+    stats = {
+        "changed_tiles": comp.count,
+        "computed_tiles": comp.count,
+        "n_tiles": g.n_tiles,
+        "overflow": False,
+        "changed_pixels": n_pix,
+        "detect_tiles": n_detect,
+    }
+    return state, stats, _out_hint(mask, g)
+
+
+def _conv_prep(params, x, spec: ConvSpec, cfg: PipelineConfig):
+    """Unwrap the (possibly padded) Feature; returns (x, w, b, g)."""
+    w, b = params
+    x, H, W, xc = _unwrap(x)
+    if w.shape[2] != xc:
+        raise ValueError(f"weights {tuple(w.shape)} for {xc} input channels")
+    return x, w, b, _geometry(spec, (H, W, xc), cfg)
+
+
+def _store_output(state: CBLayerState, y: torch.Tensor,
+                  g: TileGeometry) -> None:
+    """A full-map output into the out cache: adopted as the cache when it
+    already has the cache's shape and dtype (no copy), else copied into the
+    logical region (the pad rows/cols are never read by a consumer)."""
+    if y.shape == state.out_cache.shape and y.dtype == state.out_cache.dtype \
+            and y.is_contiguous():
+        state.out_cache = y
+    else:
+        state.out_cache[:g.out_h, :g.out_w].copy_(y)
+
+
+def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
+                  cfg: PipelineConfig, tau=None,
+                  hint: Optional[DirtyHint] = None):
+    """One frame through a change-based conv layer; caches updated in
+    place. Returns (y: Feature, state, stats, out_hint)."""
+    cfg = _layer_cfg(spec, cfg)
+    compute_dtype = network.torch_dtype(cfg.compute_dtype)
+    x, w, b, g = _conv_prep(params, x, spec, cfg)
+    if spec.forward_hint:
+        raise NotImplementedError("forward-hint convs are not ported")
+
+    if cfg.backend == "dense_cached":
+        # detect + full dense conv FROM THE ACCEPTED CACHE every frame:
+        # value-exact by the out_cache == f(in_cache) invariant, and it
+        # produces the hint chain (the cin=3 stem of this slice)
+        if tau is None:
+            tau = spec.threshold
+        storage, mask, n_pix, n_detect = _detect_and_mask(
+            x, state.in_cache, tau, g, cfg, hint)
+        if network.use_im2col(spec, w.shape[2]):
+            # the storage's zero margins ARE the SAME padding: read the
+            # padded window straight out of it, no pad copy
+            xp = storage[g.store_lo_h - g.pad_lo_h:
+                         g.store_lo_h + g.in_h + g.pad_hi_h,
+                         g.dx0:g.store_lo_w + g.in_w + g.pad_hi_w]
+            y = network.im2col_conv(xp, w, b, spec, compute_dtype)
+        else:
+            y = network.dense_conv(storage_interior(storage, g), w, b, spec,
+                                   compute_dtype)
+        _store_output(state, y, g)
+        stats = {
+            "changed_tiles": mask.sum(dtype=torch.int32),
+            "computed_tiles": g.n_tiles,
+            "n_tiles": g.n_tiles,
+            "overflow": False,
+            "changed_pixels": n_pix,
+            "detect_tiles": n_detect,
+        }
+        return (Feature(state.out_cache, g.out_h, g.out_w, spec.features),
+                state, stats, _out_hint(mask, g))
+
+    def tile_fn(storage, idx, count, out_cache):
+        delta_conv(storage, idx, w, b, out_cache, g, spec.activation,
+                   compute_dtype, count=count)
+
+    state, stats, out_hint = _run_gated(spec, state, x, g, cfg, tile_fn,
+                                        tau, hint)
+    return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
+            stats, out_hint)
+
+
+def _full_stats(g: TileGeometry) -> Dict[str, Any]:
+    """Stats of a full (refresh) recompute, same keys as _run_gated's.
+    Counters known on the host stay Python numbers: no device work."""
+    return {
+        "changed_tiles": g.n_tiles,
+        "computed_tiles": g.n_tiles,
+        "n_tiles": g.n_tiles,
+        "overflow": False,
+        "changed_pixels": g.in_h * g.in_w,
+        "detect_tiles": cdiv(g.in_h, HINT_TILE) * cdiv(g.in_w, HINT_TILE),
+    }
+
+
+def _full_hint(g: TileGeometry, device) -> DirtyHint:
+    return DirtyHint(mask=torch.ones(
+        (cdiv(g.out_h, HINT_TILE), cdiv(g.out_w, HINT_TILE)),
+        dtype=torch.bool, device=device))
+
+
+def cb_conv_refresh(params, state: CBLayerState, x, spec: ConvSpec,
+                    cfg: PipelineConfig):
+    """Full refresh of a CB conv layer: accept the whole input into the
+    cache and recompute the whole output with the dense conv (value-exact
+    by the out_cache == f(in_cache) invariant; sums in another order than
+    the tile kernel). Caches updated in place. Returns (y, state, stats,
+    hint)."""
+    cfg = _layer_cfg(spec, cfg)
+    compute_dtype = network.torch_dtype(cfg.compute_dtype)
+    x, w, b, g = _conv_prep(params, x, spec, cfg)
+    x = x[:g.in_h, :g.in_w]
+    storage_interior(state.in_cache, g).copy_(x)
+    y = network.dense_conv(x.to(compute_dtype), w, b, spec, compute_dtype)
+    _store_output(state, y, g)
+    return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
+            _full_stats(g), _full_hint(g, x.device))
+
+
+def cb_pool_refresh(state: CBLayerState, x, spec: PoolSpec,
+                    cfg: PipelineConfig):
+    """Full refresh of a CB pool layer (see cb_conv_refresh). An elided
+    input cache stays a placeholder; the padded storage is then transient."""
+    cfg = _layer_cfg(spec, cfg)
+    x, H, W, c = _unwrap(x)
+    g = _geometry(spec, (H, W, c), cfg)
+    if spec.elide_in_cache:
+        storage = make_storage(g, 0.0, NEG_FILL, state.out_cache.dtype,
+                               x.device)
+    else:
+        storage = state.in_cache
+    storage_interior(storage, g).copy_(x[:H, :W])
+    state.out_cache.copy_(dense_pool(storage, g))
+    return (Feature(state.out_cache, g.out_h, g.out_w, c), state,
+            _full_stats(g), _full_hint(g, x.device))
+
+
+def fused_pool_gate(spec: PoolSpec, g: TileGeometry,
+                    cfg: PipelineConfig) -> bool:
+    """STATIC eligibility of the hint-forwarded fused pool kernel. The JAX
+    package's gate also asks for 128-lane channels, a Mosaic slicing rule
+    with no counterpart on the card (the CUDA kernel takes any even C), so
+    that condition is dropped; the rest — aligned window == stride ==
+    (p, p), p >= 2, a pooled paired block of exactly 8 columns, 8x8 out
+    tiles, a block grid that divides the map — is the kernel's contract."""
+    if not (isinstance(spec, PoolSpec) and cfg.backend == "cuda"):
+        return False
+    p = spec.stride[0]
+    return (spec.window == spec.stride == (p, p)
+            and p >= 2 and HINT_TILE % p == 0
+            and (2 * HINT_TILE // p) % 8 == 0
+            and g.th == HINT_TILE and g.tw == HINT_TILE
+            and g.in_w % (2 * HINT_TILE) == 0
+            and g.in_h % HINT_TILE == 0)
+
+
+def cb_pool_apply(state: CBLayerState, x, spec: PoolSpec,
+                  cfg: PipelineConfig, tau=None,
+                  hint: Optional[DirtyHint] = None):
+    """One frame through a change-based max-pool layer in forward-hint
+    mode: one fused kernel over the producer's dirty blocks, no detection,
+    tau unused. Returns (y: Feature, state, stats, out_hint)."""
+    del tau  # forwarding never inspects pixels
+    cfg = _layer_cfg(spec, cfg)
+    x, H, W, c = _unwrap(x)
+    g = _geometry(spec, (H, W, c), cfg)
+    if not (spec.forward_hint and hint is not None
+            and fused_pool_gate(spec, g, cfg)):
+        raise NotImplementedError(
+            "only the hint-forwarded fused pool is ported (re-detecting "
+            f"pools need delta_pool_pallas); spec={spec}, "
+            f"hint={'present' if hint is not None else 'missing'}")
+    # hint tiles pair up in W into 8x16 blocks, as in the JAX package:
+    # the values would not change without it, the stats would
+    hm = hint.mask
+    pair = hm[:, 0::2] | hm[:, 1::2]
+    dcomp = compact.compact_mask(pair, pair.numel())
+    _, maskf = detect_pool_fused(x, state.out_cache, dcomp.idx, dcomp.count,
+                                 g, hint_h=HINT_TILE, hint_w=2 * HINT_TILE)
+    mask = maskf > 0.5
+    touched = mask.sum(dtype=torch.int32)
+    stats = {
+        "changed_tiles": touched,
+        "computed_tiles": touched,
+        "n_tiles": g.n_tiles,
+        "overflow": False,
+        # visited = hinted area, in 8x8 hint-tile units (2 per block)
+        "changed_pixels": dcomp.count * (2 * HINT_TILE * HINT_TILE),
+        "detect_tiles": dcomp.count * 2,
+    }
+    return (Feature(state.out_cache, g.out_h, g.out_w, c), state, stats,
+            _out_hint(mask, g))

@@ -1,0 +1,69 @@
+"""Accuracy and compute accounting (port of the parts of
+``cbinfer_tpu.metrics`` the scene path reports): per-class intersection /
+union counts of class maps, their merge into mIoU, and the effective-FLOP
+reduction from the per-layer computed-tile counters."""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from .config import ConvSpec
+from .network import out_shapes
+
+
+def iu_counts(pred_ids: torch.Tensor, ref_ids: torch.Tensor,
+              num_classes: int):
+    """Per-class (intersection, union) pixel counts of two class-id maps of
+    the same shape, as int64 tensors on their device (partial sums for
+    chunked mIoU; reduce with ``merge_iu``)."""
+    c = torch.arange(num_classes, device=pred_ids.device)
+    pc = pred_ids.reshape(-1).long()[None, :] == c[:, None]
+    rc = ref_ids.reshape(-1).long()[None, :] == c[:, None]
+    return (pc & rc).sum(dim=1), (pc | rc).sum(dim=1)
+
+
+def merge_iu(inter, union) -> float:
+    """Accumulated per-class counts -> mIoU (union == 0 classes skipped; no
+    class present -> 1.0)."""
+    inter = np.asarray(inter, np.float64)
+    union = np.asarray(union, np.float64)
+    present = union > 0
+    if not np.any(present):
+        return 1.0
+    return float(np.mean(inter[present] / union[present]))
+
+
+def _np(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def effective_flops(stats: List[Dict], specs: Sequence, in_shape,
+                    tile_h: int, tile_w: int) -> Dict[str, float]:
+    """Dense FLOPs per frame, the mean effective FLOPs (computed tiles x
+    FLOPs per tile) and their ratio, the ``flop_reduction`` pillar. Takes
+    per-frame stacks or means of the counters."""
+    dense_total = 0
+    eff_total = 0.0
+    frames = None
+    shapes = [tuple(in_shape)] + out_shapes(specs, in_shape)
+    for i, (spec, s) in enumerate(zip(specs, stats)):
+        if not s or not isinstance(spec, ConvSpec):
+            continue
+        kh, kw = spec.kernel
+        ft = 2 * tile_h * tile_w * kh * kw * shapes[i][2] * spec.features
+        computed = _np(s["computed_tiles"]).astype(np.float64)
+        n_tiles = float(np.max(_np(s["n_tiles"])))
+        frames = computed.shape[0] if computed.ndim else 1
+        dense_total += ft * n_tiles
+        eff_total += float(np.mean(computed)) * ft
+    return {
+        "dense_flops_per_frame": float(dense_total),
+        "effective_flops_per_frame": float(eff_total),
+        "flop_reduction": float(dense_total / max(eff_total, 1.0)),
+        "frames": frames,
+    }

@@ -1,0 +1,37 @@
+"""The port's hand-written CUDA kernels, one module each.
+
+Every module holds the kernel's wrapper (launches the CUDA kernel for
+tensors on the card, the plain PyTorch version for tensors on the CPU, and
+raises for anything else), that plain version, and a ``KERNEL`` record
+whose ``launches`` counter the wrapper bumps once per kernel launch and
+nowhere else — so a run can show that its main path went through the
+kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+
+@dataclasses.dataclass
+class Kernel:
+    name: str
+    route: str       # "cuda" (nvcc-built C++) or "triton"
+    source: str      # repo path of the kernel source
+    replaces: str    # file:line of the TPU kernel it ports
+    launches: int = 0
+
+
+from . import delta_conv, detect_sparse, pool_fused  # noqa: E402
+
+KERNELS = (detect_sparse.KERNEL, delta_conv.KERNEL, pool_fused.KERNEL)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}

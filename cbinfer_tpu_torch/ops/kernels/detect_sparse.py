@@ -1,0 +1,114 @@
+"""Sparse change detection over the producer's dirty hint tiles (B1).
+
+Replaces ``cbinfer_tpu/ops/pallas/detect.py::detect_sparse``. The CUDA
+source (``csrc/detect_sparse.cu``) carries the design note: bytes bound
+the kernel on the H100 (it reads x and the cache once per visited tile and
+writes the accepted pixels), one block per hint tile walks a device-side
+count, and each block touches only its own rows so the clamped bottom
+edge cannot race.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import detect as detect_ops
+from ..delta_conv import storage_interior, tile_ids
+from ..geometry import TileGeometry, cdiv
+from . import Kernel
+from .build import check, library
+
+HINT = 8
+
+KERNEL = Kernel(name="detect_sparse", route="cuda",
+                source="cbinfer_tpu_torch/csrc/detect_sparse.cu",
+                replaces="cbinfer_tpu/ops/pallas/detect.py:316")
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def detect_sparse_plain(x: torch.Tensor, storage: torch.Tensor, tau,
+                        idx: torch.Tensor, count: torch.Tensor,
+                        g: TileGeometry):
+    """Plain PyTorch version (same signature and results as the kernel).
+    Updates ``storage`` in place; returns (storage, mask f32
+    (tiles_h, tiles_w), npix int32 (1,))."""
+    H, W = g.in_h, g.in_w
+    hh, hw = cdiv(H, HINT), W // HINT
+    hm = torch.zeros(hh * hw, dtype=torch.bool, device=x.device)
+    hm[tile_ids(idx, count)] = True
+    # a pixel belongs to the hint tile of its own row: the clamped last
+    # hint row owns rows [8*hi, H) only
+    pix = hm.view(hh, hw).repeat_interleave(HINT, 0).repeat_interleave(
+        HINT, 1)[:H, :W]
+    interior = storage_interior(storage, g)
+    xi = x[:H, :W].to(storage.dtype)
+    diff = (xi.float() - interior.float()).abs().amax(dim=-1)
+    changed = (diff > detect_ops.tau32(tau)) & pix
+    interior.copy_(torch.where(changed[..., None], xi, interior))
+    mask = detect_ops.changed_tile_mask(changed, g).float()
+    return storage, mask, changed.sum(dtype=torch.int32).reshape(1)
+
+
+def _fn():
+    f = library("detect_sparse").cb_detect_sparse
+    if f.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f.argtypes = [vp, vp, vp, vp, vp, vp, i, ctypes.c_float, i, i, i, i,
+                      ll, ll, i, i, i, i, i, i, i, i, i, i, vp]
+        f.restype = ctypes.c_int
+    return f
+
+
+def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
+                  idx: torch.Tensor, count: torch.Tensor, g: TileGeometry):
+    """Detect + accept + dilate restricted to the producer's dirty tiles.
+
+    x: (>=H, >=W, C) current input (may be the producer's padded out
+    cache; only logical coordinates are read). storage: this layer's
+    padded input cache, UPDATED IN PLACE (the JAX package donates and
+    aliases it). idx/count: compacted ids on the 8x8 hint grid of the
+    input, ``count`` a device int32 scalar. Returns (storage, mask f32
+    (tiles_h, tiles_w), npix int32 (1,)).
+    """
+    H, W = g.in_h, g.in_w
+    if W % HINT or H < HINT:
+        raise ValueError(f"detect_sparse needs W % 8 == 0 and H >= 8, "
+                         f"got {(H, W)}")
+    if x.device.type == "cpu" and storage.device.type == "cpu":
+        return detect_sparse_plain(x, storage, tau, idx, count, g)
+    x = x.to(storage.dtype)  # the JAX kernel compares in the cache dtype
+    C = storage.shape[-1]
+    if not (x.is_cuda and storage.is_cuda and idx.is_cuda
+            and count.is_cuda):
+        raise ValueError("detect_sparse: tensors must all be on the card")
+    if (storage.dtype not in _DTYPE_CODE or x.shape[-1] != C or C % 2
+            or x.shape[0] < H or x.shape[1] < W
+            or tuple(storage.shape) != g.store_shape[:2] + (C,)
+            or idx.dtype != torch.int32 or count.dtype != torch.int32
+            or count.numel() != 1
+            or idx.numel() > cdiv(H, HINT) * (W // HINT)):
+        raise ValueError(
+            f"detect_sparse: unsupported operands x{tuple(x.shape)} "
+            f"{x.dtype} storage{tuple(storage.shape)} {storage.dtype} "
+            f"idx{tuple(idx.shape)} {idx.dtype}")
+    for t in (x, storage, idx):
+        if not t.is_contiguous():
+            raise ValueError("detect_sparse: operands must be contiguous")
+    mask = torch.zeros((g.tiles_h, g.tiles_w), dtype=torch.float32,
+                       device=storage.device)
+    npix = torch.zeros((1,), dtype=torch.int32, device=storage.device)
+    sh, sw = g.stride
+    stream = torch.cuda.current_stream(storage.device).cuda_stream
+    err = _fn()(x.data_ptr(), storage.data_ptr(), idx.data_ptr(),
+                count.data_ptr(), mask.data_ptr(), npix.data_ptr(),
+                idx.numel(), float(tau), _DTYPE_CODE[storage.dtype], H, C,
+                W // HINT, x.shape[1] * C, storage.shape[1] * C,
+                g.store_lo_h, g.store_lo_w, g.tiles_h, g.tiles_w,
+                g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w, g.win_h,
+                g.win_w, stream)
+    check(err, "detect_sparse")
+    KERNEL.launches += 1
+    return storage, mask, npix

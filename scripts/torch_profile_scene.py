@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Where the time goes: torch.profiler over the port's 720p scene path.
+
+    python3 scripts/torch_profile_scene.py [--frames 32]
+
+Builds the same network as chip_smoke.py (scene w128, trained weights,
+tuned taus, stem {0: "dense_cached"}, bf16), warms up, then profiles one
+chunk of CB frames (no refresh frame) and the same frames through the
+dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
+the host thread's CPU ms per frame while enqueuing,
+device-busy ms per frame (union of kernel intervals), the device's idle
+share, and the top kernels by device time per frame. Needs a CUDA GPU.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import torch  # noqa: E402
+
+from cbinfer_tpu_torch.checkpoint import load_npz_params  # noqa: E402
+from cbinfer_tpu_torch.config import PipelineConfig, TileConfig  # noqa: E402
+from cbinfer_tpu_torch.convert import convert_flagship  # noqa: E402
+from cbinfer_tpu_torch.models import get_model  # noqa: E402
+from cbinfer_tpu_torch.network import init_params  # noqa: E402
+from cbinfer_tpu_torch.runner import scan_video  # noqa: E402
+from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig  # noqa
+
+H, W = 720, 1280
+
+
+def kernel_table(prof, n_frames, top):
+    """Device-busy ms per frame (union of kernel intervals), device
+    activities (kernels, copies, fills) per frame, and the top kernels."""
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_name = {}
+    for e in kern:
+        d = by_name.setdefault(e.name, [0.0, 0])
+        d[0] += e.time_range.end - e.time_range.start
+        d[1] += 1
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return busy / 1e3 / n_frames, len(kern) / n_frames, [
+        {"kernel": k[:90], "ms_per_frame": v[0] / 1e3 / n_frames,
+         "calls_per_frame": v[1] / n_frames} for k, v in rows]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA GPU", file=sys.stderr)
+        return 2
+    specs = get_model("scene", num_classes=8, width=128)
+    with open(os.path.join(REPO, "ckpts", "scene_w128_tau.json")) as f:
+        taus = json.load(f)["thresholds"]
+    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375),
+                         compute_dtype="bfloat16", cache_dtype="bfloat16")
+    net = convert_flagship(specs, (H, W, 3), cfg, thresholds=taus,
+                           extra_overrides={0: "dense_cached"})
+    params = load_npz_params(
+        os.path.join(REPO, "ckpts", "scene_w128.npz"),
+        init_params(specs, (H, W, 3), dtype=torch.bfloat16), specs)
+    video = SpriteVideo(SpriteVideoConfig(
+        height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+        noise_std=0.002, seed=int(time.time()) % 100000))
+    warm, clip_t, clip_p = (torch.from_numpy(video.clip(args.frames)).cuda()
+                            for _ in range(3))
+
+    def out_u8(y):
+        return y.argmax(-1).to(torch.uint8)
+
+    def cb(ch, state, refresh=False):
+        return scan_video(net, params, ch, state, collect_stats=False,
+                          refresh_start=refresh, out_map=out_u8)[1]
+
+    def dense(ch):
+        return torch.stack([out_u8(net.apply_dense(params, f)) for f in ch])
+
+    state = cb(warm, net.init_state(), refresh=True)
+    state = cb(warm, state)
+    dense(warm)
+    torch.cuda.synchronize()
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip()
+    print(smi, flush=True)
+    for name, fn in (("cb", lambda ch: cb(ch, state)), ("dense", dense)):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        c0 = time.thread_time()
+        e0.record()
+        fn(clip_t)  # unprofiled: the profiler slows the host side
+        e1.record()
+        host = (time.thread_time() - c0) * 1e3 / args.frames
+        torch.cuda.synchronize()
+        plain_wall = e0.elapsed_time(e1) / args.frames
+        with torch.profiler.profile(activities=acts) as prof:
+            e0.record()
+            fn(clip_p)
+            e1.record()
+            torch.cuda.synchronize()
+        wall = e0.elapsed_time(e1) / args.frames
+        busy, n_kern, top = kernel_table(prof, args.frames, args.top)
+        print(json.dumps({"path": name, "card": smi, "frames": args.frames,
+                          "wall_ms_per_frame": plain_wall,
+                          "host_cpu_ms_per_frame": host,
+                          "profiled_wall_ms_per_frame": wall,
+                          "device_busy_ms_per_frame": busy,
+                          "device_activities_per_frame": n_kern,
+                          "idle_share_profiled": 1.0 - busy / wall,
+                          "top": top}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
