@@ -8,11 +8,13 @@ version. Layout:
 
   config, models      layer-spec IR and the scene model family
   network, checkpoint dense baseline path, weights
-  ops/                detect, compact, delta-conv/pool helpers, geometry
+  ops/                detect, compact, delta-conv/pool helpers, geometry,
+                      the small-cin stem's gate and plain detect (flat4)
   ops/kernels/        the hand-written CUDA kernels' wrappers, plain
                       versions and launch counters; sources in csrc/
   layers, convert     change-based layers and the network converter
   runner              the streaming frame loop
+  zoo                 one-call loading of the shipped workloads
   video, metrics      synthetic labelled video, mIoU and FLOP accounting
 """
 

@@ -38,14 +38,20 @@ def _as_padding(v):
 
 @dataclass(frozen=True)
 class TileConfig:
-    """Tile-level block-sparsity parameters. ``capacity_fraction`` is kept
-    for config parity with the JAX package; on the ``"cuda"`` backend the
-    kernels walk a device-side count, so it bounds nothing (as on the JAX
-    package's ``"pallas"`` backend)."""
+    """Tile-level block-sparsity parameters. ``capacity_fraction`` bounds
+    the compacted changed-tile list of the ``patch_stem`` stem: past
+    ``capacity(n_tiles)`` changed tiles the stem recomputes its whole map
+    (recorded as ``overflow`` in the step stats). The ``"cuda"`` layers
+    walk a device-side count over a full-size list, so it bounds nothing
+    there (as on the JAX package's ``"pallas"`` backend)."""
 
     tile_h: int = 8
     tile_w: int = 8
     capacity_fraction: float = 1.0
+
+    def capacity(self, n_tiles: int) -> int:
+        cap = int(-(-self.capacity_fraction * n_tiles // 1))  # ceil
+        return max(1, min(cap, n_tiles))
 
 
 @dataclass(frozen=True)

@@ -17,11 +17,7 @@ import torch
 from . import layers as L
 from . import network
 from .config import ConvSpec, PipelineConfig, PoolSpec, UpsampleSpec
-
-SLICE2_NOTE = ("the patch_stem backend (flat4 detect + patch-stem kernels) "
-               "is slice 2 of the port and not ported yet; pass "
-               "extra_overrides={0: 'dense_cached'}")
-
+from .ops import flat4 as flat4_ops
 
 def dense_conv_on_feature(x, p, spec: ConvSpec, compute_dtype):
     """Dense conv of a layer output that may be a padded Feature. A
@@ -187,41 +183,24 @@ def num_cb_layers(specs: Sequence) -> int:
                if isinstance(s, (ConvSpec, PoolSpec)) and s.use_cb)
 
 
-def _flat4_supports(in_shape, kernel, stride, dilation, padding,
-                    activation) -> bool:
-    """The JAX package's patch_stem gate (``ops/flat4.supports``): 3x3/s1/
-    SAME, cin <= 3, map divisible by the (8, 32) stem tile."""
-    h, w, c = in_shape
-    return (tuple(kernel) == (3, 3) and tuple(stride) == (1, 1)
-            and tuple(dilation) == (1, 1) and padding == "SAME"
-            and 1 <= c <= 3 and h % 8 == 0 and w % 32 == 0
-            and activation in (None, "relu"))
-
-
 def flagship_layers(specs: Sequence,
                     in_shape: Optional[Tuple[int, int, int]] = None,
-                    cfg: Optional[PipelineConfig] = None,
-                    extra_overrides: Optional[Dict[int, str]] = None):
+                    cfg: Optional[PipelineConfig] = None):
     """(backend_overrides, dense_layers) of the shipped configuration, by
     the JAX package's gate with ``"pallas"`` read as ``"cuda"``: a small-
-    cin stem runs ``patch_stem`` where the flat4 gate holds, otherwise
-    ``dense_cached``; a trailing 1x1 classifier runs dense.
-
-    ``patch_stem`` is not ported: when the gate selects it and
-    ``extra_overrides`` does not override layer 0, this raises
-    NotImplementedError rather than quietly picking another backend."""
+    cin stem runs ``patch_stem`` (the sparse stem kernels) where the flat4
+    gate holds, otherwise ``dense_cached``; a trailing 1x1 classifier runs
+    dense."""
     small_stem = in_shape is None or in_shape[2] < 128
     overrides: Dict[int, str] = {}
     if isinstance(specs[0], ConvSpec) and small_stem:
         s0 = specs[0]
         if (cfg is not None and cfg.backend == "cuda"
                 and in_shape is not None
-                and _flat4_supports(in_shape, s0.kernel, s0.stride,
-                                    s0.dilation, s0.padding,
-                                    s0.activation)):
-            if not (extra_overrides and 0 in extra_overrides):
-                raise NotImplementedError(SLICE2_NOTE)
-            overrides = {0: "patch_stem"}  # replaced by the caller's choice
+                and flat4_ops.supports(in_shape, s0.kernel, s0.stride,
+                                       s0.dilation, s0.padding,
+                                       s0.activation)):
+            overrides = {0: "patch_stem"}
         else:
             overrides = {0: "dense_cached"}
     dense = []
@@ -256,7 +235,7 @@ def convert_flagship(specs: Sequence, in_shape: Tuple[int, int, int],
     wins); the fused conv+detect option of the JAX package is not ported.
     """
     cfg = cfg or PipelineConfig()
-    overrides, dense = flagship_layers(specs, in_shape, cfg, extra_overrides)
+    overrides, dense = flagship_layers(specs, in_shape, cfg)
     if extra_overrides:
         bad = [k for k in extra_overrides if not 0 <= k < len(specs)]
         if bad:

@@ -25,6 +25,23 @@ __device__ __forceinline__ void cb_store2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
+// One element as float, and a float rounded to the storage type (round to
+// nearest even, as PyTorch's and XLA's casts do).
+__device__ __forceinline__ float cb_to_float(float v) { return v; }
+__device__ __forceinline__ float cb_to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T cb_round(float v);
+template <>
+__device__ __forceinline__ float cb_round<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 cb_round<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // Raw copy of two adjacent elements (no rounding).
 template <typename T>
 __device__ __forceinline__ void cb_copy2(T* dst, const T* src) {
@@ -47,4 +64,25 @@ __device__ __forceinline__ void cb_window_range(int r, int step, int pad_lo,
   *lo = v <= 0 ? 0 : (v + step - 1) / step;
   int h = (r + pad_lo) / step;
   *hi = h < n - 1 ? h : n - 1;
+}
+
+// Geometry of a layer's out-tile grid as the detect kernels need it: out
+// tile (a, b) reads input rows [a*step_h - pad_lo_h, +win_h) and columns
+// [b*step_w - pad_lo_w, +win_w).
+struct CbTileGrid {
+  int tiles_h, tiles_w;
+  int step_h, step_w;  // th*sh, tw*sw
+  int pad_lo_h, pad_lo_w, win_h, win_w;
+};
+
+// Mark every out tile whose input window holds pixel (r, c). Plain
+// same-value stores: blocks race only to write the same 1.0.
+__device__ __forceinline__ void cb_mark_tiles(float* __restrict__ mask,
+                                              const CbTileGrid& t, int r,
+                                              int c) {
+  int a0, a1, b0, b1;
+  cb_window_range(r, t.step_h, t.pad_lo_h, t.win_h, t.tiles_h, &a0, &a1);
+  cb_window_range(c, t.step_w, t.pad_lo_w, t.win_w, t.tiles_w, &b0, &b1);
+  for (int a = a0; a <= a1; ++a)
+    for (int b = b0; b <= b1; ++b) mask[a * t.tiles_w + b] = 1.f;
 }

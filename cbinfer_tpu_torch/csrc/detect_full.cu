@@ -1,0 +1,71 @@
+// Full-map change detection (C1+C2 fused) for a layer that gets no dirty
+// hint from its producer (the layer after a dense stem).
+//
+// Replaces cbinfer_tpu/ops/pallas/detect.py::detect_full_pallas
+// (_band_kernel). Over the whole (H, W, C) map: per pixel, changed iff
+// max_c |x - cache| > tau (float32, x already in the cache's type); accept
+// changed pixels into the padded storage interior in place; count them;
+// mark every out tile of this layer (conv or pool: its own stride, padding
+// and window) whose input window holds a changed pixel.
+//
+// Bound on the H100: bytes. The sweep reads x and the cache once each
+// (2 * H*W*C elements) and writes the changed pixels; there is no
+// arithmetic to speak of. Design: the TPU kernel sweeps 8-row bands in
+// order on one core and carries the mask in scratch memory; here the map
+// is cut into 8-row x 32-pixel blocks that run in any order, one warp per
+// row, the per-pixel step shared with the sparse kernel (cb_detect.cuh),
+// the mask marked by same-value stores and the count reduced per block and
+// added with one atomic.
+#include "cb_detect.cuh"
+
+namespace {
+
+constexpr int SEG = 32;  // pixels of one row per warp
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+detect_full_kernel(const T* __restrict__ x, T* __restrict__ st,
+                   float* __restrict__ mask, int* __restrict__ npix,
+                   float tau, int W, CbDetectArgs a) {
+  __shared__ int s_n;
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int y = blockIdx.y * 8 + warp;
+  const int x0 = blockIdx.x * SEG;
+  int local = 0;
+  if (y < a.H)
+    local = cb_detect_row(x, st, mask, tau, a, y, x0, min(SEG, W - x0), lane);
+  if (lane == 0 && local) atomicAdd(&s_n, local);
+  __syncthreads();
+  if (threadIdx.x == 0 && s_n) atomicAdd(npix, s_n);
+}
+
+}  // namespace
+
+extern "C" int cb_detect_full(
+    const void* x, void* storage, float* mask, int* npix, float tau,
+    int dtype, int H, int W, int C, long long x_row, long long s_row,
+    int slo_h, int slo_w, int tiles_h, int tiles_w, int step_h, int step_w,
+    int pad_lo_h, int pad_lo_w, int win_h, int win_w, void* stream) {
+  CbDetectArgs a{H,     C,     x_row,
+                 s_row, slo_h, slo_w,
+                 {tiles_h, tiles_w, step_h, step_w, pad_lo_h, pad_lo_w, win_h,
+                  win_w}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H <= 0 || W <= 0) return 0;
+  dim3 grid((W + SEG - 1) / SEG, (H + 7) / 8);
+  if (dtype == CB_BF16) {
+    detect_full_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<__nv_bfloat16*>(storage), mask, npix, tau, W, a);
+  } else if (dtype == CB_F32) {
+    detect_full_kernel<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(storage), mask,
+        npix, tau, W, a);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

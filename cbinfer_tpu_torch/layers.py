@@ -15,11 +15,12 @@ conservative changed-tile mask over its output on a fixed 8x8 grid, and
 the next layer's sparse detect visits only those tiles.
 
 Backends: ``"cuda"`` (the hand-written kernels; on CPU tensors their plain
-versions) and ``"dense_cached"`` (full-map detect plus a dense conv from
-the accepted cache: the stem of this slice). The capacity-bounded jnp
-path, ``patch_stem``, ``band_cached``, ``dense_cached_flat``,
-forward-hint convs, non-forward pools and the fused conv+detect are not
-ported; asking for them raises.
+versions), ``"patch_stem"`` (the sparse small-cin stem: full-map stem
+detect plus the stem conv kernel over dirty (8, 32) tiles) and
+``"dense_cached"`` (full-map detect plus a dense conv from the accepted
+cache). The capacity-bounded jnp path, ``band_cached``,
+``dense_cached_flat``, forward-hint convs and the fused conv+detect are
+not ported; asking for them raises.
 
 Lane padding: the JAX package pads every channel dim to 128 on its
 ``"pallas"`` backend; the port stores logical widths.
@@ -36,16 +37,21 @@ import torch.nn.functional as F
 from . import network
 from .config import ConvSpec, PipelineConfig, PoolSpec
 from .ops import compact, detect
+from .ops import flat4 as flat4_ops
 from .ops.delta_conv import make_storage, storage_interior
 from .ops.delta_pool import dense_pool
 from .ops.geometry import TileGeometry, cdiv, conv_tile_geometry
 from .ops.kernels.delta_conv import delta_conv
+from .ops.kernels.delta_pool import delta_pool
+from .ops.kernels.detect_full import detect_full
 from .ops.kernels.detect_sparse import detect_sparse
 from .ops.kernels.pool_fused import detect_pool_fused
+from .ops.kernels.stem_conv import stem_conv
+from .ops.kernels.stem_detect import stem_detect
 
 NEG_FILL = -3.0e38  # pool margin fill (finite "-inf")
 HINT_TILE = 8       # fixed tile size of inter-layer dirty hints
-BACKENDS = ("cuda", "dense_cached")
+BACKENDS = ("cuda", "patch_stem", "dense_cached")
 
 
 @dataclasses.dataclass
@@ -93,6 +99,8 @@ def _geometry(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
               ) -> TileGeometry:
     th, tw = cfg.tile.tile_h, cfg.tile.tile_w
     if isinstance(spec, ConvSpec):
+        if cfg.backend == "patch_stem":  # the stem kernel's fixed tiles
+            th, tw = flat4_ops.TILE_H, flat4_ops.TILE_W
         return conv_tile_geometry(in_shape, spec.kernel, spec.stride,
                                   spec.dilation, spec.padding, th, tw)
     return conv_tile_geometry(in_shape, spec.window, spec.stride, (1, 1),
@@ -123,9 +131,11 @@ def cb_layer_init(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
 # ----------------------------- dirty hints ----------------------------------
 
 
-def _out_hint(tile_mask: torch.Tensor, g: TileGeometry) -> DirtyHint:
+def _out_hint(tile_mask: torch.Tensor, g: TileGeometry,
+              overflow: Optional[torch.Tensor] = None) -> DirtyHint:
     """Map this layer's changed-output-tile mask onto the 8x8 hint grid of
-    the CROPPED output."""
+    the CROPPED output. ``overflow`` (a device bool): the layer recomputed
+    everything, so everything is dirty."""
     hh, hw = cdiv(g.out_h, HINT_TILE), cdiv(g.out_w, HINT_TILE)
     if (g.th, g.tw) == (HINT_TILE, HINT_TILE):  # the grids coincide
         m = tile_mask[:hh, :hw]
@@ -138,6 +148,8 @@ def _out_hint(tile_mask: torch.Tensor, g: TileGeometry) -> DirtyHint:
         pix = F.pad(pix, (0, hw * HINT_TILE - g.out_w,
                           0, hh * HINT_TILE - g.out_h))
         m = F.max_pool2d(pix[None, None], HINT_TILE)[0, 0] > 0
+    if overflow is not None:
+        m = m | overflow
     return DirtyHint(mask=m.contiguous())
 
 
@@ -172,14 +184,22 @@ def _detect_and_mask(x: torch.Tensor, in_cache: torch.Tensor, tau,
                      hint: Optional[DirtyHint]):
     """C1+C2: returns (storage, changed_out_tile_mask bool, changed_pixels,
     detect_tiles). ``"cuda"`` layers run the sparse detect kernel over the
-    producer's hint; ``"dense_cached"`` layers detect the full map."""
+    producer's hint, or the full-map detect kernel where there is none
+    (after a dense layer); ``"dense_cached"`` layers detect the full map
+    with torch ops. The JAX package's gate for the full-map kernel also
+    asks for an 8-aligned map and 128-lane channels, rules of its band
+    sweep with no counterpart on the card (the CUDA kernel clips at the
+    map's edge), so those conditions are dropped."""
     H, W = g.in_h, g.in_w
     if cfg.backend == "cuda":
-        if hint is None or H < HINT_TILE or W % HINT_TILE:
+        if hint is None:
+            storage, maskf, npix = detect_full(x, in_cache, tau, g)
+            return (storage, maskf > 0.5, npix[0],
+                    cdiv(H, HINT_TILE) * cdiv(W, HINT_TILE))
+        if H < HINT_TILE or W % HINT_TILE:
             raise NotImplementedError(
-                "a 'cuda' layer needs a producer hint on an 8-aligned map "
-                "(the full-map detect kernel, detect_full_pallas, is not "
-                f"ported); got hint={hint is not None}, map {(H, W)}")
+                "a hinted 'cuda' layer needs a map of at least 8 rows and "
+                f"8-aligned columns (the sparse detect kernel); got {(H, W)}")
         dcomp = compact.compact_mask(hint.mask, hint.mask.numel())
         storage, maskf, npix = detect_sparse(x, in_cache, tau, dcomp.idx,
                                              dcomp.count, g)
@@ -247,6 +267,10 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
     if spec.forward_hint:
         raise NotImplementedError("forward-hint convs are not ported")
 
+    if cfg.backend == "patch_stem":
+        return _patch_stem_apply(state, x, w, b, g, spec, cfg, compute_dtype,
+                                 tau)
+
     if cfg.backend == "dense_cached":
         # detect + full dense conv FROM THE ACCEPTED CACHE every frame:
         # value-exact by the out_cache == f(in_cache) invariant, and it
@@ -287,13 +311,79 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
             stats, out_hint)
 
 
-def _full_stats(g: TileGeometry) -> Dict[str, Any]:
+def _or_cells(cells: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """OR of each (kh, kw) block of a bool cell mask; a partial block at
+    the bottom or right edge counts the cells it has."""
+    if (kh, kw) == (1, 1):
+        return cells
+    h, w = cells.shape
+    m = F.pad(cells, (0, -w % kw, 0, -h % kh))
+    return m.view(cdiv(h, kh), kh, cdiv(w, kw), kw).any(dim=3).any(dim=1)
+
+
+def _patch_stem_apply(state: CBLayerState, x: torch.Tensor, w, b,
+                      g: TileGeometry, spec: ConvSpec, cfg: PipelineConfig,
+                      compute_dtype, tau):
+    """The sparse small-cin stem: one kernel detects, accepts and dilates
+    over the whole frame, one recomputes only the dirty (8, 32) stem tiles.
+    Three grids: ``g`` (the kernel's (8, 32) tiles), the configured tile
+    grid the stats are reported on, and the 8x8 hint grid."""
+    if tau is None:
+        tau = spec.threshold
+    H, W, xc = g.in_h, g.in_w, g.cin
+    if not flat4_ops.supports((H, W, xc), spec.kernel, spec.stride,
+                              spec.dilation, spec.padding, spec.activation):
+        raise ValueError(f"patch_stem does not support {spec} on {(H, W, xc)}")
+    x = x[:H, :W, :xc]
+    if cfg.tile.tile_h % HINT_TILE or cfg.tile.tile_w % HINT_TILE:
+        # the JAX package detects such grids per pixel with XLA ops; the
+        # stem detect kernel emits 8x8 cells only
+        raise NotImplementedError(
+            "patch_stem needs a configured tile that is a multiple of the "
+            f"8x8 cell, got {(cfg.tile.tile_h, cfg.tile.tile_w)}")
+    # the 8x8 cell mask the kernel emits IS the hint mask, and the window
+    # of a tile made of whole cells (a stem tile, a configured tile) is the
+    # union of its cells' windows, so its mask is the OR of theirs
+    storage, cell_mask, npix1 = stem_detect(x, state.in_cache, tau, g)
+    hint_mask = cell_mask > 0
+    n_pix = npix1[0]
+    mask = _or_cells(hint_mask, g.th // HINT_TILE, g.tw // HINT_TILE)
+    fine_mask = _or_cells(hint_mask, cfg.tile.tile_h // HINT_TILE,
+                          cfg.tile.tile_w // HINT_TILE)
+    g_hint = flat4_ops.cell_geometry(g)
+    capacity = cfg.tile.capacity(g.n_tiles)
+    comp = compact.compact_mask(mask, capacity)
+    # past the capacity the kernel recomputes every tile: value-exact by
+    # out_cache == f(in_cache), it only spends more compute
+    overflow = comp.count > capacity
+    stem_conv(storage, comp.idx, comp.count, w, b, state.out_cache, g,
+              spec.activation, compute_dtype, capacity=capacity)
+    # stats on the CONFIGURED tile grid: one (8, 32) kernel tile is
+    # tile_scale fine tiles, so effective_flops prices the wider recompute
+    n_fine = fine_mask.numel()
+    tile_scale = n_fine // g.n_tiles
+    stats = {
+        "changed_tiles": fine_mask.sum(dtype=torch.int32),
+        "computed_tiles": torch.where(overflow, g.n_tiles, comp.count)
+        * tile_scale,
+        "n_tiles": n_fine,
+        "overflow": overflow,
+        "changed_pixels": n_pix,
+        "detect_tiles": cdiv(H, HINT_TILE) * cdiv(W, HINT_TILE),
+    }
+    return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
+            stats, _out_hint(hint_mask, g_hint, overflow))
+
+
+def _full_stats(g: TileGeometry, tile_scale: int = 1) -> Dict[str, Any]:
     """Stats of a full (refresh) recompute, same keys as _run_gated's.
-    Counters known on the host stay Python numbers: no device work."""
+    Counters known on the host stay Python numbers: no device work.
+    ``tile_scale``: the ``patch_stem`` stem reports in configured-grid
+    tiles, several to one of its kernel tiles."""
     return {
-        "changed_tiles": g.n_tiles,
-        "computed_tiles": g.n_tiles,
-        "n_tiles": g.n_tiles,
+        "changed_tiles": g.n_tiles * tile_scale,
+        "computed_tiles": g.n_tiles * tile_scale,
+        "n_tiles": g.n_tiles * tile_scale,
         "overflow": False,
         "changed_pixels": g.in_h * g.in_w,
         "detect_tiles": cdiv(g.in_h, HINT_TILE) * cdiv(g.in_w, HINT_TILE),
@@ -320,8 +410,12 @@ def cb_conv_refresh(params, state: CBLayerState, x, spec: ConvSpec,
     storage_interior(state.in_cache, g).copy_(x)
     y = network.dense_conv(x.to(compute_dtype), w, b, spec, compute_dtype)
     _store_output(state, y, g)
+    tile_scale = 1
+    if cfg.backend == "patch_stem":
+        tile_scale = (cdiv(g.out_h, cfg.tile.tile_h)
+                      * cdiv(g.out_w, cfg.tile.tile_w)) // g.n_tiles
     return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
-            _full_stats(g), _full_hint(g, x.device))
+            _full_stats(g, tile_scale), _full_hint(g, x.device))
 
 
 def cb_pool_refresh(state: CBLayerState, x, spec: PoolSpec,
@@ -364,36 +458,50 @@ def fused_pool_gate(spec: PoolSpec, g: TileGeometry,
 def cb_pool_apply(state: CBLayerState, x, spec: PoolSpec,
                   cfg: PipelineConfig, tau=None,
                   hint: Optional[DirtyHint] = None):
-    """One frame through a change-based max-pool layer in forward-hint
-    mode: one fused kernel over the producer's dirty blocks, no detection,
-    tau unused. Returns (y: Feature, state, stats, out_hint)."""
-    del tau  # forwarding never inspects pixels
+    """One frame through a change-based max-pool layer. Returns
+    (y: Feature, state, stats, out_hint)."""
     cfg = _layer_cfg(spec, cfg)
     x, H, W, c = _unwrap(x)
     g = _geometry(spec, (H, W, c), cfg)
-    if not (spec.forward_hint and hint is not None
+    if (spec.forward_hint and hint is not None
             and fused_pool_gate(spec, g, cfg)):
-        raise NotImplementedError(
-            "only the hint-forwarded fused pool is ported (re-detecting "
-            f"pools need delta_pool_pallas); spec={spec}, "
-            f"hint={'present' if hint is not None else 'missing'}")
-    # hint tiles pair up in W into 8x16 blocks, as in the JAX package:
-    # the values would not change without it, the stats would
-    hm = hint.mask
-    pair = hm[:, 0::2] | hm[:, 1::2]
-    dcomp = compact.compact_mask(pair, pair.numel())
-    _, maskf = detect_pool_fused(x, state.out_cache, dcomp.idx, dcomp.count,
-                                 g, hint_h=HINT_TILE, hint_w=2 * HINT_TILE)
-    mask = maskf > 0.5
-    touched = mask.sum(dtype=torch.int32)
-    stats = {
-        "changed_tiles": touched,
-        "computed_tiles": touched,
-        "n_tiles": g.n_tiles,
-        "overflow": False,
-        # visited = hinted area, in 8x8 hint-tile units (2 per block)
-        "changed_pixels": dcomp.count * (2 * HINT_TILE * HINT_TILE),
-        "detect_tiles": dcomp.count * 2,
-    }
+        # forward-hint mode: one fused kernel over the producer's dirty
+        # blocks, no detection, tau unused. Hint tiles pair up in W into
+        # 8x16 blocks, as in the JAX package: the values would not change
+        # without it, the stats would
+        hm = hint.mask
+        pair = hm[:, 0::2] | hm[:, 1::2]
+        dcomp = compact.compact_mask(pair, pair.numel())
+        _, maskf = detect_pool_fused(x, state.out_cache, dcomp.idx,
+                                     dcomp.count, g, hint_h=HINT_TILE,
+                                     hint_w=2 * HINT_TILE)
+        mask = maskf > 0.5
+        touched = mask.sum(dtype=torch.int32)
+        stats = {
+            "changed_tiles": touched,
+            "computed_tiles": touched,
+            "n_tiles": g.n_tiles,
+            "overflow": False,
+            # visited = hinted area, in 8x8 hint-tile units (2 per block)
+            "changed_pixels": dcomp.count * (2 * HINT_TILE * HINT_TILE),
+            "detect_tiles": dcomp.count * 2,
+        }
+        return (Feature(state.out_cache, g.out_h, g.out_w, c), state, stats,
+                _out_hint(mask, g))
+
+    if spec.elide_in_cache:
+        # the converter only sets this when the fused gate above provably
+        # holds and the producer always hints: the input cache here is a
+        # (1, 1, 1) placeholder and cannot serve detection
+        raise AssertionError(
+            "elide_in_cache pool fell through the fused gate "
+            f"(hint={'present' if hint is not None else 'MISSING'}, "
+            f"backend={cfg.backend}); rebuild via the flagship converter")
+
+    def tile_fn(storage, idx, count, out_cache):
+        delta_pool(storage, idx, out_cache, g, count=count)
+
+    state, stats, out_hint = _run_gated(spec, state, x, g, cfg, tile_fn, tau,
+                                        hint)
     return (Feature(state.out_cache, g.out_h, g.out_w, c), state, stats,
-            _out_hint(mask, g))
+            out_hint)

@@ -5,7 +5,30 @@ from __future__ import annotations
 
 import torch
 
+from .delta_conv import gather_windows, scatter_tiles
 from .geometry import TileGeometry
+
+
+def pool_tiles(windows: torch.Tensor, g: TileGeometry) -> torch.Tensor:
+    """(n, win_h, win_w, c) -> (n, th, tw, c) max pool per tile."""
+    kh, kw = g.kernel
+    sh, sw = g.stride
+    y = None
+    for dy in range(kh):
+        for dx in range(kw):
+            patch = windows[:, dy:dy + (g.th - 1) * sh + 1:sh,
+                            dx:dx + (g.tw - 1) * sw + 1:sw]
+            y = patch if y is None else torch.maximum(y, patch)
+    return y
+
+
+def delta_pool_jnp(storage: torch.Tensor, ids: torch.Tensor,
+                   out_cache: torch.Tensor, g: TileGeometry) -> torch.Tensor:
+    """Gather + pool + scatter of tiles ``ids`` (int64, no sentinels) out
+    of the padded storage into ``out_cache`` IN PLACE. Named after the JAX
+    package's function it ports."""
+    return scatter_tiles(out_cache, ids,
+                         pool_tiles(gather_windows(storage, ids, g), g), g)
 
 
 def dense_pool(storage: torch.Tensor, g: TileGeometry) -> torch.Tensor:

@@ -13,6 +13,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import torch
+
+# dtype codes of the C interface (CB_F32, CB_BF16 in csrc/cb_common.cuh)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
 
 @dataclasses.dataclass
 class Kernel:
@@ -23,9 +28,12 @@ class Kernel:
     launches: int = 0
 
 
-from . import delta_conv, detect_sparse, pool_fused  # noqa: E402
+from . import (delta_conv, delta_pool, detect_full, detect_sparse,  # noqa: E402
+               pool_fused, stem_conv, stem_detect)
 
-KERNELS = (detect_sparse.KERNEL, delta_conv.KERNEL, pool_fused.KERNEL)
+KERNELS = (detect_sparse.KERNEL, delta_conv.KERNEL, pool_fused.KERNEL,
+           stem_detect.KERNEL, stem_conv.KERNEL, detect_full.KERNEL,
+           delta_pool.KERNEL)
 
 
 def reset_launches() -> None:

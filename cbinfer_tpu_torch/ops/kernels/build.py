@@ -22,7 +22,8 @@ from typing import Dict
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "kernels"
-SOURCES = ("detect_sparse", "delta_conv", "pool_fused")
+SOURCES = ("detect_sparse", "delta_conv", "pool_fused", "stem_detect",
+           "stem_conv", "detect_full", "delta_pool")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -40,7 +41,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "cb_common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(ARCH.encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"

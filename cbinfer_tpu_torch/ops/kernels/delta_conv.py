@@ -16,14 +16,12 @@ import torch
 
 from ..delta_conv import conv_tiles, gather_windows, scatter_tiles, tile_ids
 from ..geometry import TileGeometry
-from . import Kernel
+from . import DTYPE_CODE, Kernel
 from .build import check, library
 
 KERNEL = Kernel(name="delta_conv", route="cuda",
                 source="cbinfer_tpu_torch/csrc/delta_conv.cu",
                 replaces="cbinfer_tpu/ops/pallas/delta_conv.py:133")
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def delta_conv_plain(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -72,7 +70,7 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     # bf16: MMA k-steps of 16 input channels and n-tiles of 8 outputs;
     # float32: 16-byte staging and 4-wide output vectors
     cin_q, cout_q = (16, 8) if dtype == torch.bfloat16 else (4, 4)
-    if (dtype not in _DTYPE_CODE or w.dtype != dtype
+    if (dtype not in DTYPE_CODE or w.dtype != dtype
             or out_cache.dtype != dtype or dtype != compute_dtype
             or tuple(xp.shape) != g.store_shape or cin != g.cin
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, cout)
@@ -96,7 +94,7 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     err = _fn()(xp.data_ptr(), idx.data_ptr(), count.data_ptr(),
                 w.data_ptr(), b.data_ptr() if b is not None else None,
-                out_cache.data_ptr(), idx.numel(), _DTYPE_CODE[dtype], cin,
+                out_cache.data_ptr(), idx.numel(), DTYPE_CODE[dtype], cin,
                 cout, kh, kw, sh, sw, dh, dw, g.th, g.tw, g.win_h, g.win_w,
                 g.dx0, g.tiles_w, xp.shape[1] * cin, g.out_w_pad * cout,
                 int(activation == "relu"), int(b is not None), stream)

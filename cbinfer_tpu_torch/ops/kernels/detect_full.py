@@ -1,0 +1,86 @@
+"""Full-map change detection for a layer without a dirty hint (B7).
+
+Replaces ``cbinfer_tpu/ops/pallas/detect.py::detect_full_pallas``. The CUDA
+source (``csrc/detect_full.cu``) carries the design note: bytes bound it on
+the H100 (x and the cache are read once each); 8-row x 32-pixel blocks in
+any order, one warp per row, the per-pixel step shared with the sparse
+detect kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import detect as detect_ops
+from ..delta_conv import storage_interior
+from ..geometry import TileGeometry
+from . import DTYPE_CODE, Kernel
+from .build import check, library
+
+KERNEL = Kernel(name="detect_full", route="cuda",
+                source="cbinfer_tpu_torch/csrc/detect_full.cu",
+                replaces="cbinfer_tpu/ops/pallas/detect.py:140")
+
+
+def detect_full_plain(x: torch.Tensor, storage: torch.Tensor, tau,
+                      g: TileGeometry):
+    """Plain PyTorch version (same signature and results as the kernel):
+    ``x`` cast to the cache dtype first, the full-map detect, the windowed
+    OR onto the layer's out-tile grid. Updates ``storage`` in place;
+    returns (storage, mask f32 (tiles_h, tiles_w), npix int32 (1,))."""
+    interior = storage_interior(storage, g)
+    xi = x[:g.in_h, :g.in_w].to(storage.dtype)
+    new, changed = detect_ops.detect_and_update(xi, interior, tau)
+    interior.copy_(new)
+    mask = detect_ops.changed_tile_mask(changed, g).float()
+    return storage, mask, changed.sum(dtype=torch.int32).reshape(1)
+
+
+def _fn():
+    f = library("detect_full").cb_detect_full
+    if f.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f.argtypes = [vp] * 4 + [ctypes.c_float] + [i] * 4 + [ll, ll] \
+            + [i] * 10 + [vp]
+        f.restype = ctypes.c_int
+    return f
+
+
+def detect_full(x: torch.Tensor, storage: torch.Tensor, tau,
+                g: TileGeometry):
+    """Detect + accept + dilate over the whole input map.
+
+    x: (>=H, >=W, C) current input (only logical coordinates are read),
+    compared in the cache dtype. storage: this layer's padded input cache
+    (conv: zero margins; pool: the finite "-inf" fill), UPDATED IN PLACE
+    (the JAX package donates and aliases it). Returns (storage, mask f32
+    (tiles_h, tiles_w), npix int32 (1,))."""
+    H, W = g.in_h, g.in_w
+    if x.device.type == "cpu" and storage.device.type == "cpu":
+        return detect_full_plain(x, storage, tau, g)
+    if not (x.is_cuda and storage.is_cuda):
+        raise ValueError("detect_full: tensors must all be on the card")
+    x = x.to(storage.dtype)  # the JAX kernel compares in the cache dtype
+    C = storage.shape[-1]
+    if (storage.dtype not in DTYPE_CODE or x.shape[-1] != C or C % 2
+            or x.shape[0] < H or x.shape[1] < W
+            or tuple(storage.shape) != g.store_shape[:2] + (C,)
+            or not x.is_contiguous() or not storage.is_contiguous()):
+        raise ValueError(
+            f"detect_full: unsupported operands x{tuple(x.shape)} {x.dtype} "
+            f"storage{tuple(storage.shape)} {storage.dtype} for {g}")
+    mask = torch.zeros((g.tiles_h, g.tiles_w), dtype=torch.float32,
+                       device=storage.device)
+    npix = torch.zeros((1,), dtype=torch.int32, device=storage.device)
+    sh, sw = g.stride
+    stream = torch.cuda.current_stream(storage.device).cuda_stream
+    err = _fn()(x.data_ptr(), storage.data_ptr(), mask.data_ptr(),
+                npix.data_ptr(), float(tau), DTYPE_CODE[storage.dtype], H,
+                W, C, x.shape[1] * C, storage.shape[1] * C, g.store_lo_h,
+                g.store_lo_w, g.tiles_h, g.tiles_w, g.th * sh, g.tw * sw,
+                g.pad_lo_h, g.pad_lo_w, g.win_h, g.win_w, stream)
+    check(err, "detect_full")
+    KERNEL.launches += 1
+    return storage, mask, npix

@@ -17,7 +17,7 @@ import torch
 from .. import detect as detect_ops
 from ..delta_conv import storage_interior, tile_ids
 from ..geometry import TileGeometry, cdiv
-from . import Kernel
+from . import DTYPE_CODE, Kernel
 from .build import check, library
 
 HINT = 8
@@ -25,8 +25,6 @@ HINT = 8
 KERNEL = Kernel(name="detect_sparse", route="cuda",
                 source="cbinfer_tpu_torch/csrc/detect_sparse.cu",
                 replaces="cbinfer_tpu/ops/pallas/detect.py:316")
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def detect_sparse_plain(x: torch.Tensor, storage: torch.Tensor, tau,
@@ -84,7 +82,7 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
     if not (x.is_cuda and storage.is_cuda and idx.is_cuda
             and count.is_cuda):
         raise ValueError("detect_sparse: tensors must all be on the card")
-    if (storage.dtype not in _DTYPE_CODE or x.shape[-1] != C or C % 2
+    if (storage.dtype not in DTYPE_CODE or x.shape[-1] != C or C % 2
             or x.shape[0] < H or x.shape[1] < W
             or tuple(storage.shape) != g.store_shape[:2] + (C,)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
@@ -104,7 +102,7 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     err = _fn()(x.data_ptr(), storage.data_ptr(), idx.data_ptr(),
                 count.data_ptr(), mask.data_ptr(), npix.data_ptr(),
-                idx.numel(), float(tau), _DTYPE_CODE[storage.dtype], H, C,
+                idx.numel(), float(tau), DTYPE_CODE[storage.dtype], H, C,
                 W // HINT, x.shape[1] * C, storage.shape[1] * C,
                 g.store_lo_h, g.store_lo_w, g.tiles_h, g.tiles_w,
                 g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w, g.win_h,

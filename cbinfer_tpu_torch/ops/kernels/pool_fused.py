@@ -14,14 +14,12 @@ import torch
 
 from ..delta_conv import tile_ids
 from ..geometry import TileGeometry
-from . import Kernel
+from . import DTYPE_CODE, Kernel
 from .build import check, library
 
 KERNEL = Kernel(name="detect_pool_fused", route="cuda",
                 source="cbinfer_tpu_torch/csrc/pool_fused.cu",
                 replaces="cbinfer_tpu/ops/pallas/delta_pool.py:191")
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_geometry(g: TileGeometry, hint_h: int, hint_w: int) -> int:
@@ -87,7 +85,7 @@ def detect_pool_fused(x: torch.Tensor, out_cache: torch.Tensor,
     C = out_cache.shape[-1]
     if not all(t.is_cuda for t in (x, out_cache, idx, count)):
         raise ValueError("detect_pool_fused: tensors must all be on the card")
-    if (out_cache.dtype not in _DTYPE_CODE or x.shape[-1] != C or C % 2
+    if (out_cache.dtype not in DTYPE_CODE or x.shape[-1] != C or C % 2
             or x.shape[0] < g.in_h or x.shape[1] < g.in_w
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, C)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
@@ -105,7 +103,7 @@ def detect_pool_fused(x: torch.Tensor, out_cache: torch.Tensor,
     stream = torch.cuda.current_stream(out_cache.device).cuda_stream
     err = _fn()(x.data_ptr(), out_cache.data_ptr(), idx.data_ptr(),
                 count.data_ptr(), mask.data_ptr(), idx.numel(),
-                _DTYPE_CODE[out_cache.dtype], C, g.in_w // hint_w, hint_h,
+                DTYPE_CODE[out_cache.dtype], C, g.in_w // hint_w, hint_h,
                 hint_w, pool, g.tiles_w, x.shape[1] * C, g.out_w_pad * C,
                 stream)
     check(err, "detect_pool_fused")

@@ -25,14 +25,21 @@ def _f32(v):
 def scan_video(net: CBNet, params, frames: torch.Tensor,
                state: Optional[List] = None, collect_stats=True,
                thresholds: Optional[Sequence[float]] = None,
+               refresh_every: Optional[int] = None, frame_offset: int = 0,
                refresh_start: bool = False,
                out_map: Optional[Callable] = None):
     """Run a (T, H, W, C) clip through the CB net frame by frame.
 
     Returns (outputs stacked over T, final_state, stats). ``state`` (default
-    a fresh ``net.init_state()``) is updated in place. ``refresh_start``
-    runs frame 0 through ``net.apply_refresh`` (the chunk-start refresh of
-    chunked streaming). ``out_map`` transforms each frame's output before
+    a fresh ``net.init_state()``) is updated in place. ``refresh_every=K``
+    runs every frame with ``(frame_offset + t) % K == 0`` through
+    ``net.apply_refresh``: the accepted-value rule lets a cache drift up to
+    tau from the exactly computed value indefinitely, and a periodic full
+    recompute bounds that staleness to K frames; ``frame_offset`` (a host
+    int) keeps the phase across successive calls on one stream.
+    ``refresh_start`` instead runs frame 0 of THIS call through
+    ``net.apply_refresh`` (the chunk-start refresh of chunked streaming);
+    the two are mutually exclusive. ``out_map`` transforms each frame's output before
     stacking (e.g. an argmax to uint8 class maps). ``collect_stats``:
     ``True`` stacks each per-layer counter over T, ``"mean"`` returns its
     float32 mean over the clip (0-dim device tensors, or floats for the
@@ -43,13 +50,19 @@ def scan_video(net: CBNet, params, frames: torch.Tensor,
         state = net.init_state()
     if collect_stats not in (True, False, "mean"):
         raise ValueError(f"collect_stats={collect_stats!r}")
+    if refresh_start and refresh_every is not None:
+        raise ValueError("refresh_start replaces refresh_every; use one")
     n = frames.shape[0]
     if n == 0:
         raise ValueError("scan_video needs at least one frame")
     ys, per_frame = [], []
     acc = None
     for t in range(n):
-        step = net.apply_refresh if (refresh_start and t == 0) else net.apply
+        if refresh_every is not None:
+            refresh = (frame_offset + t) % refresh_every == 0
+        else:
+            refresh = refresh_start and t == 0
+        step = net.apply_refresh if refresh else net.apply
         y, state, stats = step(params, state, frames[t], thresholds)
         ys.append(out_map(y) if out_map is not None else y)
         if collect_stats == "mean":

@@ -4,8 +4,8 @@
 A fixed smooth near-gray background plus moving square sprites whose class
 is their palette color. For the same config the frames and labels are
 byte-identical to the JAX package's ``SpriteVideo`` (same generator, same
-draw order). The hard palette, the graded-change dynamics, camera pan and
-pose supervision of the original are not copied.
+draw order), on the default and the ``"hard"`` palette. The graded-change
+dynamics, camera pan and pose supervision of the original are not copied.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ class SpriteVideoConfig:
     speed: float = 2.0             # pixels / frame
     noise_std: float = 0.0         # per-pixel sensor noise
     seed: int = 0
+    palette: str = "default"       # "default" | "hard" (CLASS_PALETTE_HARD)
 
 
 CLASS_PALETTE = np.array([
@@ -58,6 +59,9 @@ CLASS_PALETTE = np.array([
     [0.10, 0.88, 0.88],   # class 6: cyan
     [0.95, 0.55, 0.10],   # class 7: orange
 ], dtype=np.float32)
+# HARD variant: every class compressed toward mid-gray (max channel
+# contrast ~0.14 against ~0.85), so tau-scale cache drift moves argmaxes.
+CLASS_PALETTE_HARD = 0.5 + 0.16 * (CLASS_PALETTE - 0.5)
 BG_CHROMA = 0.12  # background per-channel deviation around the gray
 
 
@@ -74,10 +78,14 @@ class SpriteVideo:
             0.0, 1.0).astype(np.float32)
         self.classes = 1 + rng.integers(0, len(CLASS_PALETTE),
                                         cfg.n_sprites).astype(np.int32)
-        base = np.stack([np.resize(CLASS_PALETTE[c - 1], cfg.channels)
+        if cfg.palette not in ("default", "hard"):
+            raise ValueError(f"unknown palette {cfg.palette!r}")
+        pal = CLASS_PALETTE if cfg.palette == "default" else CLASS_PALETTE_HARD
+        base = np.stack([np.resize(pal[c - 1], cfg.channels)
                          for c in self.classes]) if cfg.n_sprites \
             else np.zeros((0, cfg.channels), np.float32)
-        jitter = rng.uniform(-0.04, 0.04,
+        jit_amp = 0.04 if cfg.palette == "default" else 0.01
+        jitter = rng.uniform(-jit_amp, jit_amp,
                              (cfg.n_sprites, cfg.channels)).astype(np.float32)
         self.colors = np.clip(base + jitter, 0.0, 1.0).astype(np.float32)
         self.pos = rng.uniform(0, [cfg.height - cfg.sprite_size,
@@ -142,3 +150,22 @@ class SpriteVideo:
             ls.append(self.label())
             self.step()
         return np.stack(fs), np.stack(ls)
+
+
+# Which distribution each workload is trained, tuned and evaluated on, so a
+# tau vector calibrated on one is never run on video from another. The
+# graded-change profiles of seg and pose wait for those workloads.
+_WORKLOAD_PROFILES = {
+    "scene": {},
+    "scene_hard": {"palette": "hard"},
+}
+
+
+def workload_video_kwargs(name: str) -> dict:
+    """SpriteVideoConfig kwargs of a workload's evaluation distribution.
+    Merge them into SpriteVideoConfig(...) before per-call fields like
+    height and seed; unknown names raise."""
+    if name in _WORKLOAD_PROFILES:
+        return dict(_WORKLOAD_PROFILES[name])
+    raise KeyError(f"no video profile for workload {name!r} "
+                   f"(have {sorted(_WORKLOAD_PROFILES)})")

@@ -3,24 +3,40 @@
 
     python3 chip_smoke.py
 
+Three paths of the 720p scene network (w128, trained weights, tuned taus,
+bf16 caches and compute, 8x8 tiles, capacity 0.375, T=32 chunks) are driven
+through the entry points a user calls:
+  flagship    zoo.load("scene"): the sparse patch_stem stem, forward-hint
+              pools, kernel convs (the configuration bench.py builds)
+  dense_stem  convert_flagship(..., extra_overrides={0: "dense_cached"}):
+              the same with the stem recomputed densely every frame
+  hintless    convert(..., dense_layers=(0, 6)): the plain converter; the
+              stem runs dense, so the first pool detects the full map and
+              both pools re-detect
+
 Phases, each printing one JSON line:
-  card      the card's name and power limit (nvidia-smi), torch and CUDA
-  build     nvcc builds the kernels from cbinfer_tpu_torch/csrc/ (sm_90a)
-  small     the slice at 64x128 (scene w16, float32) on the card against
-            the same run on the CPU's plain versions: identical per-layer
-            stats and argmax maps, logits within 1e-3
-  main      the 720p scene path (w128, trained weights, tuned taus, stem
-            override {0: "dense_cached"}, bf16, T=32 chunks with the
-            REFRESH_scene.json cadence): CB and dense fps timed with CUDA
-            events over distinct chunks, argmax-u8 on both paths; the
-            launch counters over the timed CB run, which runs under
-            torch.cuda.set_sync_debug_mode("error") (no host sync in the
-            frame loop); an untimed pass for
-            GT-mIoU (CB and dense) and the effective-FLOP reduction
-  check     each kernel against its plain version on the inputs the main
-            path gave it on one steady-state frame, plus count = 0 and an
-            all-dirty hint grid (the clamped bottom edge)
-  kernels   every kernel: launches, ms per launch, plain ms, bound ms
+  card        the card's name and power limit (nvidia-smi), torch and CUDA
+  build       nvcc builds the kernels from cbinfer_tpu_torch/csrc/ (sm_90a)
+  small       each path at 64x128 (scene w16, float32) on the card against
+              the same run on the CPU's plain versions: identical per-layer
+              stats and argmax maps, logits within 1e-3
+  main        flagship: 8 timed chunks with the REFRESH_scene.json cadence,
+              CB and dense fps by CUDA events, argmax-u8 on both paths; the
+              launch counters over the timed CB run, which runs under
+              torch.cuda.set_sync_debug_mode("error") (no host sync in the
+              frame loop); an untimed seed-0 pass for GT-mIoU (CB and
+              dense) and the effective-FLOP reduction
+  main_dense_stem  dense_stem: 2 timed chunks, interleaved chunk by chunk
+              with 2 more flagship chunks (A S S A), so the stem comparison
+              does not ride on the host's load between calls
+  hintless    hintless: 2 timed chunks, counters, FLOP reduction, GT-mIoU
+              (recorded, not gated: the taus were tuned for the flagship)
+  check       each of the seven kernels against its plain version on the
+              inputs its path gave it on one steady-state frame, plus
+              count = 0, all-dirty lists, tau = -1 for the full-map
+              detects, the capacity overflow of the stem conv, and the
+              sparse detect on a pool's geometry
+  kernels     every kernel: launches, ms per launch, plain ms, bound ms
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line; without CUDA it exits 2 at once.
 """
@@ -30,14 +46,25 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 H, W, T = 720, 1280, 32
-CHUNKS = 8            # timed chunks of distinct frames
+CHUNKS = 8            # timed flagship chunks of distinct frames
+SIDE_CHUNKS = 2       # timed chunks of each other path
 NUM_CLASSES = 8
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 REPO = os.path.dirname(os.path.abspath(__file__))
 RESULTS = {}
+# kernels launched per steady (non-refresh) frame of each path
+PER_FRAME = {
+    "flagship": {"stem_detect": 1, "stem_conv": 1, "detect_pool_fused": 2,
+                 "detect_sparse": 3, "delta_conv": 3},
+    "dense_stem": {"detect_pool_fused": 2, "detect_sparse": 3,
+                   "delta_conv": 3},
+    "hintless": {"detect_full": 1, "delta_pool": 2, "detect_sparse": 4,
+                 "delta_conv": 3},
+}
 
 
 def emit(phase, **kw):
@@ -61,6 +88,15 @@ def main():
     import numpy as np
     import cbinfer_tpu_torch  # noqa: F401  (fails alone, outside the repo)
 
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
     smi = nvidia_smi("name,power.limit")
     print(smi, flush=True)
     emit("card", nvidia_smi=smi, torch=torch.__version__,
@@ -68,15 +104,21 @@ def main():
          count=torch.cuda.device_count())
 
     from cbinfer_tpu_torch.ops.kernels import build
-    info = build.build_all()
+    info = phase("build", build.build_all)
     emit("build", seconds=info["seconds"],
          ptxas={k: [ln.strip() for ln in v.splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in info["ptxas"].items()})
 
-    small_parity(torch, np)
-    main_path(torch, np)
+    phase("small", small_parity, torch, np)
+    ctx = phase("setup", make_context, torch, np)
+    calls = phase("main", main_path, torch, np, ctx)
+    phase("main_dense_stem", dense_stem_path, torch, ctx)
+    calls += phase("hintless", hintless_path, torch, np, ctx)
+    phase("check", check_kernels, torch, np, calls)
     emit_kernels()
+    seconds["total"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"phase": "seconds", **seconds}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -86,10 +128,21 @@ def main():
 # ------------------------------- small parity --------------------------------
 
 
+def build_net(path, specs, in_shape, cfg, thresholds=None):
+    """The path's network through the port's converters."""
+    from cbinfer_tpu_torch.convert import convert, convert_flagship
+    if path == "flagship":
+        return convert_flagship(specs, in_shape, cfg, thresholds=thresholds)
+    if path == "dense_stem":
+        return convert_flagship(specs, in_shape, cfg, thresholds=thresholds,
+                                extra_overrides={0: "dense_cached"})
+    return convert(specs, in_shape, cfg, thresholds=thresholds,
+                   dense_layers=(0, len(specs) - 1))
+
+
 def small_parity(torch, np):
-    """The 64x128 slice of tests/test_torch_scene_slice.py, card vs CPU."""
+    """The 64x128 slices of tests/test_torch_scene_slice.py, card vs CPU."""
     from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
-    from cbinfer_tpu_torch.convert import convert_flagship
     from cbinfer_tpu_torch.models import get_model
     from cbinfer_tpu_torch.network import init_params
     from cbinfer_tpu_torch.runner import scan_video
@@ -98,162 +151,139 @@ def small_parity(torch, np):
     specs = get_model("scene", num_classes=NUM_CLASSES, width=16)
     clip = SpriteVideo(SpriteVideoConfig(height=h, width=w, n_sprites=2,
                                          sprite_size=12, seed=3)).clip(n)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device=dev)
-        net = convert_flagship(specs, (h, w, 3), cfg, thresholds=[0.05] * 6,
-                               extra_overrides={0: "dense_cached"})
-        params = init_params(specs, (h, w, 3), seed=3, device=dev)
-        ys, _, stats = scan_video(net, params,
-                                  torch.from_numpy(clip).to(dev),
-                                  refresh_start=True)
-        out[dev] = (ys.cpu(), [{k: torch.as_tensor(v).cpu().tolist()
-                                for k, v in s.items()} for s in stats])
-    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
-    same_maps = bool(torch.equal(out["cuda"][0].argmax(-1),
-                                 out["cpu"][0].argmax(-1)))
-    emit("small", max_abs_err=err, stats_equal=out["cuda"][1] == out["cpu"][1],
-         argmax_equal=same_maps)
-    if not (err < 1e-3 and same_maps and out["cuda"][1] == out["cpu"][1]):
-        raise AssertionError(f"card run disagrees with the CPU run: {err}")
+    report = {}
+    for path in PER_FRAME:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device=dev)
+            taus = [0.05] * (7 if path == "hintless" else 6)
+            net = build_net(path, specs, (h, w, 3), cfg, taus)
+            params = init_params(specs, (h, w, 3), seed=3, device=dev)
+            ys, _, stats = scan_video(net, params,
+                                      torch.from_numpy(clip).to(dev),
+                                      refresh_start=True)
+            out[dev] = (ys.cpu(), [{k: torch.as_tensor(v).cpu().tolist()
+                                    for k, v in s.items()} for s in stats])
+        err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        same_maps = bool(torch.equal(out["cuda"][0].argmax(-1),
+                                     out["cpu"][0].argmax(-1)))
+        same_stats = out["cuda"][1] == out["cpu"][1]
+        report[path] = dict(max_abs_err=err, stats_equal=same_stats,
+                            argmax_equal=same_maps)
+        if not (err < 1e-3 and same_maps and same_stats):
+            raise AssertionError(f"{path}: the card run disagrees with the "
+                                 f"CPU run: {report[path]}")
+    emit("small", **report)
 
 
-# --------------------------------- main path ---------------------------------
+# ------------------------------ the 720p paths -------------------------------
 
 
-def main_path(torch, np):
-    from cbinfer_tpu_torch import layers as L
-    from cbinfer_tpu_torch.checkpoint import load_npz_params
-    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
-    from cbinfer_tpu_torch.convert import convert_flagship, num_cb_layers
-    from cbinfer_tpu_torch.metrics import effective_flops, iu_counts, merge_iu
-    from cbinfer_tpu_torch.models import get_model
-    from cbinfer_tpu_torch.network import init_params, out_shapes
-    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+def make_context(torch, np):
+    """What the three 720p phases share: the workload (weights, taus and
+    refresh cadence through the zoo), frames, and the timing helpers."""
+    from cbinfer_tpu_torch import zoo
     from cbinfer_tpu_torch.runner import scan_video
-    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
-
-    specs = get_model("scene", num_classes=NUM_CLASSES, width=128)
-    with open(os.path.join(REPO, "ckpts", "scene_w128_tau.json")) as f:
-        taus = json.load(f)["thresholds"]
-    with open(os.path.join(REPO, "REFRESH_scene.json")) as f:
-        rj = json.load(f)
-    if rj["T"] != T or rj["shape"] != [H, W]:
-        raise AssertionError(f"REFRESH_scene.json is for {rj['T']} "
-                             f"{rj['shape']}, not {T} {[H, W]}")
-    cadence = min(int(rj["refresh_every_chunks"]), CHUNKS)
-    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375),
-                         compute_dtype="bfloat16", cache_dtype="bfloat16",
-                         device="cuda")
-    net = convert_flagship(specs, (H, W, 3), cfg, thresholds=taus,
-                           extra_overrides={0: "dense_cached"})
-    assert num_cb_layers(net.specs) == len(taus)
-    params = load_npz_params(
-        os.path.join(REPO, "ckpts", "scene_w128.npz"),
-        init_params(specs, (H, W, 3), device="cuda", dtype=torch.bfloat16),
-        specs)
-
-    def out_u8(y):
-        return y.argmax(-1).to(torch.uint8)
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    wl = zoo.load("scene", (H, W, 3))
+    if wl.weights != "trained(npz)" or wl.tau_source != "tuned" \
+            or wl.warnings:
+        raise AssertionError(f"zoo.load: {wl.weights} {wl.tau_source} "
+                             f"{wl.warnings}")
+    cadence, cadence_src = zoo.load_refresh_cadence("scene", T, H, W)
+    if not cadence_src.endswith("REFRESH_scene.json"):
+        raise AssertionError(f"refresh cadence: {cadence_src}")
 
     def video(seed):
         return SpriteVideo(SpriteVideoConfig(
             height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
-            noise_std=0.002, seed=seed))
+            noise_std=0.002, seed=seed, **workload_video_kwargs("scene")))
+
+    def out_u8(y):
+        return y.argmax(-1).to(torch.uint8)
+
+    def cb_chunk(net, taus, ch, state, refresh, stats=False):
+        return scan_video(net, wl.params, ch, state, collect_stats=stats,
+                          thresholds=taus, refresh_start=refresh,
+                          out_map=out_u8)
+
+    def dense_chunk(ch):
+        return torch.stack([out_u8(wl.net.apply_dense(wl.params, f))
+                            for f in ch])
+
+    def warm_state(net, taus, warm):
+        """A steady state: cold start, allocator, algorithm choices."""
+        state = net.init_state()
+        state = cb_chunk(net, taus, warm, state, True)[1]
+        return cb_chunk(net, taus, warm, state, False)[1]
 
     tv = video(int(time.time() * 1e3) % 100000)
     warm = torch.from_numpy(tv.clip(T)).cuda()
     chunks = [torch.from_numpy(tv.clip(T)).cuda() for _ in range(CHUNKS)]
+    return types.SimpleNamespace(
+        wl=wl, cadence=min(cadence, CHUNKS), video=video, out_u8=out_u8,
+        cb_chunk=cb_chunk, dense_chunk=dense_chunk, warm_state=warm_state,
+        warm=warm, chunks=chunks, accuracy=None, state=None)
 
-    def cb_chunk(ch, state, refresh, stats=False):
-        return scan_video(net, params, ch, state, collect_stats=stats,
-                          refresh_start=refresh, out_map=out_u8)
 
-    def dense_chunk(ch):
-        return torch.stack([out_u8(net.apply_dense(params, f)) for f in ch])
-
-    def timed(fn):
-        """(result, device ms between events, host CPU ms of this thread
-        while enqueuing: the host's own work, whatever else the host runs)"""
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        c0 = time.thread_time()
-        e0.record()
-        r = fn()
-        e1.record()
-        c1 = time.thread_time()
-        torch.cuda.synchronize()
-        return r, e0.elapsed_time(e1), (c1 - c0) * 1e3
-
-    torch.cuda.reset_peak_memory_stats()
-    # warm-up (untimed): cold start, allocator, cuDNN algorithm choice
-    state = net.init_state()
-    state = cb_chunk(warm, state, True)[1]
-    state = cb_chunk(warm, state, False)[1]
-    dense_chunk(warm)
+def timed(torch, fn):
+    """(result, device ms between events, host CPU ms of this thread while
+    enqueuing: the host's own work, whatever else the host runs)"""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    c0 = time.thread_time()
+    e0.record()
+    r = fn()
+    e1.record()
+    c1 = time.thread_time()
+    torch.cuda.synchronize()
+    return r, e0.elapsed_time(e1), (c1 - c0) * 1e3
 
-    # an event after every chunk too: the host-bound CB loop swings with
-    # the host's load, and per-chunk times show the spread
-    marks = {k: [torch.cuda.Event(enable_timing=True)
-                 for _ in range(CHUNKS + 1)] for k in ("cb", "dense")}
 
-    def cb_run():
-        # the frame loop must never wait for the card: any implicit host
-        # sync (a .item(), a host-to-device copy of a Python value) raises
-        nonlocal state
-        ys = None
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            marks["cb"][0].record()
-            for i, ch in enumerate(chunks):
-                ys, state, _ = cb_chunk(ch, state, i % cadence == 0)
-                marks["cb"][i + 1].record()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        return ys
+def no_sync(torch, fn):
+    """Run the frame loop so that any implicit host sync (a .item(), a
+    host-to-device copy of a Python value) raises: it must only enqueue."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
-    def dense_run():
-        marks["dense"][0].record()
-        for i, ch in enumerate(chunks):
-            dn = dense_chunk(ch)
-            marks["dense"][i + 1].record()
-        return dn
 
-    def chunk_ms(key):
-        m = marks[key]
-        return [m[i].elapsed_time(m[i + 1]) / T for i in range(CHUNKS)]
-
-    reset_launches()
-    ys, cb_ms, cb_host_ms = timed(cb_run)
-    counts = launches()
-    n_refresh = sum(1 for i in range(CHUNKS) if i % cadence == 0)
-    steady = CHUNKS * T - n_refresh
-    want = {"detect_sparse": 3 * steady, "delta_conv": 3 * steady,
-            "detect_pool_fused": 2 * steady}
+def expect_launches(path, counts, steady_frames):
+    """The path went through its kernels: exactly the per-frame numbers,
+    and nothing else was launched."""
+    want = {k: 0 for k in counts}
+    want.update({k: v * steady_frames for k, v in PER_FRAME[path].items()})
     if counts != want:
-        raise AssertionError(f"launches {counts} != {want}")
-    if ys.shape != (T, H // 4, W // 4) or ys.dtype != torch.uint8:
-        raise AssertionError(f"CB output {tuple(ys.shape)} {ys.dtype}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
-    dn, dense_ms, dense_host_ms = timed(dense_run)
-    frames = CHUNKS * T
-    cb_fps, dense_fps = frames / (cb_ms / 1e3), frames / (dense_ms / 1e3)
+        raise AssertionError(f"{path}: launches {counts} != {want}")
 
-    # ---- untimed accuracy + FLOP pass on the fixed seed-0 clip ----
-    av = video(0)
+
+def accuracy_pass(torch, np, ctx, net, taus, n_chunks, cadence):
+    """Untimed pass over the fixed seed-0 clip: GT-mIoU of the CB maps and
+    of the dense maps (computed once, kept for the later paths), their
+    agreement, and the per-layer stats means. Returns (miou dict, effective
+    flops, the CB state after the pass, the seed-0 video)."""
+    from cbinfer_tpu_torch.metrics import effective_flops, iu_counts, merge_iu
+    from cbinfer_tpu_torch.network import out_shapes
+    av = ctx.video(0)
     stride = H // out_shapes(net.specs, (H, W, 3))[-1][0]
+    if ctx.accuracy is None:
+        ctx.accuracy = []
     sums = {k: [0, 0] for k in ("cb", "dense", "agree")}
     chunk_stats = []
-    acc_state = net.init_state()
-    for i in range(max(2, cadence)):
+    state = net.init_state()
+    for i in range(n_chunks):
         ch, lab = av.clip_with_labels(T)
         ch = torch.from_numpy(ch).cuda()
-        lab = torch.from_numpy(lab[:, ::stride, ::stride]).cuda()
-        dmap = dense_chunk(ch)
-        cmap, acc_state, st = cb_chunk(ch, acc_state, i % cadence == 0,
-                                       stats="mean")
+        if i == len(ctx.accuracy):
+            ctx.accuracy.append((
+                torch.from_numpy(lab[:, ::stride, ::stride]).cuda(),
+                ctx.dense_chunk(ch)))
+        lab, dmap = ctx.accuracy[i]
+        cmap, state, st = ctx.cb_chunk(net, taus, ch, state,
+                                       i % cadence == 0, stats="mean")
         chunk_stats.append([{k: float(v) for k, v in s.items()} for s in st])
         skip = 8 if i == 0 else 0  # cold start is exact by construction
         for key, a, b in (("cb", cmap, lab), ("dense", dmap, lab),
@@ -264,33 +294,29 @@ def main_path(torch, np):
     stats = [{k: np.array([c[li][k] for c in chunk_stats]) for k in s}
              if s else {} for li, s in enumerate(chunk_stats[0])]
     ef = effective_flops(stats, net.specs, (H, W, 3), 8, 8)
-    m_cb, m_dense = merge_iu(*sums["cb"]), merge_iu(*sums["dense"])
-    emit("main", cb_fps=cb_fps, dense_fps=dense_fps,
-         vs_baseline=cb_fps / dense_fps, cb_ms_per_frame=cb_ms / frames,
-         dense_ms_per_frame=dense_ms / frames, frames_timed=frames,
-         cb_host_cpu_ms_per_frame=cb_host_ms / frames,
-         dense_host_cpu_ms_per_frame=dense_host_ms / frames,
-         cb_chunk_ms_per_frame=chunk_ms("cb"),
-         dense_chunk_ms_per_frame=chunk_ms("dense"),
-         refresh_every_chunks=cadence, launches=counts,
-         miou_gt_cb=m_cb, miou_gt_dense=m_dense,
-         miou_degradation=m_dense - m_cb,
-         miou_vs_dense=merge_iu(*sums["agree"]),
-         flop_reduction=ef["flop_reduction"], peak_mem_gib=peak_gib,
-         smi_after_cb=clocks, weights="ckpts/scene_w128.npz",
-         taus=taus, stem="dense_cached")
-    if not m_dense - m_cb <= 0.005:
-        raise AssertionError(f"GT-mIoU degradation {m_dense - m_cb} > 0.005")
+    miou = {k: merge_iu(*v) for k, v in sums.items()}
+    stem = stats[0]
+    stem_tiles = ({"computed": float(np.mean(stem["computed_tiles"])),
+                   "n_tiles": float(np.max(stem["n_tiles"])),
+                   "overflow_share": float(np.mean(stem["overflow"]))}
+                  if stem else None)
+    return miou, ef, stem_tiles, state, av
 
-    # ---- capture one steady-state frame's kernel calls ----
+
+def capture_frame(torch, ctx, path, net, taus, state, av):
+    """One more (steady-state) frame with every kernel call recorded: the
+    inputs each kernel of the path gets at the path's own shapes."""
+    from cbinfer_tpu_torch import layers as L
     calls = []
-    names = ("detect_sparse", "delta_conv", "detect_pool_fused")
+    names = ("detect_sparse", "delta_conv", "detect_pool_fused",
+             "stem_detect", "stem_conv", "detect_full", "delta_pool")
     saved = {n: getattr(L, n) for n in names}
 
     def recorder(name):
         def wrapper(*args, **kw):
-            calls.append((name, [a.clone() if torch.is_tensor(a) else a
-                                 for a in args],
+            calls.append((path, name,
+                          [a.clone() if torch.is_tensor(a) else a
+                           for a in args],
                           {k: v.clone() if torch.is_tensor(v) else v
                            for k, v in kw.items()}))
             return saved[name](*args, **kw)
@@ -300,15 +326,185 @@ def main_path(torch, np):
     try:
         for n in names:
             setattr(L, n, recorder(n))
-        logits = net.apply(params, acc_state, nxt[0])[0]
+        logits = net.apply(ctx.wl.params, state, nxt[0], taus)[0]
     finally:
         for n in names:
             setattr(L, n, saved[n])
     if (tuple(logits.shape) != (H // 4, W // 4, NUM_CLASSES)
             or not bool(torch.isfinite(logits).all())):
-        raise AssertionError(f"logits {tuple(logits.shape)} not finite or "
-                             "of the wrong shape")
-    check_kernels(torch, np, calls)
+        raise AssertionError(f"{path}: logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    got = {}
+    for _, name, _, _ in calls:
+        got[name] = got.get(name, 0) + 1
+    if got != PER_FRAME[path]:
+        raise AssertionError(f"{path}: a steady frame called {got}, not "
+                             f"{PER_FRAME[path]}")
+    return calls
+
+
+def main_path(torch, np, ctx):
+    """The exact flagship, as zoo.load builds it."""
+    from cbinfer_tpu_torch.convert import num_cb_layers
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    net, taus, cadence, chunks = ctx.wl.net, ctx.wl.taus, ctx.cadence, \
+        ctx.chunks
+    if net.specs[0].backend != "patch_stem" \
+            or num_cb_layers(net.specs) != len(taus):
+        raise AssertionError(f"not the flagship: {net.specs[0]}")
+    torch.cuda.reset_peak_memory_stats()
+    state = ctx.warm_state(net, taus, ctx.warm)
+    ctx.dense_chunk(ctx.warm)
+    torch.cuda.synchronize()
+
+    # an event after every chunk too: the host-bound CB loop swings with
+    # the host's load, and per-chunk times show the spread
+    marks = {k: [torch.cuda.Event(enable_timing=True)
+                 for _ in range(CHUNKS + 1)] for k in ("cb", "dense")}
+
+    def cb_run():
+        nonlocal state
+        ys = None
+        marks["cb"][0].record()
+        for i, ch in enumerate(chunks):
+            ys, state, _ = ctx.cb_chunk(net, taus, ch, state,
+                                        i % cadence == 0)
+            marks["cb"][i + 1].record()
+        return ys
+
+    def dense_run():
+        marks["dense"][0].record()
+        for i, ch in enumerate(chunks):
+            dn = ctx.dense_chunk(ch)
+            marks["dense"][i + 1].record()
+        return dn
+
+    def chunk_ms(key):
+        m = marks[key]
+        return [m[i].elapsed_time(m[i + 1]) / T for i in range(CHUNKS)]
+
+    reset_launches()
+    ys, cb_ms, cb_host_ms = timed(torch, lambda: no_sync(torch, cb_run))
+    counts = launches()
+    n_refresh = sum(1 for i in range(CHUNKS) if i % cadence == 0)
+    expect_launches("flagship", counts, CHUNKS * T - n_refresh)
+    if ys.shape != (T, H // 4, W // 4) or ys.dtype != torch.uint8:
+        raise AssertionError(f"CB output {tuple(ys.shape)} {ys.dtype}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    _, dense_ms, dense_host_ms = timed(torch, dense_run)
+    frames = CHUNKS * T
+    cb_fps, dense_fps = frames / (cb_ms / 1e3), frames / (dense_ms / 1e3)
+    ctx.state = state  # steady, for the interleaved stem comparison
+
+    miou, ef, stem_tiles, acc_state, av = accuracy_pass(
+        torch, np, ctx, net, taus, max(2, cadence), cadence)
+    emit("main", path="flagship", cb_fps=cb_fps, dense_fps=dense_fps,
+         vs_baseline=cb_fps / dense_fps, cb_ms_per_frame=cb_ms / frames,
+         dense_ms_per_frame=dense_ms / frames, frames_timed=frames,
+         cb_host_cpu_ms_per_frame=cb_host_ms / frames,
+         dense_host_cpu_ms_per_frame=dense_host_ms / frames,
+         cb_chunk_ms_per_frame=chunk_ms("cb"),
+         dense_chunk_ms_per_frame=chunk_ms("dense"),
+         refresh_every_chunks=cadence, launches=counts,
+         miou_gt_cb=miou["cb"], miou_gt_dense=miou["dense"],
+         miou_degradation=miou["dense"] - miou["cb"],
+         miou_vs_dense=miou["agree"],
+         flop_reduction=ef["flop_reduction"], stem_tiles=stem_tiles,
+         peak_mem_gib=peak_gib, smi_after_cb=clocks,
+         weights=ctx.wl.weights, taus=taus, stem=net.specs[0].backend)
+    if not miou["dense"] - miou["cb"] <= 0.005:
+        raise AssertionError(f"GT-mIoU degradation "
+                             f"{miou['dense'] - miou['cb']} > 0.005")
+    if not stem_tiles["computed"] < stem_tiles["n_tiles"]:
+        raise AssertionError(f"the sparse stem computed every tile: "
+                             f"{stem_tiles}")
+    return capture_frame(torch, ctx, "flagship", net, taus, acc_state, av)
+
+
+def dense_stem_path(torch, ctx):
+    """The flagship with the stem on dense_cached, chunk by chunk in turns
+    with the exact flagship (A S S A) on the same frames."""
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    wl = ctx.wl
+    nets = {"flagship": wl.net,
+            "dense_stem": build_net("dense_stem", wl.specs, (H, W, 3),
+                                    wl.net.cfg)}
+    torch.cuda.reset_peak_memory_stats()
+    states = {"flagship": ctx.state,
+              "dense_stem": ctx.warm_state(nets["dense_stem"], wl.taus,
+                                           ctx.warm)}
+    torch.cuda.synchronize()
+    order = ["flagship"] + ["dense_stem"] * SIDE_CHUNKS + ["flagship"]
+    series = {k: [] for k in nets}
+    host = {k: [] for k in nets}
+    counts = {k: {} for k in nets}
+    for path, ch in zip(order, ctx.chunks):
+        def run():
+            states[path] = ctx.cb_chunk(nets[path], wl.taus, ch,
+                                        states[path], False)[1]
+        reset_launches()
+        _, ms, host_ms = timed(torch, lambda: no_sync(torch, run))
+        for k, v in launches().items():
+            counts[path][k] = counts[path].get(k, 0) + v
+        series[path].append(ms / T)
+        host[path].append(host_ms / T)
+    for path in nets:
+        expect_launches(path, counts[path], len(series[path]) * T)
+    emit("main_dense_stem", order=order, ms_per_frame=series,
+         host_cpu_ms_per_frame=host,
+         cb_fps={k: 1e3 * len(v) / sum(v) for k, v in series.items()},
+         launches=counts["dense_stem"], launches_flagship=counts["flagship"],
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    ctx.state = None
+    del states
+    torch.cuda.empty_cache()
+
+
+def hintless_path(torch, np, ctx):
+    """The plain converter with a dense stem: no hint reaches the first
+    pool, and no pool forwards one."""
+    from cbinfer_tpu_torch.convert import num_cb_layers
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    wl = ctx.wl
+    net = build_net("hintless", wl.specs, (H, W, 3), wl.net.cfg)
+    taus = [wl.taus[0]] * num_cb_layers(net.specs)
+    if net.specs[0].use_cb or any(getattr(s, "forward_hint", False)
+                                  for s in net.specs):
+        raise AssertionError("not the hint-less path")
+    torch.cuda.reset_peak_memory_stats()
+    state = ctx.warm_state(net, taus, ctx.warm)
+    torch.cuda.synchronize()
+    chunks = ctx.chunks[:SIDE_CHUNKS]
+    series, host = [], []
+    reset_launches()
+    for ch in chunks:
+        def run():
+            nonlocal state
+            return ctx.cb_chunk(net, taus, ch, state, False)
+        (ys, state, _), ms, host_ms = timed(
+            torch, lambda: no_sync(torch, run))
+        series.append(ms / T)
+        host.append(host_ms / T)
+    counts = launches()
+    expect_launches("hintless", counts, len(chunks) * T)
+    if ys.shape != (T, H // 4, W // 4) or ys.dtype != torch.uint8:
+        raise AssertionError(f"CB output {tuple(ys.shape)} {ys.dtype}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    # as many chunks as the flagship's pass, so that the one refresh frame
+    # weighs the same in both FLOP reductions
+    miou, ef, _, acc_state, av = accuracy_pass(
+        torch, np, ctx, net, taus, max(2, ctx.cadence), ctx.cadence)
+    emit("hintless", path="hintless", cb_fps=1e3 * len(series) / sum(series),
+         dense_fps=RESULTS["main"]["dense_fps"], ms_per_frame=series,
+         host_cpu_ms_per_frame=host, frames_timed=len(chunks) * T,
+         launches=counts, flop_reduction=ef["flop_reduction"],
+         miou_gt_cb=miou["cb"], miou_gt_dense=miou["dense"],
+         miou_degradation=miou["dense"] - miou["cb"],
+         miou_vs_dense=miou["agree"], peak_mem_gib=peak_gib, taus=taus)
+    return capture_frame(torch, ctx, "hintless", net, taus, acc_state, av)
 
 
 # ------------------------------ kernel checks --------------------------------
@@ -340,18 +536,56 @@ def _bound_ms(flops, nbytes):
         else "bytes")
 
 
+def _time_pair(torch, kernel, plain, buf_k, buf_p, orig):
+    """(kernel ms, plain ms) per call; ``buf_k``/``buf_p`` are the buffers
+    the two update in place, restored from ``orig`` before every call."""
+    return (_time_launches(torch, kernel, lambda: buf_k.copy_(orig), 20),
+            _time_launches(torch, plain, lambda: buf_p.copy_(orig), 5,
+                           sleep_cycles=0))
+
+
+def _ulps(torch, a, b):
+    """Largest distance of two bf16 tensors in bf16 ulps."""
+    def ordered(t):
+        v = t.view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _window_cover_bytes(np, idx, c, g, store_shape, cin, es):
+    """Bytes of the union of the listed tiles' input windows, read once."""
+    cover = np.zeros(store_shape[:2], bool)
+    for t in idx[:c].cpu().numpy():
+        ti, tj = divmod(int(t), g.tiles_w)
+        r0 = ti * g.th * g.stride[0]
+        c0 = tj * g.tw * g.stride[1] + g.dx0
+        cover[r0:r0 + g.win_h, c0:c0 + g.win_w] = True
+    return int(cover.sum()) * cin * es
+
+
 def check_kernels(torch, np, calls):
-    from cbinfer_tpu_torch.ops.kernels import KERNELS
+    import torch.nn.functional as F
+    from cbinfer_tpu_torch import network
+    from cbinfer_tpu_torch.config import ConvSpec
+    from cbinfer_tpu_torch.layers import NEG_FILL
+    from cbinfer_tpu_torch.ops.delta_conv import (make_storage,
+                                                  storage_interior)
+    from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
     from cbinfer_tpu_torch.ops.kernels import delta_conv as KC
+    from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
+    from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
     from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
     from cbinfer_tpu_torch.ops.kernels import pool_fused as KP
-    per = {k.name: dict(n=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0,
-                        by=set()) for k in KERNELS}
+    from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
+    from cbinfer_tpu_torch.ops.kernels import stem_detect as KSD
+    per = {}
     checks = []
+    context = {}
     zero = torch.zeros((), dtype=torch.int32, device="cuda")
 
-    def acc(name, ms, pms, bound, by, err):
-        p = per[name]
+    def acc(path, name, ms, pms, bound, by, err):
+        p = per.setdefault((path, name), dict(
+            n=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, by=set()))
         p["n"] += 1
         p["ms"] += ms
         p["plain_ms"] += pms
@@ -359,7 +593,38 @@ def check_kernels(torch, np, calls):
         p["by"].add(by)
         p["err"] = max(p["err"], err)
 
-    for li, (name, args, kw) in enumerate(calls):
+    def fail_unless(ok, what):
+        checks.append(what)
+        if not ok:
+            raise AssertionError(f"kernel check failed: {what}")
+
+    def full_detect(mod_fn, plain_fn, name, path, li, x, st0, tau, g):
+        """B4 and B7: exact on the captured inputs and at tau = -1."""
+        st = st0.clone()
+        _, mk, nk = mod_fn(x, st, tau, g)
+        sp = st0.clone()
+        _, mp, npl = plain_fn(x, sp, tau, g)
+        ok = (torch.equal(st, sp) and torch.equal(mk, mp)
+              and torch.equal(nk, npl))
+        sa, sb = st0.clone(), st0.clone()
+        _, ma, na = mod_fn(x, sa, -1.0, g)
+        _, mb, nb = plain_fn(x, sb, -1.0, g)
+        oka = (torch.equal(sa, sb) and torch.equal(ma, mb)
+               and torch.equal(na, nb) and int(na) == g.in_h * g.in_w
+               and bool((ma == 1).all()))
+        fail_unless(ok and oka, dict(
+            kernel=name, path=path, call=li, exact=ok,
+            tau_minus_one_exact=oka, npix=int(nk),
+            marked=int(mk.sum()), of=mk.numel()))
+        ms, pms = _time_pair(torch, lambda: mod_fn(x, st, tau, g),
+                             lambda: plain_fn(x, sp, tau, g), st, sp, st0)
+        es, C = st0.element_size(), st0.shape[-1]
+        nbytes = (g.in_h * g.in_w * C * (x.element_size() + es)
+                  + int(nk) * C * es + mk.numel() * 4 + 4)
+        err = float((st.float() - sp.float()).abs().max())
+        acc(path, name, ms, pms, *_bound_ms(0.0, nbytes), err)
+
+    for li, (path, name, args, kw) in enumerate(calls):
         if name == "detect_sparse":
             x, st0, tau, idx, count, g = args
             st = st0.clone()
@@ -385,19 +650,15 @@ def check_kernels(torch, np, calls):
             _, mb, nb = KD.detect_sparse_plain(xa, sb, tau, ia, ca, g)
             oka = (torch.equal(sa, sb) and torch.equal(ma, mb)
                    and torch.equal(na, nb))
-            checks.append(dict(kernel=name, call=li, exact=ok,
-                               count0_noop=ok0, all_dirty_exact=oka,
-                               clamped=g.in_h % 8 != 0, count=int(count),
-                               npix=int(nk)))
-            if not (ok and ok0 and oka):
-                raise AssertionError(f"detect_sparse mismatch {checks[-1]}")
-            ms = _time_launches(
+            fail_unless(ok and ok0 and oka, dict(
+                kernel=name, path=path, call=li, exact=ok, count0_noop=ok0,
+                all_dirty_exact=oka, clamped=g.in_h % 8 != 0,
+                pool_geometry=g.stride != (1, 1), count=int(count),
+                npix=int(nk)))
+            ms, pms = _time_pair(
                 torch, lambda: KD.detect_sparse(x, st, tau, idx, count, g),
-                lambda: st.copy_(st0), 20)
-            pms = _time_launches(
-                torch, lambda: KD.detect_sparse_plain(x, sp, tau, idx, count,
-                                                      g),
-                lambda: sp.copy_(st0), 5, sleep_cycles=0)
+                lambda: KD.detect_sparse_plain(x, sp, tau, idx, count, g),
+                st, sp, st0)
             c = int(count)
             hm = torch.zeros(n_hint, dtype=torch.bool, device="cuda")
             hm[idx[:c].long()] = True
@@ -406,7 +667,7 @@ def check_kernels(torch, np, calls):
             C, es = st0.shape[-1], st0.element_size()
             nbytes = (2 * own * C * es + int(nk) * C * es
                       + g.tiles_h * g.tiles_w * 4 + c * 4 + 8)
-            acc(name, ms, pms, *_bound_ms(0.0, nbytes), err)
+            acc(path, name, ms, pms, *_bound_ms(0.0, nbytes), err)
         elif name == "delta_conv":
             xp, idx, w, b, out0, g, act, cd = args
             count = kw["count"]
@@ -432,37 +693,26 @@ def check_kernels(torch, np, calls):
             z = KC.delta_conv(xp, idx, w, b, out0.clone(), g, act, cd,
                               count=zero)
             ok0 = torch.equal(z, out0)
-            checks.append(dict(kernel=name, call=li, max_abs_err=err,
-                               within_2e2=close, untouched_bit_identical=kept,
-                               count0_noop=ok0, count=c))
-            if not (close and kept and ok0):
-                raise AssertionError(f"delta_conv mismatch {checks[-1]}")
-            out_k = out0.clone()
-            ms = _time_launches(
+            fail_unless(close and kept and ok0, dict(
+                kernel=name, path=path, call=li, max_abs_err=err,
+                within_2e2=close, untouched_bit_identical=kept,
+                count0_noop=ok0, count=c))
+            out_k, out_p = out0.clone(), out0.clone()
+            ms, pms = _time_pair(
                 torch, lambda: KC.delta_conv(xp, idx, w, b, out_k, g, act, cd,
                                              count=count),
-                lambda: out_k.copy_(out0), 20)
-            out_p = out0.clone()
-            pms = _time_launches(
-                torch, lambda: KC.delta_conv_plain(xp, idx, w, b, out_p, g,
-                                                   act, cd, count=count),
-                lambda: out_p.copy_(out0), 5, sleep_cycles=0)
+                lambda: KC.delta_conv_plain(xp, idx, w, b, out_p, g, act, cd,
+                                            count=count),
+                out_k, out_p, out0)
             kh, kw_ = g.kernel
             cin = g.cin
-            flops = 2 * g.th * g.tw * kh * kw_ * cin * cout * c
-            # input bytes: the union of the listed tiles' windows, once
-            cover = np.zeros(xp.shape[:2], bool)
-            for t in idx[:c].cpu().numpy():
-                ti, tj = divmod(int(t), g.tiles_w)
-                r0 = ti * g.th * g.stride[0]
-                c0 = tj * g.tw * g.stride[1] + g.dx0
-                cover[r0:r0 + g.win_h, c0:c0 + g.win_w] = True
             es = xp.element_size()
-            nbytes = (int(cover.sum()) * cin * es
+            flops = 2 * g.th * g.tw * kh * kw_ * cin * cout * c
+            nbytes = (_window_cover_bytes(np, idx, c, g, xp.shape, cin, es)
                       + c * g.th * g.tw * cout * es
                       + w.numel() * es + cout * 4 + c * 4)
-            acc(name, ms, pms, *_bound_ms(flops, nbytes), err)
-        else:  # detect_pool_fused
+            acc(path, name, ms, pms, *_bound_ms(flops, nbytes), err)
+        elif name == "detect_pool_fused":
             x, out0, idx, count, g = args
             ok_, mk = KP.detect_pool_fused(x, out0.clone(), idx, count, g,
                                            **kw)
@@ -472,49 +722,209 @@ def check_kernels(torch, np, calls):
             ok = torch.equal(ok_, op_) and torch.equal(mk, mp)
             z, m0 = KP.detect_pool_fused(x, out0.clone(), idx, zero, g, **kw)
             ok0 = torch.equal(z, out0) and not m0.any()
-            checks.append(dict(kernel=name, call=li, exact=ok,
-                               count0_noop=ok0, count=int(count)))
-            if not (ok and ok0):
-                raise AssertionError(f"detect_pool_fused mismatch "
-                                     f"{checks[-1]}")
+            fail_unless(ok and ok0, dict(kernel=name, path=path, call=li,
+                                         exact=ok, count0_noop=ok0,
+                                         count=int(count)))
             out_k, out_p = out0.clone(), out0.clone()
-            ms = _time_launches(
+            ms, pms = _time_pair(
                 torch, lambda: KP.detect_pool_fused(x, out_k, idx, count, g,
                                                     **kw),
-                lambda: out_k.copy_(out0), 20)
-            pms = _time_launches(
-                torch, lambda: KP.detect_pool_fused_plain(x, out_p, idx,
-                                                          count, g, **kw),
-                lambda: out_p.copy_(out0), 5, sleep_cycles=0)
+                lambda: KP.detect_pool_fused_plain(x, out_p, idx, count, g,
+                                                   **kw),
+                out_k, out_p, out0)
             c, C, es = int(count), out0.shape[-1], out0.element_size()
             nbytes = (c * (kw["hint_h"] * kw["hint_w"]
                            + kw["hint_h"] * kw["hint_w"] // 4) * C * es
                       + g.tiles_h * g.tiles_w * 4 + c * 4)
-            acc(name, ms, pms, *_bound_ms(0.0, nbytes), err)
+            acc(path, name, ms, pms, *_bound_ms(0.0, nbytes), err)
+        elif name == "stem_detect":
+            x, st0, tau, g = args
+            full_detect(KSD.stem_detect, KSD.stem_detect_plain, name, path,
+                        li, x, st0, tau, g)
+        elif name == "detect_full":
+            x, st0, tau, g = args
+            full_detect(KDF.detect_full, KDF.detect_full_plain, name, path,
+                        li, x, st0, tau, g)
+            # a map off the 8-pixel grid (the kernel clips at the edge):
+            # the same layer on this input less 4 rows and 4 columns
+            gu = conv_tile_geometry(
+                (g.in_h - 4, g.in_w - 4, g.cin), g.kernel, g.stride,
+                g.dilation, "SAME" if g.pad_lo_h else "VALID", g.th, g.tw)
+            fill = 0.0 if g.pad_lo_h else NEG_FILL  # conv / pool margins
+            su = make_storage(gu, 0.0, fill, st0.dtype, "cuda")
+            storage_interior(su, gu).copy_(
+                storage_interior(st0, g)[:gu.in_h, :gu.in_w])
+            sa, sb = su.clone(), su.clone()
+            _, ma, na = KDF.detect_full(x, sa, tau, gu)
+            _, mb, nb = KDF.detect_full_plain(x, sb, tau, gu)
+            fail_unless(
+                torch.equal(sa, sb) and torch.equal(ma, mb)
+                and torch.equal(na, nb) and int(na) > 0,
+                dict(kernel=name, path=path, call=li, unaligned_exact=True,
+                     map=[gu.in_h, gu.in_w], npix=int(na),
+                     marked=int(ma.sum()), of=ma.numel()))
+        elif name == "stem_conv":
+            st, idx, count, w, b, out0, g, act, cd = args
+            cap = kw["capacity"]
+            cout = w.shape[-1]
+            c = int(count)
+            ok_ = KSC.stem_conv(st, idx, count, w, b, out0.clone(), g, act,
+                                cd, capacity=cap)
+            op_ = KSC.stem_conv_plain(st, idx, count, w, b, out0.clone(), g,
+                                      act, cd, capacity=cap)
+            ulp = _ulps(torch, ok_, op_)
+            touched = torch.zeros(g.n_tiles, dtype=torch.bool, device="cuda")
+            touched[idx[:c].long()] = True
+            keep = ~touched.view(g.tiles_h, 1, g.tiles_w, 1, 1)
+
+            def tiled(t):
+                return t.view(g.tiles_h, g.th, g.tiles_w, g.tw, cout)
+            kept = torch.equal(tiled(ok_)[keep.expand_as(tiled(ok_))],
+                               tiled(out0)[keep.expand_as(tiled(out0))])
+            z = KSC.stem_conv(st, idx, zero, w, b, out0.clone(), g, act, cd,
+                              capacity=cap)
+            ok0 = torch.equal(z, out0)
+            # overflow: one tile more than the capacity -> every tile
+            over = torch.tensor(cap + 1, dtype=torch.int32, device="cuda")
+            ov_k = KSC.stem_conv(st, idx, over, w, b, out0.clone(), g, act,
+                                 cd, capacity=cap)
+            ov_p = KSC.stem_conv_plain(st, idx, over, w, b, out0.clone(), g,
+                                       act, cd, capacity=cap)
+            ulp_over = _ulps(torch, ov_k, ov_p)
+            # ... which is the dense conv of the accepted cache
+            spec = ConvSpec(features=cout, activation=act)
+            dense = network.dense_conv(storage_interior(st, g), w, b, spec,
+                                       cd)
+            # (another summation order: sums that cancel differ by more
+            # than an ulp of their small result, so this one is absolute)
+            err_dense = float((ov_k.float() - dense.float()).abs().max())
+            fail_unless(
+                c < g.n_tiles and ulp <= 1 and kept and ok0
+                and ulp_over <= 1 and err_dense <= 2e-2,
+                dict(kernel=name, path=path, call=li, max_ulps=ulp,
+                     untouched_bit_identical=kept, count0_noop=ok0,
+                     overflow_max_ulps=ulp_over,
+                     overflow_vs_dense_conv_max_abs_err=err_dense,
+                     differs_from_dense_conv=float(
+                         (ov_k != dense).float().mean()),
+                     count=c, capacity=cap, n_tiles=g.n_tiles))
+            out_k, out_p = out0.clone(), out0.clone()
+            ms, pms = _time_pair(
+                torch, lambda: KSC.stem_conv(st, idx, count, w, b, out_k, g,
+                                             act, cd, capacity=cap),
+                lambda: KSC.stem_conv_plain(st, idx, count, w, b, out_p, g,
+                                            act, cd, capacity=cap),
+                out_k, out_p, out0)
+            es = st.element_size()
+            flops = 2 * g.th * g.tw * 9 * g.cin * cout * c
+            nbytes = (_window_cover_bytes(np, idx, c, g, st.shape, g.cin, es)
+                      + c * g.th * g.tw * cout * es + w.numel() * es
+                      + cout * 4 + c * 4 + 4)
+            err = float((ok_.float() - op_.float()).abs().max())
+            acc(path, name, ms, pms, *_bound_ms(flops, nbytes), err)
+            # context, timed here and used nowhere in the port: every tile
+            # through this kernel, through cuDNN's conv on the 3-channel
+            # map, and through the im2col matmul of the dense stem
+            xi = storage_interior(st, g)
+            xn = xi.permute(2, 0, 1)[None].contiguous(
+                memory_format=torch.channels_last)
+            wn = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bn = b.to(cd)
+            context[name] = {
+                "all_tiles_ms": _time_launches(
+                    torch, lambda: KSC.stem_conv(st, idx, over, w, b, out_k,
+                                                 g, act, cd, capacity=cap),
+                    lambda: None, 10),
+                "conv2d_all_tiles_ms": _time_launches(
+                    torch, lambda: torch.relu_(F.conv2d(xn, wn, bn,
+                                                        padding=1)),
+                    lambda: None, 10),
+                "im2col_all_tiles_ms": _time_launches(
+                    torch, lambda: network.dense_conv(xi, w, b, spec, cd),
+                    lambda: None, 10),
+            }
+        else:  # delta_pool
+            st, idx, out0, g = args
+            count = kw["count"]
+            c = int(count)
+            ok_ = KDP.delta_pool(st, idx, out0.clone(), g, count=count)
+            op_ = KDP.delta_pool_plain(st, idx, out0.clone(), g, count=count)
+            ok = torch.equal(ok_, op_)
+            z = KDP.delta_pool(st, idx, out0.clone(), g, count=zero)
+            ok0 = torch.equal(z, out0)
+            ia = torch.arange(g.n_tiles, dtype=torch.int32, device="cuda")
+            ca = torch.tensor(g.n_tiles, dtype=torch.int32, device="cuda")
+            oka = torch.equal(
+                KDP.delta_pool(st, ia, out0.clone(), g, count=ca),
+                KDP.delta_pool_plain(st, ia, out0.clone(), g, count=ca))
+            fail_unless(ok and ok0 and oka, dict(
+                kernel=name, path=path, call=li, exact=ok, count0_noop=ok0,
+                all_tiles_exact=oka, count=c, n_tiles=g.n_tiles))
+            out_k, out_p = out0.clone(), out0.clone()
+            ms, pms = _time_pair(
+                torch, lambda: KDP.delta_pool(st, idx, out_k, g, count=count),
+                lambda: KDP.delta_pool_plain(st, idx, out_p, g, count=count),
+                out_k, out_p, out0)
+            C, es = out0.shape[-1], out0.element_size()
+            nbytes = (_window_cover_bytes(np, idx, c, g, st.shape, C, es)
+                      + c * g.th * g.tw * C * es + c * 4 + 4)
+            acc(path, name, ms, pms, *_bound_ms(0.0, nbytes),
+                float((ok_.float() - op_.float()).abs().max()))
+            if name not in context:
+                # context: the library's pool of the WHOLE map
+                xi = storage_interior(st, g).permute(2, 0, 1)[None] \
+                    .contiguous(memory_format=torch.channels_last)
+                context[name] = {"max_pool2d_whole_map_ms": _time_launches(
+                    torch, lambda: F.max_pool2d(xi, g.kernel, g.stride),
+                    lambda: None, 10)}
+    if not any(c.get("pool_geometry") for c in checks
+               if c["kernel"] == "detect_sparse"):
+        raise AssertionError("detect_sparse was not checked on a pool")
     emit("check", calls=checks)
     RESULTS["_per_kernel"] = per
+    RESULTS["_context"] = context
 
 
 def emit_kernels():
     from cbinfer_tpu_torch.ops.kernels import KERNELS
     per = RESULTS.pop("_per_kernel")
-    launches = RESULTS["main"]["launches"]
+    context = RESULTS.pop("_context")
+    launches = {"flagship": RESULTS["main"]["launches"],
+                "dense_stem": RESULTS["main_dense_stem"]["launches"],
+                "hintless": RESULTS["hintless"]["launches"]}
     rows = []
     for k in KERNELS:
-        p = per[k.name]
-        if p["n"] == 0:
-            raise AssertionError(f"{k.name}: no call captured")
+        paths = {}
+        for path in PER_FRAME:
+            p = per.get((path, k.name))
+            if p is None:
+                if launches[path][k.name]:
+                    paths[path] = {"launches": launches[path][k.name]}
+                continue
+            paths[path] = {
+                "launches": launches[path][k.name],
+                "calls_per_frame": p["n"], "max_abs_err": p["err"],
+                "ms": p["ms"] / p["n"], "plain_ms": p["plain_ms"] / p["n"],
+                "bound_ms": p["bound_ms"] / p["n"],
+                "bound_by": "/".join(sorted(p["by"]))}
+        # the row's own numbers: the flagship's where the kernel is on it
+        main = next((paths[p] for p in ("flagship", "hintless")
+                     if "ms" in paths.get(p, {})), None)
+        if main is None or not main["launches"]:
+            raise AssertionError(f"{k.name}: no call captured or launched")
         rows.append({
             "name": k.name, "route": k.route, "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.name],
-            "max_abs_err": p["err"], "ms": p["ms"] / p["n"],
-            "plain_ms": p["plain_ms"] / p["n"],
-            "bound_ms": p["bound_ms"] / p["n"],
-            "bound_by": "/".join(sorted(p["by"])),
+            "replaces": k.replaces, "launches": main["launches"],
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
             # no single PyTorch call computes these sparse, in-place
-            # functions (a dense conv or pool recomputes the whole map)
+            # functions (a dense conv or pool recomputes the whole map:
+            # see "context")
             "library_ms": None,
-            "calls_per_frame": p["n"],
+            "calls_per_frame": main["calls_per_frame"], "paths": paths,
+            "context": context.get(k.name),
         })
     print(json.dumps({"kernels": rows}), flush=True)
 

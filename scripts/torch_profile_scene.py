@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes: torch.profiler over the port's 720p scene path.
 
-    python3 scripts/torch_profile_scene.py [--frames 32]
+    python3 scripts/torch_profile_scene.py [flagship|dense_stem|hintless]
+                                           [--frames 32]
 
-Builds the same network as chip_smoke.py (scene w128, trained weights,
-tuned taus, stem {0: "dense_cached"}, bf16), warms up, then profiles one
-chunk of CB frames (no refresh frame) and the same frames through the
-dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
+Builds one of chip_smoke.py's three paths of the scene network (w128,
+trained weights and tuned taus through zoo.load, bf16): ``flagship`` (the
+sparse patch_stem stem, the default), ``dense_stem`` (the stem overridden
+to dense_cached) or ``hintless`` (the plain converter with a dense stem).
+It warms up, then profiles one chunk of CB frames (no refresh frame) and
+the same frames through the dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
 the host thread's CPU ms per frame while enqueuing,
 device-busy ms per frame (union of kernel intervals), the device's idle
 share, and the top kernels by device time per frame. Needs a CUDA GPU.
@@ -23,11 +26,9 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
-from cbinfer_tpu_torch.checkpoint import load_npz_params  # noqa: E402
-from cbinfer_tpu_torch.config import PipelineConfig, TileConfig  # noqa: E402
-from cbinfer_tpu_torch.convert import convert_flagship  # noqa: E402
-from cbinfer_tpu_torch.models import get_model  # noqa: E402
-from cbinfer_tpu_torch.network import init_params  # noqa: E402
+from cbinfer_tpu_torch import zoo  # noqa: E402
+from cbinfer_tpu_torch.convert import (convert, convert_flagship,  # noqa: E402
+                                       num_cb_layers)
 from cbinfer_tpu_torch.runner import scan_video  # noqa: E402
 from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig  # noqa
 
@@ -63,22 +64,30 @@ def kernel_table(prof, n_frames, top):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("path", nargs="?", default="flagship",
+                    choices=("flagship", "dense_stem", "hintless"))
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
-    specs = get_model("scene", num_classes=8, width=128)
-    with open(os.path.join(REPO, "ckpts", "scene_w128_tau.json")) as f:
-        taus = json.load(f)["thresholds"]
-    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375),
-                         compute_dtype="bfloat16", cache_dtype="bfloat16")
-    net = convert_flagship(specs, (H, W, 3), cfg, thresholds=taus,
-                           extra_overrides={0: "dense_cached"})
-    params = load_npz_params(
-        os.path.join(REPO, "ckpts", "scene_w128.npz"),
-        init_params(specs, (H, W, 3), dtype=torch.bfloat16), specs)
+    wl = zoo.load("scene", (H, W, 3))
+    if wl.weights != "trained(npz)" or wl.tau_source != "tuned" \
+            or wl.warnings:
+        # zoo.load carries on with random weights or flat taus and only
+        # records it: a profile of such a net is not the flagship's
+        print(f"zoo.load: {wl.weights} {wl.tau_source} {wl.warnings}",
+              file=sys.stderr)
+        return 1
+    net, params, taus = wl.net, wl.params, wl.taus
+    if args.path == "dense_stem":
+        net = convert_flagship(wl.specs, (H, W, 3), net.cfg,
+                               extra_overrides={0: "dense_cached"})
+    elif args.path == "hintless":
+        net = convert(wl.specs, (H, W, 3), net.cfg,
+                      dense_layers=(0, len(wl.specs) - 1))
+        taus = [taus[0]] * num_cb_layers(net.specs)
     video = SpriteVideo(SpriteVideoConfig(
         height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
         noise_std=0.002, seed=int(time.time()) % 100000))
@@ -90,7 +99,8 @@ def main():
 
     def cb(ch, state, refresh=False):
         return scan_video(net, params, ch, state, collect_stats=False,
-                          refresh_start=refresh, out_map=out_u8)[1]
+                          thresholds=taus, refresh_start=refresh,
+                          out_map=out_u8)[1]
 
     def dense(ch):
         return torch.stack([out_u8(net.apply_dense(params, f)) for f in ch])
@@ -121,7 +131,8 @@ def main():
             torch.cuda.synchronize()
         wall = e0.elapsed_time(e1) / args.frames
         busy, n_kern, top = kernel_table(prof, args.frames, args.top)
-        print(json.dumps({"path": name, "card": smi, "frames": args.frames,
+        print(json.dumps({"path": name, "net": args.path, "card": smi,
+                          "frames": args.frames,
                           "wall_ms_per_frame": plain_wall,
                           "host_cpu_ms_per_frame": host,
                           "profiled_wall_ms_per_frame": wall,

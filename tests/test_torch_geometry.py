@@ -1,6 +1,6 @@
 """The port's IR, geometry and flagship conversion against the JAX
 package's: every TileGeometry field of every scene layer, the converted
-specs field for field ("pallas" read as "cuda"), the slice-2 guard, and the
+specs field for field ("pallas" read as "cuda"), the stem policy, and the
 config JSON round trip."""
 
 import dataclasses
@@ -92,23 +92,43 @@ def test_flagship_thresholds_bind_like_reference():
 
 
 def test_flagship_raises_where_reference_picks_patch_stem():
+    """Named for what it guarded before the sparse stem was ported: the
+    port now selects ``patch_stem`` exactly where the reference does, and
+    the converted specs are the reference's."""
     specs = get_model("scene", width=16)
+    jspecs = j_get_model("scene", width=16)
     cfg = PipelineConfig(device="cpu")
-    # the JAX package's gate picks patch_stem here ...
-    j_over, _ = jconvert.flagship_layers(
-        j_get_model("scene", width=16), (720, 1280, 3),
-        JCfg(backend="pallas"))
-    assert j_over == {0: "patch_stem"}
-    # ... which the port does not have: it says so instead of swapping
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        flagship_layers(specs, (720, 1280, 3), cfg)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        convert_flagship(specs, (720, 1280, 3), cfg)
-    # outside the flat4 gate both pick dense_cached without an override
-    over, dense = flagship_layers(specs, (64, 120, 3), cfg)
-    j_over, j_dense = jconvert.flagship_layers(
-        j_get_model("scene", width=16), (64, 120, 3), JCfg(backend="pallas"))
-    assert (over, dense) == (j_over, j_dense) == ({0: "dense_cached"}, [6])
+    jcfg = JCfg(backend="pallas")
+    for in_shape, want in [((720, 1280, 3), {0: "patch_stem"}),
+                           ((64, 128, 3), {0: "patch_stem"}),
+                           ((64, 120, 3), {0: "dense_cached"}),   # W % 32
+                           ((60, 128, 3), {0: "dense_cached"}),   # H % 8
+                           ((64, 128, 4), {0: "dense_cached"}),   # cin > 3
+                           ((64, 128, 256), {})]:                 # wide stem
+        over, dense = flagship_layers(specs, in_shape, cfg)
+        j_over, j_dense = jconvert.flagship_layers(jspecs, in_shape, jcfg)
+        assert (over, dense) == (j_over, j_dense) == (want, [6]), in_shape
+    # a pipeline that is not on the kernel backend keeps dense_cached
+    assert flagship_layers(specs, (720, 1280, 3), PipelineConfig(
+        backend="dense_cached", device="cpu"))[0] == {0: "dense_cached"}
+    assert flagship_layers(specs)[0] == {0: "dense_cached"}
+    for in_shape in SHAPES:
+        for width in (16, 128):
+            jnet = jconvert.convert_flagship(
+                j_get_model("scene", width=width), in_shape,
+                JCfg(tile=JTile(8, 8, 0.375), backend="pallas",
+                     interpret=True))
+            tnet = convert_flagship(
+                get_model("scene", width=width), in_shape,
+                PipelineConfig(tile=TileConfig(8, 8, 0.375), device="cpu"))
+            assert _as_dicts(tnet.specs) == _as_dicts(jnet.specs, True)
+            assert tnet.specs[0].backend == "patch_stem"
+            # the stem's caches: (8, 32) kernel tiles on the same storage
+            # the dense_cached stem uses
+            g = tlayers._geometry(tnet.specs[0], in_shape, tlayers._layer_cfg(
+                tnet.specs[0], tnet.cfg))
+            assert (g.th, g.tw, g.n_tiles) == (
+                8, 32, (in_shape[0] // 8) * (in_shape[1] // 32))
 
 
 def test_config_json_round_trip():

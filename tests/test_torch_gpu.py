@@ -75,8 +75,168 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     yk, pk = KP.detect_pool_fused(xp, outp.clone(), pidx, pcount, gp)
     yp, pp = KP.detect_pool_fused_plain(xp, outp.clone(), pidx, pcount, gp)
     assert torch.equal(yk, yp) and torch.equal(pk, pp)
-    assert launches() == {"detect_sparse": 1, "delta_conv": 1,
-                          "detect_pool_fused": 1}
+    got = launches()
+    assert {k: got[k] for k in ("detect_sparse", "delta_conv",
+                                "detect_pool_fused")} == {
+        "detect_sparse": 1, "delta_conv": 1, "detect_pool_fused": 1}
+
+
+def _ulps(a, b):
+    """Largest distance of two bf16 tensors in bf16 ulps."""
+    def ordered(t):
+        v = t.view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernels_match_plain_on_card(cuda, dtype):
+    """B4 exact (cache, cell mask, npix; tau = -1 marks everything); B5
+    float32 within 1e-5, bf16 within 1 bf16 ulp, untouched tiles kept,
+    count = 0 a no-op, count > capacity computes every tile."""
+    from cbinfer_tpu_torch.ops.delta_conv import make_storage
+    from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
+    from cbinfer_tpu_torch.ops.kernels import stem_detect as KSD
+    rng = np.random.default_rng(1)
+    H, W, C, cout = 32, 128, 3, 16
+    g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME", 8, 32)
+    base = rng.uniform(0, 1, (H, W, C)).astype(np.float32)
+    x = base.copy()
+    x[0, 0] += 0.5
+    x[7, 8] += 0.5
+    x[H - 1, W - 1] -= 0.5
+    x[10:14, 40:70] += 0.3
+    x[3, 5] = base[3, 5] + 0.0501
+    st0 = make_storage(g, 0.0, 0.0, dtype, cuda)
+    st0[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W] = \
+        torch.from_numpy(base).to(cuda, dtype)
+    xt = torch.from_numpy(x).to(cuda)
+    reset_launches()
+    for tau in (0.05, -1.0):
+        sk, mk, nk = KSD.stem_detect(xt, st0.clone(), tau, g)
+        sp, mp, np_ = KSD.stem_detect_plain(xt, st0.clone(), tau, g)
+        assert torch.equal(sk, sp) and torch.equal(mk, mp)
+        assert torch.equal(nk, np_)
+    assert int(nk) == H * W and bool((mk == 1).all())
+
+    w = torch.from_numpy((rng.standard_normal((3, 3, C, cout)) * 0.2).astype(
+        np.float32)).to(cuda, dtype)
+    b = torch.randn(cout, device=cuda)
+    out0 = torch.randn(H, W, cout, device=cuda).to(dtype)
+    tmask = np.zeros((g.tiles_h, g.tiles_w), bool)
+    tmask.flat[[0, 6, g.n_tiles - 1]] = True
+    tidx, tcount = _ids(tmask, cuda)
+    for act in ("relu", None):
+        ok = KSC.stem_conv(sk, tidx, tcount, w, b, out0.clone(), g, act,
+                           dtype)
+        op = KSC.stem_conv_plain(sk, tidx, tcount, w, b, out0.clone(), g,
+                                 act, dtype)
+        if dtype == torch.float32:
+            torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+        else:
+            assert _ulps(ok, op) <= 1
+        keep = torch.from_numpy(~tmask).to(cuda).repeat_interleave(
+            8, 0).repeat_interleave(32, 1)
+        assert torch.equal(ok[keep], out0[keep])
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    assert torch.equal(KSC.stem_conv(sk, tidx, zero, w, b, out0.clone(), g,
+                                     "relu", dtype), out0)
+    over = torch.tensor(5, dtype=torch.int32, device=cuda)
+    ok = KSC.stem_conv(sk, tidx[:2].contiguous(), over, w, b, out0.clone(),
+                       g, "relu", dtype, capacity=2)
+    op = KSC.stem_conv_plain(sk, tidx[:2], over, w, b, out0.clone(), g,
+                             "relu", dtype, capacity=2)
+    full = KSC.stem_conv_plain(
+        sk, torch.arange(g.n_tiles, dtype=torch.int32, device=cuda),
+        torch.tensor(g.n_tiles, dtype=torch.int32, device=cuda), w, b,
+        out0.clone(), g, "relu", dtype)
+    assert torch.equal(op, full)
+    if dtype == torch.float32:
+        torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+    else:
+        assert _ulps(ok, op) <= 1
+    got = launches()
+    assert (got["stem_detect"], got["stem_conv"]) == (2, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", ["conv", "pool"])
+def test_hintless_kernels_match_plain_on_card(cuda, dtype, geom):
+    """B7 and B8 exact against their plain versions, and B1 on a pool's
+    geometry (stride 2, VALID, finite "-inf" margins)."""
+    from cbinfer_tpu_torch.ops.delta_conv import make_storage
+    from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
+    from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
+    rng = np.random.default_rng(2)
+    H, W, C = 40, 72, 16
+    if geom == "conv":
+        g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME",
+                               8, 8)
+        margin = 0.0
+    else:
+        g = conv_tile_geometry((H, W, C), (2, 2), (2, 2), (1, 1), "VALID",
+                               8, 8)
+        margin = -3.0e38
+    prev = torch.from_numpy(rng.standard_normal((H, W, C)).astype(
+        np.float32)).to(cuda, dtype)
+    st0 = make_storage(g, 0.0, margin, dtype, cuda)
+    st0[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W] = prev
+    # x is a padded producer cache: pad rows and columns must be ignored
+    x = torch.randn(H + 8, W + 8, C, device=cuda).to(dtype)
+    x[:H, :W] = prev + (torch.rand(H, W, 1, device=cuda) < 0.2).to(dtype)
+    reset_launches()
+    for tau in (0.5, -1.0):
+        sk, mk, nk = KDF.detect_full(x, st0.clone(), tau, g)
+        sp, mp, np_ = KDF.detect_full_plain(x, st0.clone(), tau, g)
+        assert torch.equal(sk, sp) and torch.equal(mk, mp)
+        assert torch.equal(nk, np_)
+    assert int(nk) == H * W
+    idx, count = _ids(np.ones((H // 8, W // 8), bool), cuda)
+    s1, m1, n1 = KD.detect_sparse(x, st0.clone(), 0.5, idx, count, g)
+    s2, m2, n2 = KD.detect_sparse_plain(x, st0.clone(), 0.5, idx, count, g)
+    assert torch.equal(s1, s2) and torch.equal(m1, m2) and torch.equal(n1, n2)
+    got = launches()
+    assert (got["detect_full"], got["detect_sparse"]) == (2, 1)
+    if geom == "pool":
+        out0 = torch.randn(g.out_h_pad, g.out_w_pad, C, device=cuda).to(dtype)
+        tmask = np.zeros((g.tiles_h, g.tiles_w), bool)
+        tmask.flat[[0, 3, g.n_tiles - 1]] = True
+        for m in (tmask, np.ones_like(tmask), np.zeros_like(tmask)):
+            tidx, tcount = _ids(m, cuda)
+            yk = KDP.delta_pool(sk, tidx, out0.clone(), g, count=tcount)
+            yp = KDP.delta_pool_plain(sk, tidx, out0.clone(), g,
+                                      count=tcount)
+            assert torch.equal(yk, yp)
+        assert torch.equal(yk, out0)  # count = 0 is a no-op
+        assert launches()["delta_pool"] == 3
+
+
+@pytest.mark.parametrize("geom", ["conv", "pool"])
+def test_detect_full_clips_a_map_off_the_8_pixel_grid(cuda, geom):
+    """B7 on a map whose rows and columns are no multiple of 8 (the JAX
+    package leaves such a layer to XLA; the CUDA kernel clips at the
+    edge): exact against the plain version."""
+    from cbinfer_tpu_torch.ops.delta_conv import make_storage
+    from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
+    H, W, C = 36, 44, 16
+    if geom == "conv":
+        g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME",
+                               8, 8)
+        margin = 0.0
+    else:
+        g = conv_tile_geometry((H, W, C), (2, 2), (2, 2), (1, 1), "VALID",
+                               8, 8)
+        margin = -3.0e38
+    st0 = make_storage(g, 0.0, margin, torch.bfloat16, cuda)
+    x = (torch.rand(H, W, 1, device=cuda) < 0.1).to(torch.bfloat16) \
+        .expand(H, W, C).contiguous()
+    x[H - 1, W - 1] = 1.0
+    reset_launches()
+    sk, mk, nk = KDF.detect_full(x, st0.clone(), 0.5, g)
+    sp, mp, np_ = KDF.detect_full_plain(x, st0.clone(), 0.5, g)
+    assert torch.equal(sk, sp) and torch.equal(mk, mp)
+    assert torch.equal(nk, np_) and mk[-1, -1] == 1
+    assert launches()["detect_full"] == 1
 
 
 def test_wrappers_refuse_mixed_devices(cuda):
@@ -88,11 +248,12 @@ def test_wrappers_refuse_mixed_devices(cuda):
                          torch.zeros((), dtype=torch.int32), g)
 
 
-def test_frame_loop_never_syncs_with_host(cuda):
+@pytest.mark.parametrize("path", ["dense_stem", "flagship", "hintless"])
+def test_frame_loop_never_syncs_with_host(cuda, path):
     """The CB frame loop (refresh and plain frames) enqueues work only: no
     .item(), no host-to-device copy of a Python value, no nonzero."""
     from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
-    from cbinfer_tpu_torch.convert import convert_flagship
+    from cbinfer_tpu_torch.convert import convert, convert_flagship
     from cbinfer_tpu_torch.models import get_model
     from cbinfer_tpu_torch.network import init_params
     from cbinfer_tpu_torch.runner import scan_video
@@ -100,8 +261,14 @@ def test_frame_loop_never_syncs_with_host(cuda):
     specs = get_model("scene", width=16)
     cfg = PipelineConfig(tile=TileConfig(8, 8), compute_dtype="bfloat16",
                          cache_dtype="bfloat16")
-    net = convert_flagship(specs, (64, 128, 3), cfg, thresholds=[0.05] * 6,
-                           extra_overrides={0: "dense_cached"})
+    if path == "hintless":
+        net = convert(specs, (64, 128, 3), cfg, thresholds=[0.05] * 7,
+                      dense_layers=(0, 6))
+    else:
+        net = convert_flagship(
+            specs, (64, 128, 3), cfg, thresholds=[0.05] * 6,
+            extra_overrides={0: "dense_cached"} if path == "dense_stem"
+            else None)
     params = init_params(specs, (64, 128, 3), dtype=torch.bfloat16)
     clip = torch.from_numpy(SpriteVideo(SpriteVideoConfig(
         height=64, width=128, seed=1)).clip(4)).to(cuda)
