@@ -6,7 +6,7 @@ cbinfer_tpu. Entry points run on the card unless the caller passes
 ``device="cpu"``, where every kernel wrapper takes its plain PyTorch
 version. Layout:
 
-  config, models      layer-spec IR and the scene model family
+  config, models      layer-spec IR, the scene and pose model families
   network, checkpoint dense baseline path, weights
   ops/                detect, compact, delta-conv/pool helpers, geometry,
                       the small-cin stem's gate and plain detect (flat4)
@@ -15,7 +15,7 @@ version. Layout:
   layers, convert     change-based layers and the network converter
   runner              the streaming frame loop
   zoo                 one-call loading of the shipped workloads
-  video, metrics      synthetic labelled video, mIoU and FLOP accounting
+  video, metrics      synthetic labelled video, mIoU, PCK, FLOP accounting
 """
 
 __version__ = "0.1.0"

@@ -68,7 +68,17 @@ class ConvSpec:
     threshold: float = 0.0
     use_cb: bool = True
     backend: Optional[str] = None  # per-layer override of PipelineConfig
+    # Mask forwarding: when the producer emits a dirty hint, skip detection;
+    # the changed-tile mask is the hint dilated by this conv's receptive
+    # field and the input cache is refreshed by a pure tile copy (no diff,
+    # ``threshold`` unused). Bit-identical to tau = -1 re-detection. Falls
+    # back to re-detection when no hint arrives (after a dense layer).
     forward_hint: bool = False
+    # Fused consumer detect (set by convert_flagship where the static fuse
+    # gate holds): this layer's delta-conv kernel also runs the NEXT
+    # layer's detect + accept + dilate on each tile it computes, and the
+    # consumer skips its detect stage. Bit-identical to the unfused pair;
+    # ignored whenever the runtime gate does not hold.
     fuse_next_detect: bool = False
     kind: str = "conv"
 

@@ -98,8 +98,21 @@ class CBNet:
                 tau = taus[cb_i]
                 cb_i += 1
             if isinstance(spec, ConvSpec) and spec.use_cb:
+                fuse_ctx = None
+                if spec.fuse_next_detect and k + 1 < len(self.specs):
+                    # hand the producer its consumer's cache and tau (cb_i
+                    # already points at the consumer's slot); the fused
+                    # kernel updates that cache in place and the consumer's
+                    # detect is then served by hint.predetect
+                    s2 = self.specs[k + 1]
+                    if (isinstance(s2, ConvSpec) and s2.use_cb
+                            and not s2.forward_hint
+                            and state[k + 1] is not None):
+                        fuse_ctx = L.FuseCtx(
+                            spec=s2, in_cache=state[k + 1].in_cache,
+                            tau=taus[cb_i] if taus is not None else None)
                 x, st, s, hint = L.cb_conv_apply(p, st, x, spec, self.cfg,
-                                                 tau, hint)
+                                                 tau, hint, fuse_ctx=fuse_ctx)
             elif isinstance(spec, ConvSpec):
                 x = dense_conv_on_feature(x, p, spec, dtype)
                 s, hint = {}, None
@@ -226,13 +239,20 @@ def _hint_reaches(specs: Sequence, i: int) -> bool:
 def convert_flagship(specs: Sequence, in_shape: Tuple[int, int, int],
                      cfg: Optional[PipelineConfig] = None,
                      thresholds: Optional[Sequence[float]] = None,
-                     extra_overrides: Optional[Dict[int, str]] = None
-                     ) -> CBNet:
+                     extra_overrides: Optional[Dict[int, str]] = None,
+                     fuse_detect: bool = False) -> CBNet:
     """Convert with the shipped layer policy (see flagship_layers), then
     run aligned pools hint-forwarded, eliding the input cache where the
     fused pool gate provably holds and the producer always hints.
     ``extra_overrides`` layers per-index backend choices on top (the extra
-    wins); the fused conv+detect option of the JAX package is not ported.
+    wins). Its special value ``"forward_hint"`` sets the spec's
+    mask-forwarding mode instead of a backend: the layer skips detection
+    and recomputes its producer's hint region unconditionally (a
+    value-exact superset; its tau slot stays in the vector, unused).
+    ``fuse_detect=True`` additionally marks every plain ``"cuda"`` CB conv
+    whose next layer is a detecting CB conv for the fused conv + consumer
+    detect kernel (``ConvSpec.fuse_next_detect``): bit-identical either
+    way, so tuned taus stay valid.
     """
     cfg = cfg or PipelineConfig()
     overrides, dense = flagship_layers(specs, in_shape, cfg)
@@ -241,9 +261,11 @@ def convert_flagship(specs: Sequence, in_shape: Tuple[int, int, int],
         if bad:
             raise ValueError(f"extra_overrides: layer index(es) {bad} out "
                              f"of range for {len(specs)} specs")
-        if "forward_hint" in extra_overrides.values():
-            raise NotImplementedError("forward-hint convs are not ported")
-        overrides = {**overrides, **extra_overrides}
+        fwd = [k for k, v in extra_overrides.items() if v == "forward_hint"]
+        overrides = {**overrides, **{k: v for k, v in extra_overrides.items()
+                                     if v != "forward_hint"}}
+        specs = tuple(dataclasses.replace(s, forward_hint=True)
+                      if i in fwd else s for i, s in enumerate(specs))
     net = convert(specs, in_shape, cfg, dense_layers=dense,
                   backend_overrides=overrides)
     shapes = [tuple(in_shape)] + network.out_shapes(net.specs, in_shape)
@@ -256,6 +278,10 @@ def convert_flagship(specs: Sequence, in_shape: Tuple[int, int, int],
             if L.fused_pool_gate(s, g, lcfg) and _hint_reaches(net.specs, i):
                 s = dataclasses.replace(s, elide_in_cache=True)
         new_specs.append(s)
+    for i in range(len(new_specs) - 1 if fuse_detect else 0):
+        if L.fuse_next_gate(new_specs[i], new_specs[i + 1], shapes[i], cfg):
+            new_specs[i] = dataclasses.replace(new_specs[i],
+                                               fuse_next_detect=True)
     net = dataclasses.replace(net, specs=tuple(new_specs))
     if thresholds is not None:
         net = convert(net.specs, in_shape, cfg, thresholds=thresholds)

@@ -1,5 +1,6 @@
 // The per-pixel detect + accept + dilate step over an HWC map, shared by the
-// sparse (hint-driven) and the full-map detect kernels.
+// sparse (hint-driven) and the full-map detect kernels and by the fused
+// conv + consumer detect, whose x is its own out tile in shared memory.
 #pragma once
 
 #include "cb_common.cuh"
@@ -11,11 +12,45 @@ struct CbDetectArgs {
   CbTileGrid grid;         // this layer's out-tile grid
 };
 
-// One warp walks pixels [x0, x0 + n) of row y, lanes over the channels two
-// at a time (a warp reads 128 contiguous bytes per step). A pixel changed
-// iff max_c |x - cache| > tau in float32; it is then accepted into the
-// storage in place and the out tiles whose window holds it are marked.
-// Returns the number of changed pixels (the same value on every lane).
+// One warp walks n pixels of one map row, lanes over the C channels two at
+// a time (a warp reads 128 contiguous bytes per step): xr points at the
+// first pixel of x (x_pix elements between pixels), sr at the first pixel
+// of the storage (C elements between pixels), (y, x0) are the first pixel's
+// map coordinates. A pixel changed iff max_c |x - cache| > tau in float32;
+// it is then accepted into the storage in place and the out tiles of
+// ``grid`` whose window holds it are marked. Returns the number of changed
+// pixels (the same value on every lane).
+template <typename T>
+__device__ __forceinline__ int cb_detect_pixels(const T* xr, int x_pix,
+                                                T* __restrict__ sr, int C,
+                                                float* __restrict__ mask,
+                                                float tau,
+                                                const CbTileGrid& grid, int y,
+                                                int x0, int n, int lane) {
+  int local = 0;
+  for (int px = 0; px < n; ++px) {
+    const T* xp = xr + px * x_pix;
+    T* sp = sr + px * C;
+    float m = 0.f;
+    for (int c = 2 * lane; c < C; c += 64) {
+      float2 xv = cb_load2(xp + c);
+      float2 cv = cb_load2(sp + c);
+      m = fmaxf(m, fmaxf(fabsf(xv.x - cv.x), fabsf(xv.y - cv.y)));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (m > tau) {
+      for (int c = 2 * lane; c < C; c += 64) cb_copy2(sp + c, xp + c);
+      ++local;
+      if (lane == 0) cb_mark_tiles(mask, grid, y, x0 + px);
+    }
+  }
+  return local;
+}
+
+// Pixels [x0, x0 + n) of row y of an HWC map x against the interior of the
+// padded storage st.
 template <typename T>
 __device__ __forceinline__ int cb_detect_row(const T* __restrict__ x,
                                              T* __restrict__ st,
@@ -25,24 +60,5 @@ __device__ __forceinline__ int cb_detect_row(const T* __restrict__ x,
   const T* xr = x + (long long)y * a.x_row + (long long)x0 * a.C;
   T* sr = st + (long long)(y + a.slo_h) * a.s_row +
           (long long)(a.slo_w + x0) * a.C;
-  int local = 0;
-  for (int px = 0; px < n; ++px) {
-    const T* xp = xr + px * a.C;
-    T* sp = sr + px * a.C;
-    float m = 0.f;
-    for (int c = 2 * lane; c < a.C; c += 64) {
-      float2 xv = cb_load2(xp + c);
-      float2 cv = cb_load2(sp + c);
-      m = fmaxf(m, fmaxf(fabsf(xv.x - cv.x), fabsf(xv.y - cv.y)));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (m > tau) {
-      for (int c = 2 * lane; c < a.C; c += 64) cb_copy2(sp + c, xp + c);
-      ++local;
-      if (lane == 0) cb_mark_tiles(mask, a.grid, y, x0 + px);
-    }
-  }
-  return local;
+  return cb_detect_pixels(xr, a.C, sr, a.C, mask, tau, a.grid, y, x0, n, lane);
 }

@@ -1,5 +1,5 @@
 """Change-based conv and max-pool layers (PyTorch port of the parts of
-``cbinfer_tpu.layers`` that the scene path reaches).
+``cbinfer_tpu.layers`` that the scene and pose paths reach).
 
 Each CB layer keeps two tensors on the device: ``in_cache``, the last input
 it accepted (stored spatially padded, in the JAX package's storage layout),
@@ -18,17 +18,26 @@ Backends: ``"cuda"`` (the hand-written kernels; on CPU tensors their plain
 versions), ``"patch_stem"`` (the sparse small-cin stem: full-map stem
 detect plus the stem conv kernel over dirty (8, 32) tiles) and
 ``"dense_cached"`` (full-map detect plus a dense conv from the accepted
-cache). The capacity-bounded jnp path, ``band_cached``,
-``dense_cached_flat``, forward-hint convs and the fused conv+detect are
-not ported; asking for them raises.
+cache). The capacity-bounded jnp path, ``band_cached`` and
+``dense_cached_flat`` are not ported; asking for them raises.
+
+Change-mask modes of a ``"cuda"`` conv: re-detection (the default);
+mask forwarding (``ConvSpec.forward_hint``: no detection, the input cache
+tracks the producer's output over the hinted tiles by a pure tile copy and
+the mask is the hint dilated by the receptive field, bit-identical to
+re-detection at tau = -1 on 8-aligned maps); and pre-detection
+(``ConvSpec.fuse_next_detect`` on the PRODUCER: its fused kernel already
+ran this layer's detect, which rides in on ``DirtyHint.predetect``).
 
 Lane padding: the JAX package pads every channel dim to 128 on its
-``"pallas"`` backend; the port stores logical widths.
+``"pallas"`` backend; the port stores logical widths (the delta conv
+kernels take any cin that is a multiple of 8 in bf16, 4 in float32).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -41,7 +50,9 @@ from .ops import flat4 as flat4_ops
 from .ops.delta_conv import make_storage, storage_interior
 from .ops.delta_pool import dense_pool
 from .ops.geometry import TileGeometry, cdiv, conv_tile_geometry
+from .ops.kernels.accept import accept_tiles
 from .ops.kernels.delta_conv import delta_conv
+from .ops.kernels.delta_conv_detect import delta_conv_detect, fuse_gate
 from .ops.kernels.delta_pool import delta_pool
 from .ops.kernels.detect_full import detect_full
 from .ops.kernels.detect_sparse import detect_sparse
@@ -60,9 +71,32 @@ class CBLayerState:
     out_cache: torch.Tensor  # (Ho_pad, Wo_pad, Cout) cached output
 
 
+class PreDetect(NamedTuple):
+    """The consumer layer's detect outputs, computed by the PRODUCER's
+    fused delta-conv + detect kernel: the consumer skips C1+C2 and goes
+    straight to compaction. Bit-identical to the sparse detect on the
+    producer's output."""
+    in_cache: torch.Tensor  # the consumer's input cache (updated in place)
+    mask: torch.Tensor      # (tiles_h, tiles_w) f32 changed-out-tile mask
+    npix: torch.Tensor      # (1,) int32 changed pixels
+    n_detect: torch.Tensor  # () int32 tiles visited (== producer count)
+
+
+class FuseCtx(NamedTuple):
+    """Consumer-layer context handed to a ``fuse_next_detect`` producer by
+    ``CBNet.apply``: the consumer's spec, its input cache (which the fused
+    kernel updates in place) and its runtime tau."""
+    spec: Any
+    in_cache: torch.Tensor
+    tau: Any
+
+
 class DirtyHint(NamedTuple):
-    """Conservative changed-region mask over a tensor, 8x8 granularity."""
+    """Conservative changed-region mask over a tensor, 8x8 granularity.
+    ``predetect`` is attached by a producer whose kernel already ran the
+    NEXT layer's detect; only the immediate consumer reads it."""
     mask: torch.Tensor  # (ceil(H/8), ceil(W/8)) bool
+    predetect: Optional[PreDetect] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +187,50 @@ def _out_hint(tile_mask: torch.Tensor, g: TileGeometry,
     return DirtyHint(mask=m.contiguous())
 
 
+@functools.lru_cache(maxsize=None)
+def _forward_indicators(g: TileGeometry, hh: int, hw: int, device):
+    """The two 0/1 matrices of ``_forward_mask`` for one geometry: m1[a, i]
+    = out-tile row a reads hint row i, m2[j, b] = out-tile column b reads
+    hint column j (rectangle-interval overlap). Built on ``device``: a
+    copy from the host would make the frame loop wait for the card."""
+    sh, sw = g.stride
+    lo_h = torch.arange(g.tiles_h, device=device) * (g.th * sh) - g.pad_lo_h
+    hi = torch.arange(hh, device=device) * HINT_TILE
+    m1 = ((hi[None, :] < lo_h[:, None] + g.win_h)
+          & (hi[None, :] + HINT_TILE > lo_h[:, None])).float()
+    lo_w = torch.arange(g.tiles_w, device=device) * (g.tw * sw) - g.pad_lo_w
+    hj = torch.arange(hw, device=device) * HINT_TILE
+    m2 = ((hj[:, None] < lo_w[None, :] + g.win_w)
+          & (hj[:, None] + HINT_TILE > lo_w[None, :])).float()
+    return m1, m2
+
+
+def _forward_mask(hint_mask: torch.Tensor, g: TileGeometry) -> torch.Tensor:
+    """Changed-OUT-tile mask of a FORWARDING layer: the producer's hint
+    dilated by this layer's receptive field, exact on the tile grids, as
+    two tiny indicator matmuls. Equals the tau = -1 re-detection mask on
+    8-aligned maps."""
+    m1, m2 = _forward_indicators(g, hint_mask.shape[0], hint_mask.shape[1],
+                                 hint_mask.device)
+    return (m1 @ hint_mask.float() @ m2) > 0
+
+
+def _accept_hinted(x: torch.Tensor, in_cache: torch.Tensor, hint: DirtyHint,
+                   g: TileGeometry):
+    """Forwarding-mode cache update IN PLACE: the storage tracks the
+    producer's output over the hinted tiles (no diff, no tau), by the tile
+    copy kernel. Returns (storage, n_detect_tiles)."""
+    if g.in_h < HINT_TILE or g.in_w % HINT_TILE:
+        raise NotImplementedError(
+            "a forward-hint conv needs a map of at least 8 rows and "
+            f"8-aligned columns (the tile copy kernel); got "
+            f"{(g.in_h, g.in_w)}")
+    dcomp = compact.compact_mask(hint.mask, hint.mask.numel())
+    storage = accept_tiles(x.to(in_cache.dtype), in_cache, dcomp.idx,
+                           dcomp.count, g)
+    return storage, dcomp.count
+
+
 # ------------------------------ detection -----------------------------------
 
 
@@ -190,6 +268,12 @@ def _detect_and_mask(x: torch.Tensor, in_cache: torch.Tensor, tau,
     asks for an 8-aligned map and 128-lane channels, rules of its band
     sweep with no counterpart on the card (the CUDA kernel clips at the
     map's edge), so those conditions are dropped."""
+    if hint is not None and hint.predetect is not None:
+        # the producer's fused kernel already ran THIS layer's detect on
+        # the tiles it computed, into this very cache
+        pd = hint.predetect
+        assert pd.in_cache is in_cache, "pre-detect ran on another cache"
+        return in_cache, pd.mask > 0.5, pd.npix[0], pd.n_detect
     H, W = g.in_h, g.in_w
     if cfg.backend == "cuda":
         if hint is None:
@@ -213,17 +297,33 @@ def _detect_and_mask(x: torch.Tensor, in_cache: torch.Tensor, tau,
 
 def _run_gated(spec, state: CBLayerState, x: torch.Tensor, g: TileGeometry,
                cfg: PipelineConfig, tile_fn, tau=None,
-               hint: Optional[DirtyHint] = None):
+               hint: Optional[DirtyHint] = None, forward: bool = False,
+               fused_fn=None):
     """Shared detect -> compact -> delta-kernel skeleton. Cond-free: the
     kernels walk the device-side count, so the index list holds every tile
     (capacity = n_tiles, as on the JAX package's ``"pallas"`` backend) and
-    there is no overflow branch. Returns (state, stats, out_hint)."""
-    if tau is None:
-        tau = spec.threshold
-    in_cache, mask, n_pix, n_detect = _detect_and_mask(
-        x, state.in_cache, tau, g, cfg, hint)
+    there is no overflow branch. ``forward`` (needs a hint): detection is
+    replaced by the hint-dilated mask plus a pure tile copy, tau unused.
+    ``fused_fn`` replaces ``tile_fn`` with the fused delta conv + consumer
+    detect and returns the consumer's ``PreDetect``, which rides out on the
+    returned hint. Returns (state, stats, out_hint)."""
+    if forward:
+        assert hint is not None
+        in_cache, n_detect = _accept_hinted(x, state.in_cache, hint, g)
+        mask = _forward_mask(hint.mask, g)
+        # forwarding never inspects pixels; visited = hinted area
+        n_pix = n_detect * (HINT_TILE * HINT_TILE)
+    else:
+        if tau is None:
+            tau = spec.threshold
+        in_cache, mask, n_pix, n_detect = _detect_and_mask(
+            x, state.in_cache, tau, g, cfg, hint)
     comp = compact.compact_mask(mask, g.n_tiles)
-    tile_fn(in_cache, comp.idx, comp.count, state.out_cache)
+    predetect = None
+    if fused_fn is not None:
+        predetect = fused_fn(in_cache, comp.idx, comp.count, state.out_cache)
+    else:
+        tile_fn(in_cache, comp.idx, comp.count, state.out_cache)
     stats = {
         "changed_tiles": comp.count,
         "computed_tiles": comp.count,
@@ -232,7 +332,30 @@ def _run_gated(spec, state: CBLayerState, x: torch.Tensor, g: TileGeometry,
         "changed_pixels": n_pix,
         "detect_tiles": n_detect,
     }
-    return state, stats, _out_hint(mask, g)
+    out_hint = _out_hint(mask, g)
+    if predetect is not None:
+        out_hint = out_hint._replace(predetect=predetect)
+    return state, stats, out_hint
+
+
+def fuse_next_gate(spec, spec2, in_shape: Tuple[int, int, int],
+                   cfg: PipelineConfig) -> bool:
+    """STATIC eligibility of marking ``spec`` (producer, input
+    ``in_shape``) with ``fuse_next_detect`` for consumer ``spec2``: both
+    plain ``"cuda"`` CB convs, the consumer detecting (not forwarding),
+    and the kernel's ``fuse_gate``. ``cb_conv_apply`` re-checks it at run
+    time."""
+    if not (isinstance(spec, ConvSpec) and spec.use_cb
+            and isinstance(spec2, ConvSpec) and spec2.use_cb
+            and not spec2.forward_hint):
+        return False
+    backends = [spec.backend or cfg.backend, spec2.backend or cfg.backend]
+    if backends != ["cuda", "cuda"]:
+        return False
+    g = _geometry(spec, in_shape, _layer_cfg(spec, cfg))
+    g2 = _geometry(spec2, (g.out_h, g.out_w, spec.features),
+                   _layer_cfg(spec2, cfg))
+    return fuse_gate(g, g2)
 
 
 def _conv_prep(params, x, spec: ConvSpec, cfg: PipelineConfig):
@@ -258,14 +381,18 @@ def _store_output(state: CBLayerState, y: torch.Tensor,
 
 def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
                   cfg: PipelineConfig, tau=None,
-                  hint: Optional[DirtyHint] = None):
+                  hint: Optional[DirtyHint] = None,
+                  fuse_ctx: Optional[FuseCtx] = None):
     """One frame through a change-based conv layer; caches updated in
-    place. Returns (y: Feature, state, stats, out_hint)."""
+    place. ``fuse_ctx`` (``CBNet.apply`` passes it when this spec has
+    ``fuse_next_detect``): run the fused delta conv + consumer detect and
+    return the consumer's detect outputs as ``out_hint.predetect``;
+    ignored when the runtime fuse gate does not hold (value-identical).
+    Returns (y: Feature, state, stats, out_hint)."""
+    pipe_cfg = cfg
     cfg = _layer_cfg(spec, cfg)
     compute_dtype = network.torch_dtype(cfg.compute_dtype)
     x, w, b, g = _conv_prep(params, x, spec, cfg)
-    if spec.forward_hint:
-        raise NotImplementedError("forward-hint convs are not ported")
 
     if cfg.backend == "patch_stem":
         return _patch_stem_apply(state, x, w, b, g, spec, cfg, compute_dtype,
@@ -305,8 +432,31 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
         delta_conv(storage, idx, w, b, out_cache, g, spec.activation,
                    compute_dtype, count=count)
 
+    fused_fn = None
+    if fuse_ctx is not None:
+        spec2 = fuse_ctx.spec
+        cfg2 = _layer_cfg(spec2, pipe_cfg)
+        g2 = _geometry(spec2, (g.out_h, g.out_w, spec.features), cfg2)
+        # runtime re-check of the converter's static gate: the plain
+        # kernel on any mismatch (value-identical)
+        if (cfg2.backend == "cuda"
+                and tuple(fuse_ctx.in_cache.shape) == g2.store_shape
+                and fuse_gate(g, g2)):
+            tau2 = (fuse_ctx.tau if fuse_ctx.tau is not None
+                    else spec2.threshold)
+
+            def fused_fn(storage, idx, count, out_cache):
+                _, nc, maskf, npix = delta_conv_detect(
+                    storage, idx, w, b, out_cache, g, spec.activation,
+                    compute_dtype, fuse_ctx.in_cache, tau2, g2, count=count)
+                return PreDetect(in_cache=nc, mask=maskf, npix=npix,
+                                 n_detect=count)
+
+    # a forward-hint conv with no hint (after a dense layer) re-detects
+    forward = bool(spec.forward_hint) and hint is not None
     state, stats, out_hint = _run_gated(spec, state, x, g, cfg, tile_fn,
-                                        tau, hint)
+                                        tau, hint, forward=forward,
+                                        fused_fn=fused_fn)
     return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
             stats, out_hint)
 

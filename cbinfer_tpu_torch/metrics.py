@@ -1,11 +1,12 @@
 """Accuracy and compute accounting (port of the parts of
-``cbinfer_tpu.metrics`` the scene path reports): per-class intersection /
-union counts of class maps, their merge into mIoU, and the effective-FLOP
+``cbinfer_tpu.metrics`` the scene and pose paths report): per-class
+intersection / union counts of class maps and their merge into mIoU, PCK of
+heatmap argmaxes against ground-truth keypoints, and the effective-FLOP
 reduction from the per-layer computed-tile counters."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,9 +37,50 @@ def merge_iu(inter, union) -> float:
     return float(np.mean(inter[present] / union[present]))
 
 
+def pck_gt(pred, kps, valid, stride: int, alpha: float = 0.05,
+           num_keypoints: int = 18) -> float:
+    """PCK against GROUND-TRUTH keypoints (host numpy).
+
+    pred: (..., H, W, C) model output with layout [paf | heat]: the heat
+    channels are the LAST ``num_keypoints``. kps: (..., num_keypoints, 2)
+    full-resolution [y, x]; valid: (..., num_keypoints) bool. A keypoint is
+    correct iff its channel's argmax on the stride-s output grid lies within
+    alpha * max(H, W) grid pixels of the ground truth. Mean over the valid
+    keypoints (none valid: 1.0)."""
+    pred = _np(pred)
+    H, W, C = pred.shape[-3:]
+    heat = pred[..., C - num_keypoints:].reshape((-1, H * W, num_keypoints))
+    return pck_gt_from_argmax(heat.argmax(axis=1), (H, W), kps, valid,
+                              stride, alpha, num_keypoints)
+
+
+def heat_argmax(pred: torch.Tensor, num_keypoints: int = 18) -> torch.Tensor:
+    """(H, W, C) output -> (num_keypoints,) flat argmax of each heat
+    channel, on the tensor's device: what ``pck_gt`` needs of a frame, so a
+    streaming loop can keep 18 integers instead of the whole map."""
+    H, W, C = pred.shape
+    return pred[..., C - num_keypoints:].reshape(H * W, num_keypoints) \
+        .argmax(dim=0)
+
+
+def pck_gt_from_argmax(flat, hw: Tuple[int, int], kps, valid, stride: int,
+                       alpha: float = 0.05, num_keypoints: int = 18) -> float:
+    """``pck_gt`` from the flat per-channel argmaxes (..., num_keypoints) of
+    maps of shape ``hw`` (see ``heat_argmax``)."""
+    H, W = hw
+    flat = _np(flat).reshape((-1, num_keypoints))
+    py, px = flat // W, flat % W
+    gt = np.asarray(kps, np.float64).reshape((-1, num_keypoints, 2)) / stride
+    dist = np.hypot(py - gt[..., 0], px - gt[..., 1])
+    ok = dist <= alpha * max(H, W)
+    v = np.asarray(valid, bool).reshape((-1, num_keypoints))
+    return float(ok[v].mean()) if v.any() else 1.0
+
+
 def _np(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return np.asarray(v)
 
 

@@ -1,4 +1,5 @@
-"""Model registry of the port (the scene family of ``cbinfer_tpu.models``)."""
+"""Model registry of the port (the scene and the sequential pose families
+of ``cbinfer_tpu.models``)."""
 
 from typing import Callable, Dict, List
 
@@ -19,4 +20,4 @@ def get_model(name: str, **kwargs) -> List:
     return _REGISTRY[name](**kwargs)
 
 
-from . import scene  # noqa: E402,F401
+from . import pose, scene  # noqa: E402,F401

@@ -28,12 +28,12 @@ class Kernel:
     launches: int = 0
 
 
-from . import (delta_conv, delta_pool, detect_full, detect_sparse,  # noqa: E402
-               pool_fused, stem_conv, stem_detect)
+from . import (accept, delta_conv, delta_conv_detect, delta_pool,  # noqa: E402
+               detect_full, detect_sparse, pool_fused, stem_conv, stem_detect)
 
 KERNELS = (detect_sparse.KERNEL, delta_conv.KERNEL, pool_fused.KERNEL,
-           stem_detect.KERNEL, stem_conv.KERNEL, detect_full.KERNEL,
-           delta_pool.KERNEL)
+           stem_detect.KERNEL, stem_conv.KERNEL, delta_conv_detect.KERNEL,
+           detect_full.KERNEL, delta_pool.KERNEL, accept.KERNEL)
 
 
 def reset_launches() -> None:

@@ -23,7 +23,8 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "kernels"
 SOURCES = ("detect_sparse", "delta_conv", "pool_fused", "stem_detect",
-           "stem_conv", "detect_full", "delta_pool")
+           "stem_conv", "detect_full", "delta_pool", "delta_conv_detect",
+           "accept_tiles")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -67,9 +67,10 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     tensors = [xp, idx, w, out_cache, count] + ([b] if b is not None else [])
     if not all(t.is_cuda for t in tensors):
         raise ValueError("delta_conv: tensors must all be on the card")
-    # bf16: MMA k-steps of 16 input channels and n-tiles of 8 outputs;
+    # bf16: 16-byte staging (8 input channels; a cin off the MMA's
+    # 16-channel k-step ends in a half step) and n-tiles of 8 outputs;
     # float32: 16-byte staging and 4-wide output vectors
-    cin_q, cout_q = (16, 8) if dtype == torch.bfloat16 else (4, 4)
+    cin_q, cout_q = (8, 8) if dtype == torch.bfloat16 else (4, 4)
     if (dtype not in DTYPE_CODE or w.dtype != dtype
             or out_cache.dtype != dtype or dtype != compute_dtype
             or tuple(xp.shape) != g.store_shape or cin != g.cin

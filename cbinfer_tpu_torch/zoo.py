@@ -1,5 +1,5 @@
 """Workload zoo: one-call loading of the shipped model families (port of
-``cbinfer_tpu.zoo`` for the sequential ``scene`` workloads).
+``cbinfer_tpu.zoo`` for the sequential ``scene`` and ``pose`` workloads).
 
 A registry maps each workload name to its architecture, trained checkpoint,
 tuned threshold vector and measured per-layer backend policy, so user code
@@ -10,8 +10,8 @@ builds a ready-to-stream network in one call:
 
 Missing artifacts degrade loudly but gracefully (random weights, default
 taus, no policy), with the provenance recorded on the returned Workload.
-``seg``, ``pose`` and ``pose_graph`` are registered and raise
-NotImplementedError naming what they wait for.
+``seg`` and ``pose_graph`` are registered and raise NotImplementedError
+naming what they wait for.
 """
 
 from __future__ import annotations
@@ -69,9 +69,7 @@ REGISTRY: Dict[str, _Entry] = {
                             "UpsampleSpec checks"),
     "pose": _Entry("sequential", 64, "pck",
                    f"{_CK}/pose_w64.npz", f"{_CK}/pose_w64_tau.json",
-                   f"{_REPO}/POLICY_pose.json", {},
-                   waits_for="the pose model and the fused conv+detect "
-                             "kernel (delta_conv_detect_pallas)"),
+                   f"{_REPO}/POLICY_pose.json", {}),
     "pose_graph": _Entry("graph", 64, "pck",
                          f"{_CK}/pose_graph_w64.npz",
                          f"{_CK}/pose_graph_w64_tau.json",
@@ -97,7 +95,9 @@ class Workload:
     warnings: List[str]
     # scale of a stripped trailing upsample (see ``load``), else None
     upsample_scale: Optional[Tuple[int, int]] = None
-    # the fused consumer-detect kernel is not ported: always False
+    # whether the fused consumer-detect kernel was applied (a throughput-
+    # only policy decision, bit-identical either way); its own provenance
+    # field so that a policy fallback cannot misreport it
     fuse_detect: bool = False
 
 
@@ -162,18 +162,17 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
             f"workload {name!r} is not ported: it waits for {e.waits_for}")
     cfg = cfg or default_pipeline_config()
     warnings: List[str] = []
-    policy_src, extra = "none", None
+    policy_src, extra, fuse = "none", None, False
     if apply_policy and os.path.exists(e.policy_json):
         with open(e.policy_json) as f:
             pj = json.load(f)
-        if pj.get("fuse_detect", False):
-            raise NotImplementedError(
-                f"{e.policy_json} asks for the fused consumer-detect kernel, "
-                "which is not ported")
         pol = pj.get("overrides") or {}
-        if pol:
+        # the workload's measured adoption of the fused consumer-detect
+        # kernel: a throughput decision only (bit-identical either way)
+        fuse = bool(pj.get("fuse_detect", False))
+        if pol or fuse:
             policy_src = e.policy_json
-            extra = {int(k): v for k, v in pol.items()}
+            extra = {int(k): v for k, v in pol.items()} if pol else None
 
     base = name[:-5] if name.endswith("_hard") else name
     specs = get_model(base, width=e.width, **e.model_kwargs)
@@ -182,14 +181,17 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
         up_scale = specs[-1].scale
         specs = specs[:-1]
     try:
-        net = convert_flagship(specs, in_shape, cfg, extra_overrides=extra)
+        net = convert_flagship(specs, in_shape, cfg, extra_overrides=extra,
+                               fuse_detect=fuse)
     except ValueError as exc:
         # a stale policy file (layer indexes of an older architecture)
-        # degrades to a no-policy build with a warning
+        # degrades to a no-policy build with a warning. The fuse_detect
+        # decision comes from the same file, so it is dropped with the
+        # overrides: provenance "none" means no part of it was applied
         if extra is None:
             raise
         warnings.append(f"backend policy NOT applied ({exc})")
-        policy_src = "none"
+        policy_src, fuse = "none", False
         net = convert_flagship(specs, in_shape, cfg)
     params = init_params(specs, in_shape, seed, cfg.device,
                          torch_dtype(cfg.compute_dtype))
@@ -227,4 +229,4 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
                     params=params, taus=taus, refresh_every=refresh,
                     metric=e.metric, weights=weights, tau_source=tau_src,
                     policy_source=policy_src, warnings=warnings,
-                    upsample_scale=up_scale)
+                    upsample_scale=up_scale, fuse_detect=fuse)

@@ -14,12 +14,23 @@ through the entry points a user calls:
               stem runs dense, so the first pool detects the full map and
               both pools re-detect
 
+Then the 720p pose network (w64, trained weights, tuned taus, bf16, the
+graded-dynamics video of the pose profile) on three paths:
+  pose          zoo.load("pose"): patch_stem stem, 13 conv pairs on the fused
+                delta conv + consumer detect, forward-hint pools (the 180-row
+                pool re-detects)
+  pose_unfused  zoo.load("pose", apply_policy=False): the same net with every
+                consumer detecting for itself, the A/B partner of pose
+  pose_fwd      convert_flagship(..., extra_overrides={15, 16, 20:
+                "forward_hint"}, fuse_detect=True): three 1x1 convs forward
+                their producer's hint through the tile copy kernel
+
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
   build       nvcc builds the kernels from cbinfer_tpu_torch/csrc/ (sm_90a)
-  small       each path at 64x128 (scene w16, float32) on the card against
-              the same run on the CPU's plain versions: identical per-layer
-              stats and argmax maps, logits within 1e-3
+  small       each path at 64x128 (scene w16, pose w8, float32) on the card
+              against the same run on the CPU's plain versions: identical
+              per-layer stats and argmax maps, outputs within 1e-3
   main        flagship: 8 timed chunks with the REFRESH_scene.json cadence,
               CB and dense fps by CUDA events, argmax-u8 on both paths; the
               launch counters over the timed CB run, which runs under
@@ -31,11 +42,23 @@ Phases, each printing one JSON line:
               does not ride on the host's load between calls
   hintless    hintless: 2 timed chunks, counters, FLOP reduction, GT-mIoU
               (recorded, not gated: the taus were tuned for the flagship)
-  check       each of the seven kernels against its plain version on the
+  pose        pose: 3 timed chunks with a refresh prolog every 2nd chunk
+              (REFRESH_pose.json validated no cadence), CB and dense fps,
+              launch counters derived from the converted specs, no host
+              sync; an untimed seed-0 pass for GT-PCK (CB and dense, alpha
+              0.05 and 0.02), the FLOP reduction and the stem's density
+  pose_unfused  bit-identity of outputs, stats and caches with pose over a
+              refresh frame and 31 steady frames; both sides' launches and
+              ms/frame in alternating chunks (F U U F)
+  pose_fwd    equality with pose run at tau = -1 on the three forwarded
+              layers; launches; ms/frame
+  check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists, tau = -1 for the full-map
-              detects, the capacity overflow of the stem conv, and the
-              sparse detect on a pool's geometry
+              detects, the capacity overflow of the stem conv, the sparse
+              detect on a pool's geometry, and the fused kernel against the
+              delta conv followed by the sparse detect (bit for bit, at
+              tau2 = tuned, -1 and 1e9, listed tiles and every tile)
   kernels     every kernel: launches, ms per launch, plain ms, bound ms
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line; without CUDA it exits 2 at once.
@@ -55,8 +78,11 @@ NUM_CLASSES = 8
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 REPO = os.path.dirname(os.path.abspath(__file__))
+POSE_CHUNKS = 3       # timed pose chunks (a refresh prolog every 2nd)
+POSE_FWD = {15: "forward_hint", 16: "forward_hint", 20: "forward_hint"}
 RESULTS = {}
-# kernels launched per steady (non-refresh) frame of each path
+# kernels launched per steady (non-refresh) frame of each path; the pose
+# paths' numbers are derived from their converted specs (per_frame_launches)
 PER_FRAME = {
     "flagship": {"stem_detect": 1, "stem_conv": 1, "detect_pool_fused": 2,
                  "detect_sparse": 3, "delta_conv": 3},
@@ -115,6 +141,14 @@ def main():
     calls = phase("main", main_path, torch, np, ctx)
     phase("main_dense_stem", dense_stem_path, torch, ctx)
     calls += phase("hintless", hintless_path, torch, np, ctx)
+    del ctx
+    torch.cuda.empty_cache()
+    pctx = phase("pose_setup", make_pose_context, torch, np)
+    calls += phase("pose", pose_path, torch, np, pctx)
+    phase("pose_unfused", pose_unfused_path, torch, pctx)
+    calls += phase("pose_fwd", pose_fwd_path, torch, pctx)
+    del pctx
+    torch.cuda.empty_cache()
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
     seconds["total"] = round(time.perf_counter() - t0, 1)
@@ -131,6 +165,11 @@ def main():
 def build_net(path, specs, in_shape, cfg, thresholds=None):
     """The path's network through the port's converters."""
     from cbinfer_tpu_torch.convert import convert, convert_flagship
+    if path.startswith("pose"):
+        return convert_flagship(
+            specs, in_shape, cfg, thresholds=thresholds,
+            extra_overrides=POSE_FWD if path == "pose_fwd" else None,
+            fuse_detect=path != "pose_unfused")
     if path == "flagship":
         return convert_flagship(specs, in_shape, cfg, thresholds=thresholds)
     if path == "dense_stem":
@@ -143,30 +182,41 @@ def build_net(path, specs, in_shape, cfg, thresholds=None):
 def small_parity(torch, np):
     """The 64x128 slices of tests/test_torch_scene_slice.py, card vs CPU."""
     from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import num_cb_layers
     from cbinfer_tpu_torch.models import get_model
     from cbinfer_tpu_torch.network import init_params
     from cbinfer_tpu_torch.runner import scan_video
     from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
     h, w, n = 64, 128, 6
-    specs = get_model("scene", num_classes=NUM_CLASSES, width=16)
-    clip = SpriteVideo(SpriteVideoConfig(height=h, width=w, n_sprites=2,
-                                         sprite_size=12, seed=3)).clip(n)
+    scene = get_model("scene", num_classes=NUM_CLASSES, width=16)
+    pose = get_model("pose", width=8)
+    scene_clip = SpriteVideo(SpriteVideoConfig(
+        height=h, width=w, n_sprites=2, sprite_size=12, seed=3)).clip(n)
+    # noise-free, as the CPU tests' clip: a float32 rounding difference
+    # between the card and the CPU must not meet a pixel that sits at tau
+    pose_clip = SpriteVideo(SpriteVideoConfig(
+        height=h, width=w, n_sprites=2, sprite_size=12, seed=3,
+        distinct_classes=True)).clip(n)
     report = {}
-    for path in PER_FRAME:
+    for path in list(PER_FRAME) + ["pose", "pose_unfused", "pose_fwd"]:
+        specs, clip = ((pose, pose_clip) if path.startswith("pose")
+                       else (scene, scene_clip))
         out = {}
         for dev in ("cpu", "cuda"):
             cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device=dev)
-            taus = [0.05] * (7 if path == "hintless" else 6)
-            net = build_net(path, specs, (h, w, 3), cfg, taus)
+            net = build_net(path, specs, (h, w, 3), cfg)
+            taus = [0.05] * num_cb_layers(net.specs)
             params = init_params(specs, (h, w, 3), seed=3, device=dev)
             ys, _, stats = scan_video(net, params,
                                       torch.from_numpy(clip).to(dev),
-                                      refresh_start=True)
+                                      thresholds=taus, refresh_start=True)
             out[dev] = (ys.cpu(), [{k: torch.as_tensor(v).cpu().tolist()
                                     for k, v in s.items()} for s in stats])
         err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
-        same_maps = bool(torch.equal(out["cuda"][0].argmax(-1),
-                                     out["cpu"][0].argmax(-1)))
+        # class maps of the scene net; the pose net's 56 regression
+        # channels have no argmax to speak of
+        same_maps = path.startswith("pose") or bool(torch.equal(
+            out["cuda"][0].argmax(-1), out["cpu"][0].argmax(-1)))
         same_stats = out["cuda"][1] == out["cpu"][1]
         report[path] = dict(max_abs_err=err, stats_equal=same_stats,
                             argmax_equal=same_maps)
@@ -303,13 +353,16 @@ def accuracy_pass(torch, np, ctx, net, taus, n_chunks, cadence):
     return miou, ef, stem_tiles, state, av
 
 
-def capture_frame(torch, ctx, path, net, taus, state, av):
-    """One more (steady-state) frame with every kernel call recorded: the
-    inputs each kernel of the path gets at the path's own shapes."""
+def capture_frame(torch, ctx, path, net, taus, state, av,
+                  out_shape=(H // 4, W // 4, NUM_CLASSES), frame=None):
+    """One more (steady-state) frame (the next of video ``av``, or
+    ``frame``) with every kernel call recorded: the inputs each kernel of
+    the path gets at the path's own shapes."""
     from cbinfer_tpu_torch import layers as L
     calls = []
     names = ("detect_sparse", "delta_conv", "detect_pool_fused",
-             "stem_detect", "stem_conv", "detect_full", "delta_pool")
+             "stem_detect", "stem_conv", "detect_full", "delta_pool",
+             "delta_conv_detect", "accept_tiles")
     saved = {n: getattr(L, n) for n in names}
 
     def recorder(name):
@@ -322,15 +375,20 @@ def capture_frame(torch, ctx, path, net, taus, state, av):
             return saved[name](*args, **kw)
         return wrapper
 
-    nxt = torch.from_numpy(av.clip(1)).cuda()
+    if frame is None:
+        frame = torch.from_numpy(av.clip(1)).cuda()[0]
+    if per_frame_launches(net) != PER_FRAME[path]:
+        raise AssertionError(f"{path}: the specs give "
+                             f"{per_frame_launches(net)}, not "
+                             f"{PER_FRAME[path]}")
     try:
         for n in names:
             setattr(L, n, recorder(n))
-        logits = net.apply(ctx.wl.params, state, nxt[0], taus)[0]
+        logits = net.apply(ctx.wl.params, state, frame, taus)[0]
     finally:
         for n in names:
             setattr(L, n, saved[n])
-    if (tuple(logits.shape) != (H // 4, W // 4, NUM_CLASSES)
+    if (tuple(logits.shape) != out_shape
             or not bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{path}: logits {tuple(logits.shape)} not "
                              "finite or of the wrong shape")
@@ -507,6 +565,360 @@ def hintless_path(torch, np, ctx):
     return capture_frame(torch, ctx, "hintless", net, taus, acc_state, av)
 
 
+
+# ------------------------------ the pose paths -------------------------------
+
+
+def per_frame_launches(net):
+    """Kernel launches of one steady (non-refresh) frame, read off the
+    converted specs: which layer detects for itself, which is pre-detected
+    by its producer's fused kernel, which forwards its producer's hint."""
+    from cbinfer_tpu_torch import layers as L
+    from cbinfer_tpu_torch.network import out_shapes
+    shapes = [net.in_shape] + out_shapes(net.specs, net.in_shape)
+    want = {}
+
+    def add(name):
+        want[name] = want.get(name, 0) + 1
+
+    hint = predetected = False
+    for i, (spec, shape) in enumerate(zip(net.specs, shapes)):
+        if spec.kind not in ("conv", "pool") or not spec.use_cb:
+            hint = predetected = False
+            continue
+        cfg = L._layer_cfg(spec, net.cfg)
+        g = L._geometry(spec, shape, cfg)
+        pre, predetected = predetected, False
+        if cfg.backend == "patch_stem":
+            add("stem_detect")
+            add("stem_conv")
+        elif cfg.backend == "dense_cached":
+            pass  # detects and convolves the full map with torch ops
+        elif (spec.kind == "pool" and spec.forward_hint and hint
+              and L.fused_pool_gate(spec, g, cfg)):
+            add("detect_pool_fused")
+        else:
+            if spec.kind == "conv" and spec.forward_hint and hint:
+                add("accept_tiles")
+            elif not pre:
+                add("detect_sparse" if hint else "detect_full")
+            nxt = net.specs[i + 1] if i + 1 < len(net.specs) else None
+            if spec.kind == "pool":
+                add("delta_pool")
+            elif (spec.fuse_next_detect and nxt is not None
+                  and L.fuse_next_gate(spec, nxt, shape, net.cfg)):
+                add("delta_conv_detect")
+                predetected = True
+            else:
+                add("delta_conv")
+        hint = True
+    return want
+
+
+def make_pose_context(torch, np):
+    """What the pose phases share: the workload through the zoo, the
+    graded-dynamics frames, and the chunk runners (outputs reduced on the
+    device to the 18 heat-channel argmaxes, as PCK needs them)."""
+    from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.metrics import heat_argmax
+    from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    wl = zoo.load("pose", (H, W, 3))
+    if (wl.weights != "trained(npz)" or wl.tau_source != "tuned"
+            or wl.warnings or wl.fuse_detect is not True
+            or not wl.policy_source.endswith("POLICY_pose.json")
+            or len(wl.taus) != 21):
+        raise AssertionError(
+            f"zoo.load('pose'): {wl.weights} {wl.tau_source} "
+            f"{wl.policy_source} fuse_detect={wl.fuse_detect} "
+            f"{len(wl.taus)} taus {wl.warnings}")
+    cadence, cadence_src = zoo.load_refresh_cadence("pose", T, H, W)
+    if cadence != 2 or "no cadence validated" not in cadence_src:
+        raise AssertionError(f"refresh cadence: {cadence} {cadence_src}")
+    for name in ("seg", "pose_graph"):
+        try:
+            zoo.load(name, (H, W, 3))
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"zoo.load({name!r}) did not raise")
+
+    def video(seed):
+        return SpriteVideo(SpriteVideoConfig(
+            height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+            noise_std=0.002, seed=seed, distinct_classes=True,
+            **workload_video_kwargs("pose")))
+
+    def cb_chunk(net, taus, ch, state, refresh, stats=False,
+                 out_map=heat_argmax):
+        return scan_video(net, wl.params, ch, state, collect_stats=stats,
+                          thresholds=taus, refresh_start=refresh,
+                          out_map=out_map)
+
+    def dense_chunk(ch):
+        return torch.stack([heat_argmax(wl.net.apply_dense(wl.params, f))
+                            for f in ch])
+
+    tv = video(int(time.time() * 1e3) % 100000)
+    warm = torch.from_numpy(tv.clip(T)).cuda()
+    chunks = [torch.from_numpy(tv.clip(T)).cuda()
+              for _ in range(POSE_CHUNKS + 1)]
+    return types.SimpleNamespace(
+        wl=wl, cadence=cadence, cadence_src=cadence_src, video=video,
+        cb_chunk=cb_chunk, dense_chunk=dense_chunk, warm=warm, chunks=chunks,
+        out_shape=(H // 8, W // 8, 56))
+
+
+def pose_path(torch, np, ctx):
+    """zoo.load("pose") exactly: timed CB and dense, launches, accuracy."""
+    from cbinfer_tpu_torch.metrics import effective_flops, pck_gt_from_argmax
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    wl, net, taus = ctx.wl, ctx.wl.net, ctx.wl.taus
+    PER_FRAME["pose"] = per_frame_launches(net)
+    fused = [i for i, s in enumerate(net.specs)
+             if getattr(s, "fuse_next_detect", False)]
+    if (net.specs[0].backend != "patch_stem" or len(fused) != 13
+            or PER_FRAME["pose"].get("delta_conv_detect") != 13):
+        raise AssertionError(f"not the pose flagship: fused {fused}, "
+                             f"{PER_FRAME['pose']}")
+    chunks = ctx.chunks[:POSE_CHUNKS]
+    torch.cuda.reset_peak_memory_stats()
+    # what the earlier phases keep on the card (the recorded kernel calls)
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    state = net.init_state()
+    state = ctx.cb_chunk(net, taus, ctx.warm, state, True)[1]
+    state = ctx.cb_chunk(net, taus, ctx.warm, state, False)[1]
+    ctx.dense_chunk(ctx.warm)
+    torch.cuda.synchronize()
+    marks = {k: [torch.cuda.Event(enable_timing=True)
+                 for _ in range(POSE_CHUNKS + 1)] for k in ("cb", "dense")}
+
+    def cb_run():
+        nonlocal state
+        ys = None
+        marks["cb"][0].record()
+        for i, ch in enumerate(chunks):
+            ys, state, _ = ctx.cb_chunk(net, taus, ch, state,
+                                        i % ctx.cadence == 0)
+            marks["cb"][i + 1].record()
+        return ys
+
+    def dense_run():
+        marks["dense"][0].record()
+        for i, ch in enumerate(chunks):
+            dn = ctx.dense_chunk(ch)
+            marks["dense"][i + 1].record()
+        return dn
+
+    def chunk_ms(key):
+        m = marks[key]
+        return [m[i].elapsed_time(m[i + 1]) / T for i in range(POSE_CHUNKS)]
+
+    reset_launches()
+    ys, cb_ms, cb_host_ms = timed(torch, lambda: no_sync(torch, cb_run))
+    counts = launches()
+    n_refresh = sum(1 for i in range(POSE_CHUNKS) if i % ctx.cadence == 0)
+    frames = POSE_CHUNKS * T
+    expect_launches("pose", counts, frames - n_refresh)
+    if ys.shape != (T, 18) or ys.dtype != torch.int64:
+        raise AssertionError(f"CB output {tuple(ys.shape)} {ys.dtype}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    _, dense_ms, dense_host_ms = timed(torch, dense_run)
+    cb_fps, dense_fps = frames / (cb_ms / 1e3), frames / (dense_ms / 1e3)
+    # untimed accuracy pass on the fixed seed-0 clip: 2 chunks, a refresh
+    # prolog on the first
+    av = ctx.video(0)
+    acc_state = net.init_state()
+    cb_arg, dn_arg, kps, valid, chunk_stats = [], [], [], [], []
+    for i in range(2):
+        ch, k, v = av.clip_with_keypoints(T)
+        ch = torch.from_numpy(ch).cuda()
+        a, acc_state, st = ctx.cb_chunk(net, taus, ch, acc_state, i == 0,
+                                        stats="mean")
+        cb_arg.append(a.cpu())
+        dn_arg.append(ctx.dense_chunk(ch).cpu())
+        kps.append(k)
+        valid.append(v)
+        chunk_stats.append([{q: float(x) for q, x in s.items()} for s in st])
+    kps, valid = np.concatenate(kps), np.concatenate(valid)
+    cb_arg, dn_arg = torch.cat(cb_arg), torch.cat(dn_arg)
+    hw = ctx.out_shape[:2]
+    pck = {f"{name}@{alpha}": pck_gt_from_argmax(arg[8:], hw, kps[8:],
+                                                 valid[8:], 8, alpha)
+           for name, arg in (("cb", cb_arg), ("dense", dn_arg))
+           for alpha in (0.05, 0.02)}  # 8 cold-start frames skipped
+    stats = [{k: np.array([c[li][k] for c in chunk_stats]) for k in s}
+             if s else {} for li, s in enumerate(chunk_stats[0])]
+    ef = effective_flops(stats, net.specs, (H, W, 3), 8, 8)
+    stem = stats[0]
+    steady = chunk_stats[1][0]  # the chunk without a refresh frame
+    stem_tiles = {"computed": float(np.mean(stem["computed_tiles"])),
+                  "n_tiles": float(np.max(stem["n_tiles"])),
+                  "steady_chunk_density": steady["computed_tiles"]
+                  / steady["n_tiles"],
+                  "overflow_share": float(np.mean(stem["overflow"])),
+                  "steady_chunk_overflow_share": steady["overflow"]}
+    density = [round(float(np.mean(s["computed_tiles"])
+                           / np.max(s["n_tiles"])), 4) if s else None
+               for s in stats]
+    emit("pose", path="pose", cb_fps=cb_fps, dense_fps=dense_fps,
+         vs_baseline=cb_fps / dense_fps, cb_ms_per_frame=cb_ms / frames,
+         dense_ms_per_frame=dense_ms / frames, frames_timed=frames,
+         steady_frames=frames - n_refresh,
+         cb_host_cpu_ms_per_frame=cb_host_ms / frames,
+         dense_host_cpu_ms_per_frame=dense_host_ms / frames,
+         cb_chunk_ms_per_frame=chunk_ms("cb"),
+         dense_chunk_ms_per_frame=chunk_ms("dense"),
+         refresh_every_chunks=ctx.cadence, refresh_source=ctx.cadence_src,
+         launches=counts, per_frame=PER_FRAME["pose"], fused_layers=fused,
+         pck_gt=pck,
+         pck_degradation={a: pck[f"dense@{a}"] - pck[f"cb@{a}"]
+                          for a in (0.05, 0.02)},
+         pck_budget_not_gated=0.005,
+         flop_reduction=ef["flop_reduction"],
+         dense_gflop_per_frame=ef["dense_flops_per_frame"] / 1e9,
+         stem_tiles=stem_tiles, computed_share_per_layer=density,
+         peak_mem_gib=peak_gib, peak_mem_above_held_gib=peak_gib - held_gib,
+         smi_after_cb=clocks, weights=wl.weights,
+         tau_source=wl.tau_source, policy_source=wl.policy_source,
+         fuse_detect=wl.fuse_detect, taus=taus)
+    if not all(np.isfinite(v) for v in pck.values()) \
+            or pck["dense@0.05"] < 0.5:
+        raise AssertionError(f"the trained pose net finds no keypoints: {pck}")
+    if not stem_tiles["computed"] < stem_tiles["n_tiles"]:
+        raise AssertionError(f"the sparse stem computed every tile: "
+                             f"{stem_tiles}")
+    return capture_frame(torch, ctx, "pose", net, taus, acc_state, av,
+                         ctx.out_shape)
+
+
+def _same_run(torch, a, b, what, stats=True):
+    """Outputs, every cache and (with ``stats``) the per-layer stats of two
+    runs, bit for bit."""
+    (ya, sa, ta), (yb, sb, tb) = a, b
+    if not torch.equal(ya, yb):
+        raise AssertionError(f"{what}: outputs differ")
+    for k, (x, y) in enumerate(zip(ta, tb) if stats else ()):
+        for key in x:
+            if not torch.equal(torch.as_tensor(x[key]),
+                               torch.as_tensor(y[key])):
+                raise AssertionError(f"{what}: layer {k} stat {key} differs")
+    for k, (x, y) in enumerate(zip(sa, sb)):
+        if x is not None and not (torch.equal(x.in_cache, y.in_cache)
+                                  and torch.equal(x.out_cache, y.out_cache)):
+            raise AssertionError(f"{what}: layer {k} caches differ")
+
+
+def pose_unfused_path(torch, ctx):
+    """The A/B partner of pose: every consumer detects for itself. Bit-
+    identical outputs, stats and caches; then both sides timed in turns."""
+    from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    wl = ctx.wl
+    wu = zoo.load("pose", (H, W, 3), apply_policy=False)
+    if wu.fuse_detect or wu.policy_source != "none" or any(
+            getattr(s, "fuse_next_detect", False) for s in wu.net.specs):
+        raise AssertionError("apply_policy=False still fuses")
+    nets = {"pose": wl.net, "pose_unfused": wu.net}
+    PER_FRAME["pose_unfused"] = per_frame_launches(wu.net)
+    runs, states = {}, {}
+    for path, net in nets.items():
+        ys, st, stats = ctx.cb_chunk(net, wl.taus, ctx.chunks[0],
+                                     net.init_state(), True, stats=True,
+                                     out_map=None)
+        runs[path], states[path] = (ys, st, stats), st
+    _same_run(torch, runs["pose"], runs["pose_unfused"], "fused vs unfused")
+    ys = runs["pose"][0]
+    if tuple(ys.shape) != (T,) + ctx.out_shape \
+            or not bool(torch.isfinite(ys).all()):
+        raise AssertionError(f"pose output {tuple(ys.shape)}")
+    del runs, ys
+    torch.cuda.synchronize()
+    # each side streams chunks 0 (above), 1, 2 in order; the sides take
+    # turns F U U F so that neither rides on the host's load
+    order = ["pose", "pose_unfused", "pose_unfused", "pose"]
+    series = {k: [] for k in nets}
+    host = {k: [] for k in nets}
+    counts = {k: {} for k in nets}
+    for path, ch in zip(order, [ctx.chunks[i] for i in (1, 1, 2, 2)]):
+        def run():
+            states[path] = ctx.cb_chunk(nets[path], wl.taus, ch,
+                                        states[path], False)[1]
+        reset_launches()
+        _, ms, host_ms = timed(torch, lambda: no_sync(torch, run))
+        for k, v in launches().items():
+            counts[path][k] = counts[path].get(k, 0) + v
+        series[path].append(ms / T)
+        host[path].append(host_ms / T)
+    for path in nets:
+        expect_launches(path, counts[path], len(series[path]) * T)
+    per_frame = {k: sum(v.values()) for k, v in PER_FRAME.items()
+                 if k in nets}
+    emit("pose_unfused", bit_identical=True, order=order,
+         ms_per_frame=series, host_cpu_ms_per_frame=host,
+         cb_fps={k: 1e3 * len(v) / sum(v) for k, v in series.items()},
+         launches=counts["pose_unfused"], launches_pose=counts["pose"],
+         per_frame=PER_FRAME["pose_unfused"],
+         kernel_launches_per_frame=per_frame)
+
+
+def pose_fwd_path(torch, ctx):
+    """Layers 15, 16 and 20 forward their producer's hint (the tile copy
+    kernel): equal to the same net re-detecting there at tau = -1."""
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    wl = ctx.wl
+    net = build_net("pose_fwd", wl.specs, (H, W, 3), wl.net.cfg)
+    PER_FRAME["pose_fwd"] = want = per_frame_launches(net)
+    fwd = [i for i, s in enumerate(net.specs)
+           if s.kind == "conv" and s.forward_hint]
+    if fwd != sorted(POSE_FWD) or want.get("accept_tiles") != 3 \
+            or want.get("delta_conv_detect") != 10:
+        raise AssertionError(f"not the forwarding path: {fwd} {want}")
+    cb = [i for i, s in enumerate(net.specs)
+          if s.kind in ("conv", "pool") and s.use_cb]
+    taus_ref = [-1.0 if cb[i] in POSE_FWD else t
+                for i, t in enumerate(wl.taus)]
+    runs = {}
+    for name, n, taus in (("fwd", net, wl.taus), ("ref", wl.net, taus_ref)):
+        runs[name] = ctx.cb_chunk(n, taus, ctx.chunks[0], n.init_state(),
+                                  True, stats=True, out_map=None)
+    (yf, sf, tf), (yr, sr, tr) = runs["fwd"], runs["ref"]
+    _same_run(torch, runs["fwd"], runs["ref"], "forward-hint vs tau = -1",
+              stats=False)
+    for k in POSE_FWD:
+        for key in ("computed_tiles", "changed_tiles", "detect_tiles"):
+            if not torch.equal(tf[k][key], tr[k][key]):
+                raise AssertionError(f"forward-hint layer {k}: {key} differs "
+                                     "from tau = -1")
+        # forwarding never inspects pixels: it reports the hinted area, 64
+        # pixels a tile, where tau = -1 counts the 90-row map's bottom
+        # tiles by the 2 rows they own (equal on 8-aligned maps only)
+        if not torch.equal(tf[k]["changed_pixels"][1:],
+                           tf[k]["detect_tiles"][1:] * 64):
+            raise AssertionError(f"forward-hint layer {k}: changed_pixels "
+                                 "is not the hinted area")
+    state = sf
+    del runs, yf, yr, sr
+    series, host = [], []
+    reset_launches()
+    for ch in ctx.chunks[1:3]:
+        def run():
+            nonlocal state
+            state = ctx.cb_chunk(net, wl.taus, ch, state, False)[1]
+        _, ms, host_ms = timed(torch, lambda: no_sync(torch, run))
+        series.append(ms / T)
+        host.append(host_ms / T)
+    counts = launches()
+    expect_launches("pose_fwd", counts, len(series) * T)
+    emit("pose_fwd", equals_tau_minus_one=True, forwarded_layers=fwd,
+         ms_per_frame=series, host_cpu_ms_per_frame=host,
+         cb_fps=1e3 * len(series) / sum(series), launches=counts,
+         per_frame=want)
+    return capture_frame(torch, ctx, "pose_fwd", net, wl.taus, state, None,
+                         ctx.out_shape, frame=ctx.chunks[3][0])
+
+
 # ------------------------------ kernel checks --------------------------------
 
 
@@ -571,7 +983,9 @@ def check_kernels(torch, np, calls):
     from cbinfer_tpu_torch.ops.delta_conv import (make_storage,
                                                   storage_interior)
     from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
+    from cbinfer_tpu_torch.ops.kernels import accept as KA
     from cbinfer_tpu_torch.ops.kernels import delta_conv as KC
+    from cbinfer_tpu_torch.ops.kernels import delta_conv_detect as KF
     from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
     from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
     from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
@@ -825,6 +1239,8 @@ def check_kernels(torch, np, calls):
             # context, timed here and used nowhere in the port: every tile
             # through this kernel, through cuDNN's conv on the 3-channel
             # map, and through the im2col matmul of the dense stem
+            if name in context:
+                continue
             xi = storage_interior(st, g)
             xn = xi.permute(2, 0, 1)[None].contiguous(
                 memory_format=torch.channels_last)
@@ -844,6 +1260,166 @@ def check_kernels(torch, np, calls):
                     torch, lambda: network.dense_conv(xi, w, b, spec, cd),
                     lambda: None, 10),
             }
+        elif name == "delta_conv_detect":
+            xp, idx, w, b, out0, g, act, cd, nc0, tau2, g2 = args
+            count = kw["count"]
+            c = int(count)
+            cout = w.shape[-1]
+
+            def fused(i, n, t, o, nc):
+                return KF.delta_conv_detect(xp, i, w, b, o, g, act, cd, nc,
+                                            t, g2, count=n)[2:]
+
+            def pair(i, n, t, o, nc):
+                KC.delta_conv(xp, i, w, b, o, g, act, cd, count=n)
+                return KD.detect_sparse(o, nc, t, i, n, g2)[1:]
+
+            ia = torch.arange(g.n_tiles, dtype=torch.int32, device="cuda")
+            ca = torch.tensor(g.n_tiles, dtype=torch.int32, device="cuda")
+            # against the delta conv followed by the sparse detect, bit for
+            # bit: the listed tiles and every tile (the overhanging bottom
+            # row of a ragged map included), tau2 tuned, -1 and 1e9
+            exact, npix_all = True, None
+            for i_, n_ in ((idx, count), (ia, ca)):
+                for t_ in (tau2, -1.0, 1e9):
+                    of, nf = out0.clone(), nc0.clone()
+                    mf, pf = fused(i_, n_, t_, of, nf)
+                    ou, nu = out0.clone(), nc0.clone()
+                    mu, pu = pair(i_, n_, t_, ou, nu)
+                    exact = (exact and torch.equal(of, ou)
+                             and torch.equal(nf, nu) and torch.equal(mf, mu)
+                             and torch.equal(pf, pu))
+                    if i_ is ia and t_ == -1.0:
+                        npix_all = int(pf)
+                        exact = exact and bool((mf == 1).all())
+                    if t_ == 1e9:
+                        exact = exact and int(pf) == 0 and not mf.any() \
+                            and torch.equal(nf, nc0)
+            ulp = _ulps(torch, of, ou) if out0.dtype == torch.bfloat16 else 0
+            # against the plain version: the conv within the delta conv's
+            # tolerance (another summation order), and the detect exact
+            # given the kernel's own out tile
+            ok_, nk_ = out0.clone(), nc0.clone()
+            mk, pk = fused(idx, count, tau2, ok_, nk_)
+            op_, np_ = out0.clone(), nc0.clone()
+            _, _, mp, pp = KF.delta_conv_detect_plain(
+                xp, idx, w, b, op_, g, act, cd, np_, tau2, g2, count=count)
+            err = float((ok_.float() - op_.float()).abs().max())
+            close = torch.allclose(ok_.float(), op_.float(), rtol=2e-2,
+                                   atol=2e-2)
+            nd_ = nc0.clone()
+            _, md, pd = KD.detect_sparse_plain(ok_, nd_, tau2, idx, count,
+                                               g2)
+            detect_exact = (torch.equal(nk_, nd_) and torch.equal(mk, md)
+                            and torch.equal(pk, pd))
+            plain_exact = (torch.equal(nk_, np_) and torch.equal(mk, mp)
+                           and torch.equal(pk, pp))
+            z_o, z_n = out0.clone(), nc0.clone()
+            mz, pz = fused(idx, zero, tau2, z_o, z_n)
+            ok0 = (torch.equal(z_o, out0) and torch.equal(z_n, nc0)
+                   and not mz.any() and int(pz) == 0)
+            fail_unless(
+                exact and ulp == 0 and close and detect_exact and ok0
+                and npix_all == g.out_h * g.out_w,
+                dict(kernel=name, path=path, call=li,
+                     equals_conv_then_detect=exact, max_ulps_vs_pair=ulp,
+                     conv_max_abs_err_vs_plain=err, within_2e2=close,
+                     detect_exact_vs_plain=detect_exact,
+                     whole_plain_exact=plain_exact, count0_noop=ok0,
+                     all_tiles_tau_minus_one_npix=npix_all,
+                     map=[g.out_h, g.out_w], ragged=g.out_h % 8 != 0,
+                     cin=g.cin, cout=cout, kernel_hw=list(g.kernel),
+                     consumer_kernel_hw=list(g2.kernel), tau2=tau2,
+                     count=c, npix=int(pk)))
+            out_k, out_p = out0.clone(), out0.clone()
+            nc_k, nc_p = nc0.clone(), nc0.clone()
+
+            def restore_k():
+                out_k.copy_(out0)
+                nc_k.copy_(nc0)
+
+            def restore_p():
+                out_p.copy_(out0)
+                nc_p.copy_(nc0)
+
+            ms = _time_launches(
+                torch, lambda: fused(idx, count, tau2, out_k, nc_k),
+                restore_k, 20)
+            pms = _time_launches(
+                torch, lambda: KF.delta_conv_detect_plain(
+                    xp, idx, w, b, out_p, g, act, cd, nc_p, tau2, g2,
+                    count=count), restore_p, 5, sleep_cycles=0)
+            # the unfused pair's time on the same inputs, as context
+            pair_ms = _time_launches(
+                torch, lambda: pair(idx, count, tau2, out_k, nc_k),
+                restore_k, 20)
+            kh, kw_ = g.kernel
+            es = xp.element_size()
+            flops = 2 * 64 * kh * kw_ * g.cin * cout * c
+            nbytes = (_window_cover_bytes(np, idx, c, g, xp.shape, g.cin, es)
+                      + c * 64 * cout * es          # out tiles written
+                      + c * 64 * cout * es          # consumer cache read
+                      + int(pk) * cout * es         # accepted pixels
+                      + w.numel() * es + cout * 4 + c * 4
+                      + g2.tiles_h * g2.tiles_w * 4 + 8)
+            acc(path, name, ms, pms, *_bound_ms(flops, nbytes), err)
+            ctxt = context.setdefault(name, {"unfused_pair_ms": 0.0,
+                                             "calls": 0})
+            ctxt["unfused_pair_ms"] += pair_ms
+            ctxt["calls"] += 1
+        elif name == "accept_tiles":
+            x, st0, idx, count, g = args
+            c = int(count)
+            sk = KA.accept_tiles(x, st0.clone(), idx, count, g)
+            sp = KA.accept_tiles_plain(x, st0.clone(), idx, count, g)
+            ok = torch.equal(sk, sp)
+            ok0 = torch.equal(KA.accept_tiles(x, st0.clone(), idx, zero, g),
+                              st0)
+            n_hint = -(-g.in_h // 8) * (g.in_w // 8)
+            ia = torch.arange(n_hint, dtype=torch.int32, device="cuda")
+            ca = torch.tensor(n_hint, dtype=torch.int32, device="cuda")
+            sa = KA.accept_tiles(x, st0.clone(), ia, ca, g)
+            sb = KA.accept_tiles_plain(x, st0.clone(), ia, ca, g)
+            interior = storage_interior(sa, g)
+            oka = torch.equal(sa, sb) and torch.equal(
+                interior, x[:g.in_h, :g.in_w])
+            fail_unless(ok and ok0 and oka, dict(
+                kernel=name, path=path, call=li, exact=ok, count0_noop=ok0,
+                all_tiles_exact=oka, clamped=g.in_h % 8 != 0,
+                map=[g.in_h, g.in_w], channels=x.shape[-1], count=c,
+                of=n_hint))
+            st_k, st_p = st0.clone(), st0.clone()
+            ms, pms = _time_pair(
+                torch, lambda: KA.accept_tiles(x, st_k, idx, count, g),
+                lambda: KA.accept_tiles_plain(x, st_p, idx, count, g),
+                st_k, st_p, st0)
+            C, es = x.shape[-1], x.element_size()
+            nbytes = 2 * c * 64 * C * es + c * 4 + 4
+            acc(path, name, ms, pms, *_bound_ms(0.0, nbytes),
+                float((sk.float() - sp.float()).abs().max()))
+            if name not in context:
+                # context, used nowhere in the port: the same copy as two
+                # PyTorch calls over precomputed pixel indices (their
+                # computation from the device-side count is not timed)
+                ids = idx[:c].long()
+                hw_ = g.in_w // 8
+                oy = torch.clamp(ids // hw_ * 8, max=g.in_h - 8)
+                ox = ids % hw_ * 8
+                ar = torch.arange(8, device="cuda")
+                rows = (oy[:, None] + ar)[:, :, None].expand(-1, 8, 8)
+                cols = (ox[:, None] + ar)[:, None, :].expand(-1, 8, 8)
+                src = (rows * x.shape[1] + cols).reshape(-1)
+                dst = ((rows + g.store_lo_h) * st0.shape[1] + cols
+                       + g.store_lo_w).reshape(-1)
+                xf, sf = x.view(-1, C), st_k.view(-1, C)
+                context[name] = {
+                    "index_select_index_copy_ms": _time_launches(
+                        torch, lambda: sf.index_copy_(
+                            0, dst, xf.index_select(0, src)),
+                        lambda: None, 10)}
+                if not torch.equal(st_k, sk):
+                    raise AssertionError("accept_tiles: the index_copy_ "
+                                         "yardstick disagrees")
         else:  # delta_pool
             st, idx, out0, g = args
             count = kw["count"]
@@ -881,6 +1457,9 @@ def check_kernels(torch, np, calls):
     if not any(c.get("pool_geometry") for c in checks
                if c["kernel"] == "detect_sparse"):
         raise AssertionError("detect_sparse was not checked on a pool")
+    fused_ctx = context.get("delta_conv_detect")
+    if fused_ctx:
+        fused_ctx["unfused_pair_ms"] /= fused_ctx.pop("calls")
     emit("check", calls=checks)
     RESULTS["_per_kernel"] = per
     RESULTS["_context"] = context
@@ -892,7 +1471,10 @@ def emit_kernels():
     context = RESULTS.pop("_context")
     launches = {"flagship": RESULTS["main"]["launches"],
                 "dense_stem": RESULTS["main_dense_stem"]["launches"],
-                "hintless": RESULTS["hintless"]["launches"]}
+                "hintless": RESULTS["hintless"]["launches"],
+                "pose": RESULTS["pose"]["launches"],
+                "pose_unfused": RESULTS["pose_unfused"]["launches"],
+                "pose_fwd": RESULTS["pose_fwd"]["launches"]}
     rows = []
     for k in KERNELS:
         paths = {}
@@ -908,8 +1490,9 @@ def emit_kernels():
                 "ms": p["ms"] / p["n"], "plain_ms": p["plain_ms"] / p["n"],
                 "bound_ms": p["bound_ms"] / p["n"],
                 "bound_by": "/".join(sorted(p["by"]))}
-        # the row's own numbers: the flagship's where the kernel is on it
-        main = next((paths[p] for p in ("flagship", "hintless")
+        # the row's own numbers: those of the first path that runs it
+        main = next((paths[p] for p in ("flagship", "hintless", "pose",
+                                        "pose_fwd")
                      if "ms" in paths.get(p, {})), None)
         if main is None or not main["launches"]:
             raise AssertionError(f"{k.name}: no call captured or launched")
@@ -920,8 +1503,9 @@ def emit_kernels():
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             # no single PyTorch call computes these sparse, in-place
-            # functions (a dense conv or pool recomputes the whole map:
-            # see "context")
+            # functions (a dense conv or pool recomputes the whole map,
+            # the tile copy is an index_select and an index_copy_ over
+            # indices the count has to be read for: see "context")
             "library_ms": None,
             "calls_per_frame": main["calls_per_frame"], "paths": paths,
             "context": context.get(k.name),

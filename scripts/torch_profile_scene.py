@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time goes: torch.profiler over the port's 720p scene path.
+"""Where the time goes: torch.profiler over the port's 720p paths.
 
-    python3 scripts/torch_profile_scene.py [flagship|dense_stem|hintless]
+    python3 scripts/torch_profile_scene.py [flagship|dense_stem|hintless|
+                                            pose|pose_unfused|pose_fwd]
                                            [--frames 32]
 
-Builds one of chip_smoke.py's three paths of the scene network (w128,
-trained weights and tuned taus through zoo.load, bf16): ``flagship`` (the
-sparse patch_stem stem, the default), ``dense_stem`` (the stem overridden
-to dense_cached) or ``hintless`` (the plain converter with a dense stem).
-It warms up, then profiles one chunk of CB frames (no refresh frame) and
+Builds one of chip_smoke.py's paths, trained weights and tuned taus through
+zoo.load, bf16. Of the scene network (w128): ``flagship`` (the sparse
+patch_stem stem, the default), ``dense_stem`` (the stem overridden to
+dense_cached) or ``hintless`` (the plain converter with a dense stem). Of
+the pose network (w64, on the pose profile's graded-dynamics video, the
+18 heat-channel argmaxes as output): ``pose`` (zoo.load("pose"), 13 conv
+pairs on the fused conv + consumer detect), ``pose_unfused`` (the same
+without the fusion) or ``pose_fwd`` (layers 15, 16 and 20 forwarding their
+producer's hint). It warms up, then profiles one chunk of CB frames (no refresh frame) and
 the same frames through the dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
 the host thread's CPU ms per frame while enqueuing,
 device-busy ms per frame (union of kernel intervals), the device's idle
@@ -29,8 +34,10 @@ import torch  # noqa: E402
 from cbinfer_tpu_torch import zoo  # noqa: E402
 from cbinfer_tpu_torch.convert import (convert, convert_flagship,  # noqa: E402
                                        num_cb_layers)
+from cbinfer_tpu_torch.metrics import heat_argmax  # noqa: E402
 from cbinfer_tpu_torch.runner import scan_video  # noqa: E402
-from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig  # noqa
+from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,  # noqa
+                                     workload_video_kwargs)
 
 H, W = 720, 1280
 
@@ -65,14 +72,17 @@ def kernel_table(prof, n_frames, top):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="flagship",
-                    choices=("flagship", "dense_stem", "hintless"))
+                    choices=("flagship", "dense_stem", "hintless", "pose",
+                             "pose_unfused", "pose_fwd"))
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
-    wl = zoo.load("scene", (H, W, 3))
+    is_pose = args.path.startswith("pose")
+    wl = zoo.load("pose" if is_pose else "scene", (H, W, 3),
+                  apply_policy=args.path != "pose_unfused")
     if wl.weights != "trained(npz)" or wl.tau_source != "tuned" \
             or wl.warnings:
         # zoo.load carries on with random weights or flat taus and only
@@ -88,13 +98,21 @@ def main():
         net = convert(wl.specs, (H, W, 3), net.cfg,
                       dense_layers=(0, len(wl.specs) - 1))
         taus = [taus[0]] * num_cb_layers(net.specs)
+    elif args.path == "pose_fwd":
+        net = convert_flagship(
+            wl.specs, (H, W, 3), net.cfg, fuse_detect=True,
+            extra_overrides={k: "forward_hint" for k in (15, 16, 20)})
     video = SpriteVideo(SpriteVideoConfig(
         height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
-        noise_std=0.002, seed=int(time.time()) % 100000))
+        noise_std=0.002, seed=int(time.time()) % 100000,
+        distinct_classes=is_pose,
+        **workload_video_kwargs("pose" if is_pose else "scene")))
     warm, clip_t, clip_p = (torch.from_numpy(video.clip(args.frames)).cuda()
                             for _ in range(3))
 
     def out_u8(y):
+        if is_pose:
+            return heat_argmax(y)
         return y.argmax(-1).to(torch.uint8)
 
     def cb(ch, state, refresh=False):

@@ -282,3 +282,136 @@ def test_frame_loop_never_syncs_with_host(cuda, path):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert ys.shape == (4, 16, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [12, 16, 20])
+def test_accept_tiles_matches_plain_on_card(cuda, dtype, H):
+    """B9 exact, clamped bottoms included; count = 0 a no-op; x and the
+    storage must share their dtype."""
+    from cbinfer_tpu_torch.ops.kernels import accept as KA
+    W, C = 32, 24
+    g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
+    x = torch.randn(H + 4, W + 8, C, device=cuda).to(dtype)
+    st0 = torch.randn(g.store_shape, device=cuda).to(dtype)
+    hint = np.zeros((-(-H // 8), W // 8), bool)
+    hint[0, 1] = hint[-1, 0] = hint[-1, 3] = True
+    reset_launches()
+    for m in (hint, np.ones_like(hint), np.zeros_like(hint)):
+        idx, count = _ids(m, cuda)
+        sk = KA.accept_tiles(x, st0.clone(), idx, count, g)
+        sp = KA.accept_tiles_plain(x, st0.clone(), idx, count, g)
+        assert torch.equal(sk, sp)
+    assert torch.equal(sk, st0)
+    assert launches()["accept_tiles"] == 3
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="unsupported"):
+        KA.accept_tiles(x.to(other), st0.clone(), idx, count, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,k1,k2,cin,cout", [
+    (32, 3, 3, 16, 32), (30, 3, 1, 24, 24), (90, 1, 3, 32, 56),
+    (20, 3, 3, 56, 264)])
+def test_fused_conv_detect_matches_unfused_pair_on_card(cuda, dtype, H, k1,
+                                                        k2, cin, cout):
+    """B6 against B2 followed by B1 on the card: out cache, consumer cache,
+    mask and npix bit for bit, for tau2 in {0.05, -1, 1e9}, a listed
+    subset, every tile (the ragged bottom row included) and count = 0;
+    against the plain version within the delta conv's tolerance."""
+    from cbinfer_tpu_torch.ops.kernels import delta_conv_detect as KF
+    rng = np.random.default_rng(H)
+    W = 48
+    g = conv_tile_geometry((H, W, cin), (k1, k1), (1, 1), (1, 1), "SAME",
+                           8, 8)
+    g2 = conv_tile_geometry((g.out_h, g.out_w, cout), (k2, k2), (1, 1),
+                            (1, 1), "SAME", 8, 8)
+    assert KF.fuse_gate(g, g2)
+    xp = torch.from_numpy(rng.standard_normal(g.store_shape).astype(
+        np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.standard_normal((k1, k1, cin, cout))
+                          * 0.2).astype(np.float32)).to(cuda, dtype)
+    b = torch.randn(cout, device=cuda)
+    out0 = torch.randn(g.out_h_pad, g.out_w_pad, cout, device=cuda).to(dtype)
+    nc0 = (torch.randn(g2.store_shape, device=cuda) * 0.05)
+    nc0[g2.store_lo_h:g2.store_lo_h + g.out_h,
+        g2.store_lo_w:g2.store_lo_w + g.out_w] += out0[:g.out_h].float()
+    nc0 = nc0.to(dtype)
+    some = np.zeros((g.tiles_h, g.tiles_w), bool)
+    some.flat[[0, 3, g.n_tiles - 1, g.n_tiles // 2]] = True
+    reset_launches()
+    n = 0
+    for m in (some, np.ones_like(some), np.zeros_like(some)):
+        idx, count = _ids(m, cuda)
+        for tau2 in (0.05, -1.0, 1e9):
+            of, nf = out0.clone(), nc0.clone()
+            _, _, mf, pf = KF.delta_conv_detect(xp, idx, w, b, of, g, "relu",
+                                                dtype, nf, tau2, g2,
+                                                count=count)
+            ou, nu = out0.clone(), nc0.clone()
+            KC.delta_conv(xp, idx, w, b, ou, g, "relu", dtype, count=count)
+            _, mu, pu = KD.detect_sparse(ou, nu, tau2, idx, count, g2)
+            n += 1
+            assert torch.equal(of, ou) and torch.equal(nf, nu)
+            assert torch.equal(mf, mu) and torch.equal(pf, pu)
+            op, npl = out0.clone(), nc0.clone()
+            KF.delta_conv_detect_plain(xp, idx, w, b, op, g, "relu", dtype,
+                                       npl, tau2, g2, count=count)
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            torch.testing.assert_close(of.float(), op.float(), rtol=tol,
+                                       atol=tol)
+            if tau2 < 0:
+                assert int(pf) == int(m[:, :].sum()) * 64 - (
+                    int(m[-1].sum()) * 8 * (g.out_h_pad - g.out_h))
+            if not m.any():
+                assert torch.equal(of, out0) and torch.equal(nf, nc0)
+                assert not mf.any() and int(pf) == 0
+    got = launches()
+    assert (got["delta_conv_detect"], got["delta_conv"],
+            got["detect_sparse"]) == (n, n, n)
+
+
+@pytest.mark.parametrize("path", ["pose", "pose_fwd"])
+def test_pose_frame_loop_never_syncs_with_host(cuda, path):
+    """A small pose net (fused pairs; forward-hint convs on pose_fwd)
+    through refresh and plain frames without a host sync, and equal to
+    the same run on the CPU's plain versions in float32."""
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import convert_flagship
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.network import init_params
+    from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    specs = get_model("pose", width=8)
+    extra = ({15: "forward_hint", 16: "forward_hint", 20: "forward_hint"}
+             if path == "pose_fwd" else None)
+    clip = torch.from_numpy(SpriteVideo(SpriteVideoConfig(
+        height=64, width=128, seed=1, distinct_classes=True,
+        **workload_video_kwargs("pose"))).clip(4))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device=dev)
+        net = convert_flagship(specs, (64, 128, 3), cfg,
+                               thresholds=[0.05] * 21, extra_overrides=extra,
+                               fuse_detect=True)
+        params = init_params(specs, (64, 128, 3), seed=2, device=dev)
+        state = net.init_state()
+        frames = clip.to(dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            reset_launches()
+            ys, state, _ = scan_video(net, params, frames, state,
+                                      collect_stats=False,
+                                      refresh_start=True)
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        outs[dev] = ys.cpu()
+    got = launches()
+    assert got["delta_conv_detect"] == 3 * (10 if extra else 13)
+    assert got["accept_tiles"] == (9 if extra else 0)
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)

@@ -1,7 +1,8 @@
 """The port's workload zoo against the JAX package's: ``zoo.load`` of the
 sequential scene workloads gives the same specs ("pallas" read as "cuda"),
 taus, refresh cadence, provenance and weights; the unported workloads
-raise; the ``"hard"`` palette clip is byte-identical."""
+raise; the ``"hard"`` palette clip is byte-identical. The pose workload is
+held in ``test_torch_pose.py``."""
 
 import dataclasses
 
@@ -68,7 +69,7 @@ def test_load_flat_tau_and_registry():
             je.policy_json, je.model_kwargs)
 
 
-@pytest.mark.parametrize("name,needs", [("seg", "dilated"), ("pose", "fused"),
+@pytest.mark.parametrize("name,needs", [("seg", "dilated"),
                                         ("pose_graph", "graph")])
 def test_unported_workloads_raise(name, needs):
     with pytest.raises(NotImplementedError, match=needs):
@@ -116,6 +117,6 @@ def test_workload_clip_is_byte_identical(name):
     np.testing.assert_array_equal(tvideo.CLASS_PALETTE_HARD,
                                   jvideo.CLASS_PALETTE_HARD)
     with pytest.raises(KeyError):
-        tvideo.workload_video_kwargs("pose")
+        tvideo.workload_video_kwargs("seg")
     with pytest.raises(ValueError, match="palette"):
         tvideo.SpriteVideo(tvideo.SpriteVideoConfig(palette="soft"))
