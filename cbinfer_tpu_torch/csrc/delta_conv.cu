@@ -10,37 +10,44 @@
 // Bound on the H100: operations. A tile does 2*th*tw*kh*kw*cin*cout FLOPs
 // (75.5 MFLOP for 8x8 3x3 256->256) against ~0.2 MB of traffic, far above
 // the card's ~295 FLOP/byte balance point, so the sums belong on the tensor
-// cores. Design: one block of 256 threads per changed tile (the grid is
-// sized to the tile grid; blocks at or past *count exit at once). The block
-// stages the haloed window once in dynamic shared memory, each pixel's
-// channels padded by 8 elements so that the 8 pixels one MMA fragment row
-// set reads fall in 8 different bank groups (10x10x(256+8) bf16 = 52,800 B,
-// above the 48 KB static limit, hence the attribute set below).
+// cores. But a launch lists tens to hundreds of tiles, so what holds a
+// block back is latency: one block per tile would fill 23-29 of the 132
+// SMs on a 90-row map. Design (cb_conv.cuh): the tile's cout is split over
+// a thread-block cluster, one block per slice of n_blk channels, so a
+// launch runs tiles x csize blocks; each block stages the window with bulk
+// copies, streams its weight slice through a shared-memory ring (packed
+// once per weight tensor by ops/conv_plan.py) and runs wgmma with A from
+// registers. The grid is sized to the listed capacity; clusters at or past
+// *count exit at once.
 //
-// The tile body (staging, mma.sync GEMM for bf16, FMAs for float32, the
-// epilogue) is cb_conv.cuh, shared with the fused conv + consumer detect.
-// Not yet wgmma/TMA: those come with the kernel's tuning.
+// Split plan at 720p (ops/conv_plan.py; n_blk x csize):
+//   scene w128: 3x3 128->256 (360 rows) and 256->256 (x2, 180 rows) 64 x 4
+//   pose w64: 64->64 (720 rows) 64 x 1; 64->128, 128->128 (360) 32 x 4;
+//     128->256, 256->256 (180) 64 x 4; 256->512 (90) 64 x 8; 512->256,
+//     256->256, 56->256 and the 1x1 256->256 (90) 64 x 4; 256->128,
+//     128->128 and the 1x1 128->128 (90) 32 x 4; the 1x1 ->56 (90) 64 x 1
+//     (8 zero channels, not stored).
 #include "cb_conv.cuh"
 
 namespace {
 
-template <bool kTail>
-__global__ void __launch_bounds__(kThreads)
-delta_conv_mma_kernel(const __nv_bfloat16* __restrict__ st,
-                      const int* __restrict__ idx,
-                      const int* __restrict__ count,
-                      const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ out, ConvArgs a) {
-  if ((int)blockIdx.x >= __ldg(count)) return;
+template <int N>
+__global__ void __launch_bounds__(kWgThreads)
+delta_conv_wg_kernel(const __nv_bfloat16* __restrict__ st,
+                     const int* __restrict__ idx,
+                     const int* __restrict__ count,
+                     const __nv_bfloat16* __restrict__ wp,
+                     const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, ConvArgs a, WgPlan pl) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int t = idx[blockIdx.x];
+  WgShared& sh = *reinterpret_cast<WgShared*>(smem_raw);
+  int rank;
+  const int i = wg_begin(count, pl, sh, &rank);
+  if (i < 0) return;
+  const int t = idx[i];
   const int ti = t / a.tiles_w;
-  const int tj = t - ti * a.tiles_w;
-  stage_window(st, win, ti, tj, a);
-  __syncthreads();
-  conv_tile_mma<kTail>(win, w, bias, out, ti, tj, a, nullptr, 0);
+  conv_tile_wg<N, false>(st, wp, bias, out, ti, t - ti * a.tiles_w, rank, a,
+                         pl, sh, nullptr, NextArgs{});
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -63,41 +70,48 @@ delta_conv_f32_kernel(const float* __restrict__ st,
 
 }  // namespace
 
+// bf16: ``w`` is the packed weights and (n_blk, csize, slices, steps,
+// stages, smem) the wrapper's plan (ops/conv_plan.py); float32: ``w`` is
+// HWIO and the plan is not read.
 extern "C" int cb_delta_conv(
     const void* storage, const int* idx, const int* count, const void* w,
     const float* bias, void* out, int n_blocks, int dtype, int cin, int cout,
     int kh, int kw, int sh, int sw, int dh, int dw, int th, int tw,
     int win_h, int win_w, int dx0, int tiles_w, long long s_row,
-    long long out_row, int relu, int has_bias, void* stream) {
-  static int hw_mma = 48 * 1024, hw_tail = 48 * 1024, hw_f32 = 48 * 1024;
+    long long out_row, int relu, int has_bias, int n_blk, int csize,
+    int slices, int steps, int stages, int smem, void* stream) {
+  static int hw_f32 = 48 * 1024;
   ConvArgs a{cin, cout,  kh,    kw,  sh,      sw,
              dh,  dw,    th,    tw,  win_h,   win_w,
              dx0, tiles_w, conv_pixel_stride(cin), s_row, out_row,
              relu, has_bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_blocks <= 0) return 0;
-  size_t pix = (size_t)win_h * win_w * a.sp;
-  int err;
   if (dtype == CB_BF16) {
-    size_t smem = pix * sizeof(__nv_bfloat16);
-    // a cin off the MMA's 16-channel k-step has its own instantiation,
-    // so the common one carries no tail code
-    auto kernel = cin % 16 ? delta_conv_mma_kernel<true>
-                           : delta_conv_mma_kernel<false>;
-    if ((err = set_smem(kernel, smem, cin % 16 ? &hw_tail : &hw_mma)))
-      return err;
-    kernel<<<n_blocks, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(storage), idx, count,
-        static_cast<const __nv_bfloat16*>(w), bias,
-        static_cast<__nv_bfloat16*>(out), a);
-  } else if (dtype == CB_F32) {
-    size_t smem = pix * sizeof(float);
-    if ((err = set_smem(delta_conv_f32_kernel, smem, &hw_f32))) return err;
-    delta_conv_f32_kernel<<<n_blocks, kThreads, smem, s>>>(
-        static_cast<const float*>(storage), idx, count,
-        static_cast<const float*>(w), bias, static_cast<float*>(out), a);
-  } else {
+    static int hw[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+    const WgPlan pl{slices, csize, steps, stages};
+    const auto* st = static_cast<const __nv_bfloat16*>(storage);
+    const auto* wp = static_cast<const __nv_bfloat16*>(w);
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    switch (n_blk) {
+      case 16:
+        return launch_wg(delta_conv_wg_kernel<16>, n_blocks, pl, smem, &hw[0],
+                         s, st, idx, count, wp, bias, o, a, pl);
+      case 32:
+        return launch_wg(delta_conv_wg_kernel<32>, n_blocks, pl, smem, &hw[1],
+                         s, st, idx, count, wp, bias, o, a, pl);
+      case 64:
+        return launch_wg(delta_conv_wg_kernel<64>, n_blocks, pl, smem, &hw[2],
+                         s, st, idx, count, wp, bias, o, a, pl);
+    }
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype != CB_F32) return (int)cudaErrorInvalidValue;
+  size_t bytes = (size_t)win_h * win_w * a.sp * sizeof(float);
+  int err;
+  if ((err = set_smem(delta_conv_f32_kernel, bytes, &hw_f32))) return err;
+  delta_conv_f32_kernel<<<n_blocks, kThreads, bytes, s>>>(
+      static_cast<const float*>(storage), idx, count,
+      static_cast<const float*>(w), bias, static_cast<float*>(out), a);
   return (int)cudaGetLastError();
 }

@@ -17,53 +17,120 @@
 //
 // Bound on the H100: operations, as delta_conv (the detect adds one read
 // and at most one write of a 64 x cout tile to ~38-604 MFLOP of GEMM).
-// Design: delta_conv's block (one per changed tile, 256 threads, the
-// window staged in dynamic shared memory) keeps a second shared buffer, the
-// rounded 64 x cout out tile. After the GEMM a pixel's channels are spread
-// over the 8 warps (and over a warp's passes when cout > 256), so the
-// epilogue writes each value to the out cache AND to that buffer; after one
-// barrier warp r owns tile row r and walks its 8 pixels with the lanes over
-// the channels two at a time, a shuffle reduction giving the pixel's
-// max-abs-diff. The buffer's pixels are 8 elements apart from a multiple of
-// 128 bytes, so the epilogue's stores and the detect's loads spread over
-// the banks. Window + tile: 104 KB + 32 KB for 3x3 512->256, 52 KB + 65 KB
-// for 3x3 256->512, inside the 227 KB a block may have.
+// Design (bf16): delta_conv's cluster (cb_conv.cuh: one block per slice
+// of n_blk output channels, the same split plan, so the same sums in the
+// same order). A pixel's channels are spread over the cluster, so the
+// detect runs across it: in the epilogue each block takes, per pixel, the
+// max |y - cache| over its own channels into shared memory; after a
+// cluster barrier every block reads the csize partial maxima through
+// distributed shared memory (mapa + ld.shared::cluster) and takes their
+// max, which is order-free, so every block holds the same changed flags;
+// each block accepts its own channels of the changed pixels (the bits it
+// just stored into the out cache); rank 0 counts them with one atomic per
+// cluster and marks the consumer's tiles with same-value stores. A second
+// cluster barrier, split around the accept, keeps every block's shared
+// memory alive until the others have read it.
 //
-// Blocks run in any order: mask and npix are zeroed by the wrapper before
-// the launch, npix gets one atomic per block, the mask same-value stores.
-// Tile origins are NOT clamped: on a map whose height is no multiple of 8
-// the last tile row overhangs, and rows >= out_h (the producer's pad rows)
-// are neither detected nor accepted. That equals the unfused detect, whose
-// blocks touch only the rows their tile owns.
+// float32 (the exact-reference mode): one 256-thread block per tile keeps
+// the rounded 64 x cout out tile in shared memory beside the window; after
+// one barrier warp r walks tile row r (cb_detect_pixels).
+//
+// mask and npix are zeroed by the wrapper before the launch. Tile origins
+// are NOT clamped: on a map whose height is no multiple of 8 the last tile
+// row overhangs, and rows >= out_h (the producer's pad rows) are neither
+// detected nor accepted. That equals the unfused detect, whose blocks touch
+// only the rows their tile owns.
+//
+// Split plan: as delta_conv.cu (pose w64 at 720p, n_blk x csize: 64->128
+// (360 rows) 32 x 4; 128->256, 256->256 (180) 64 x 4; 256->512 (90)
+// 64 x 8; 512->256, 56->256, 256->256 and 1x1 256->256 (90) 64 x 4;
+// 256->128, 128->128, 1x1 128->128 (90) 32 x 4; 1x1 128->56 (90) 64 x 1).
+// Shared memory at 3x3 512->256: window 104,000 B + ring 32 KB + 1 KB.
 #include "cb_conv.cuh"
 #include "cb_detect.cuh"
 
 namespace {
 
-constexpr int kYPad = 8;  // extra elements per pixel of the staged out tile
+constexpr int kYPad = 8;  // extra elements per pixel of the f32 out tile
 
-struct NextArgs {
-  int out_h;         // logical rows of the producer's output
-  long long nc_row;  // consumer storage row stride, elements
-  int slo_h, slo_w;  // interior origin inside the consumer storage
-  CbTileGrid grid;   // the CONSUMER's out-tile grid
-};
+template <int N>
+__global__ void __launch_bounds__(kWgThreads)
+delta_conv_detect_wg_kernel(const __nv_bfloat16* __restrict__ st,
+                            const int* __restrict__ idx,
+                            const int* __restrict__ count,
+                            const __nv_bfloat16* __restrict__ wp,
+                            const float* __restrict__ bias,
+                            __nv_bfloat16* __restrict__ out,
+                            __nv_bfloat16* __restrict__ nc,
+                            float* __restrict__ mask, int* __restrict__ npix,
+                            float tau, ConvArgs a, WgPlan pl, NextArgs n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WgShared& sh = *reinterpret_cast<WgShared*>(smem_raw);
+  int rank;
+  const int i = wg_begin(count, pl, sh, &rank);
+  if (i < 0) return;
+  const int t = idx[i];
+  const int ti = t / a.tiles_w;
+  const int tj = t - ti * a.tiles_w;
+  conv_tile_wg<N, true>(st, wp, bias, out, ti, tj, rank, a, pl, sh, nc, n);
+  const bool cluster = pl.csize > 1;
+  if (cluster) {
+    cluster_arrive();  // this block's partial maxima are written
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  if (threadIdx.x < 64) {
+    const int p = threadIdx.x;
+    float m = sh.part[p];
+    for (int r = 0; r < pl.csize; ++r)
+      if (r != rank) m = fmaxf(m, dsmem_load(&sh.part[p], r));
+    sh.flag[p] = ti * 8 + (p >> 3) < n.out_h && m > tau;
+  }
+  if (cluster) cluster_arrive();  // done with the other blocks' maxima
+  __syncthreads();
+  // accept this block's channels of the changed pixels: the bits its
+  // epilogue just stored into the out cache
+  for (int s = rank; s < pl.slices; s += pl.csize) {
+    const int co0 = s * N;
+    const int vecs = min(N, a.cout - co0) / 8;
+    for (int e = threadIdx.x; e < 64 * vecs; e += kWgThreads) {
+      const int p = e / vecs, v = e - p * vecs;
+      if (!sh.flag[p]) continue;
+      const long long y = ti * 8 + (p >> 3), x = tj * 8 + (p & 7);
+      const int co = co0 + v * 8;
+      *reinterpret_cast<uint4*>(nc + (y + n.slo_h) * n.nc_row +
+                                (n.slo_w + x) * a.cout + co) =
+          *reinterpret_cast<const uint4*>(out + y * a.out_row + x * a.cout +
+                                          co);
+    }
+  }
+  if (rank == 0) {
+    const int p = threadIdx.x;
+    const bool changed = p < 64 && sh.flag[p];
+    if (changed)
+      cb_mark_tiles(mask, n.grid, ti * 8 + (p >> 3), tj * 8 + (p & 7));
+    const int cnt = __syncthreads_count(changed);
+    if (threadIdx.x == 0 && cnt) atomicAdd(npix, cnt);
+  }
+  if (cluster) cluster_wait();
+}
 
-template <typename T, bool kMma, bool kTail>
 __global__ void __launch_bounds__(kThreads)
-delta_conv_detect_kernel(const T* __restrict__ st,
-                         const int* __restrict__ idx,
-                         const int* __restrict__ count,
-                         const T* __restrict__ w,
-                         const float* __restrict__ bias, T* __restrict__ out,
-                         T* __restrict__ nc, float* __restrict__ mask,
-                         int* __restrict__ npix, float tau, ConvArgs a,
-                         NextArgs n, int win_elems) {
+delta_conv_detect_f32_kernel(const float* __restrict__ st,
+                             const int* __restrict__ idx,
+                             const int* __restrict__ count,
+                             const float* __restrict__ w,
+                             const float* __restrict__ bias,
+                             float* __restrict__ out, float* __restrict__ nc,
+                             float* __restrict__ mask, int* __restrict__ npix,
+                             float tau, ConvArgs a, NextArgs n,
+                             int win_elems) {
   if ((int)blockIdx.x >= __ldg(count)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_n;
-  T* win = reinterpret_cast<T*>(smem_raw);
-  T* ytile = win + win_elems;
+  float* win = reinterpret_cast<float*>(smem_raw);
+  float* ytile = win + win_elems;
   const int ys = a.cout + kYPad;
   if (threadIdx.x == 0) s_n = 0;
   const int t = idx[blockIdx.x];
@@ -71,11 +138,7 @@ delta_conv_detect_kernel(const T* __restrict__ st,
   const int tj = t - ti * a.tiles_w;
   stage_window(st, win, ti, tj, a);
   __syncthreads();
-  if constexpr (kMma) {
-    conv_tile_mma<kTail>(win, w, bias, out, ti, tj, a, ytile, ys);
-  } else {
-    conv_tile_f32(win, w, bias, out, ti, tj, a, ytile, ys);
-  }
+  conv_tile_f32(win, w, bias, out, ti, tj, a, ytile, ys);
   __syncthreads();
   // the consumer's detect on the tile in shared memory: one row per warp,
   // rows past the map's height skipped
@@ -96,7 +159,9 @@ delta_conv_detect_kernel(const T* __restrict__ st,
 }  // namespace
 
 // The producer's tiles must be 8x8 (th == tw == 8) and its out cache as
-// wide as its logical output; the wrapper checks both (fuse_gate).
+// wide as its logical output; the wrapper checks both (fuse_gate). bf16:
+// ``w`` is the packed weights and (n_blk, ..., smem) the wrapper's plan
+// (ops/conv_plan.py); float32: ``w`` is HWIO and the plan is not read.
 extern "C" int cb_delta_conv_detect(
     const void* storage, const int* idx, const int* count, const void* w,
     const float* bias, void* out, void* next_cache, float* mask, int* npix,
@@ -105,8 +170,9 @@ extern "C" int cb_delta_conv_detect(
     long long s_row, long long out_row, int relu, int has_bias, float tau2,
     int out_h, long long nc_row, int nc_lo_h, int nc_lo_w, int tiles_h2,
     int tiles_w2, int step_h2, int step_w2, int pad_lo_h2, int pad_lo_w2,
-    int win_h2, int win_w2, void* stream) {
-  static int hw_mma = 48 * 1024, hw_tail = 48 * 1024, hw_f32 = 48 * 1024;
+    int win_h2, int win_w2, int n_blk, int csize, int slices, int steps,
+    int stages, int smem, void* stream) {
+  static int hw_f32 = 48 * 1024;
   ConvArgs a{cin, cout,  kh,    kw,  sh,      sw,
              dh,  dw,    8,     8,   win_h,   win_w,
              dx0, tiles_w, conv_pixel_stride(cin), s_row, out_row,
@@ -116,36 +182,41 @@ extern "C" int cb_delta_conv_detect(
               win_h2, win_w2}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_blocks <= 0) return 0;
-  // both buffers hold whole 16-byte groups: sp and cout + kYPad are
-  // multiples of 8 (bf16) or 4 (float32) elements
-  const int win_elems = win_h * win_w * a.sp;
-  const size_t elems = (size_t)win_elems + (size_t)64 * (cout + kYPad);
-  int err;
   if (dtype == CB_BF16) {
-    // a cin off the MMA's 16-channel k-step has its own instantiation,
-    // so the common one carries no tail code
-    auto kernel = cin % 16
-                      ? delta_conv_detect_kernel<__nv_bfloat16, true, true>
-                      : delta_conv_detect_kernel<__nv_bfloat16, true, false>;
-    size_t smem = elems * sizeof(__nv_bfloat16);
-    if ((err = set_smem(kernel, smem, cin % 16 ? &hw_tail : &hw_mma)))
-      return err;
-    kernel<<<n_blocks, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(storage), idx, count,
-        static_cast<const __nv_bfloat16*>(w), bias,
-        static_cast<__nv_bfloat16*>(out),
-        static_cast<__nv_bfloat16*>(next_cache), mask, npix, tau2, a, n,
-        win_elems);
-  } else if (dtype == CB_F32) {
-    auto kernel = delta_conv_detect_kernel<float, false, false>;
-    size_t smem = elems * sizeof(float);
-    if ((err = set_smem(kernel, smem, &hw_f32))) return err;
-    kernel<<<n_blocks, kThreads, smem, s>>>(
-        static_cast<const float*>(storage), idx, count,
-        static_cast<const float*>(w), bias, static_cast<float*>(out),
-        static_cast<float*>(next_cache), mask, npix, tau2, a, n, win_elems);
-  } else {
+    static int hw[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+    const WgPlan pl{slices, csize, steps, stages};
+    const auto* st = static_cast<const __nv_bfloat16*>(storage);
+    const auto* wp = static_cast<const __nv_bfloat16*>(w);
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    auto* nc = static_cast<__nv_bfloat16*>(next_cache);
+    switch (n_blk) {
+      case 16:
+        return launch_wg(delta_conv_detect_wg_kernel<16>, n_blocks, pl, smem,
+                         &hw[0], s, st, idx, count, wp, bias, o, nc, mask,
+                         npix, tau2, a, pl, n);
+      case 32:
+        return launch_wg(delta_conv_detect_wg_kernel<32>, n_blocks, pl, smem,
+                         &hw[1], s, st, idx, count, wp, bias, o, nc, mask,
+                         npix, tau2, a, pl, n);
+      case 64:
+        return launch_wg(delta_conv_detect_wg_kernel<64>, n_blocks, pl, smem,
+                         &hw[2], s, st, idx, count, wp, bias, o, nc, mask,
+                         npix, tau2, a, pl, n);
+    }
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype != CB_F32) return (int)cudaErrorInvalidValue;
+  // both buffers hold whole 16-byte groups: sp and cout + kYPad are
+  // multiples of 4 float32 elements
+  const int win_elems = win_h * win_w * a.sp;
+  const size_t bytes =
+      ((size_t)win_elems + (size_t)64 * (cout + kYPad)) * sizeof(float);
+  int err;
+  if ((err = set_smem(delta_conv_detect_f32_kernel, bytes, &hw_f32)))
+    return err;
+  delta_conv_detect_f32_kernel<<<n_blocks, kThreads, bytes, s>>>(
+      static_cast<const float*>(storage), idx, count,
+      static_cast<const float*>(w), bias, static_cast<float*>(out),
+      static_cast<float*>(next_cache), mask, npix, tau2, a, n, win_elems);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,11 @@
 
 Replaces ``cbinfer_tpu/ops/pallas/delta_conv.py::delta_conv_pallas``. The
 CUDA source (``csrc/delta_conv.cu``) carries the design note: operations
-bound it on the H100; one block per changed tile stages the haloed window
-in shared memory and runs the tile's GEMM on the tensor cores (mma.sync,
-bf16 in, float32 sums), or on the CUDA cores for float32 caches.
+bound it on the H100; in bf16 a thread-block cluster per changed tile
+splits its cout (``ops/conv_plan.py``), each block staging the haloed
+window and its slice of the packed weights in shared memory with bulk
+copies and running wgmma (float32 sums); float32 caches take one block per
+tile on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..conv_plan import conv_plan, packed_weights
 from ..delta_conv import conv_tiles, gather_windows, scatter_tiles, tile_ids
 from ..geometry import TileGeometry
 from . import DTYPE_CODE, Kernel
@@ -41,7 +44,7 @@ def _fn():
     f = library("delta_conv").cb_delta_conv
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 6 + [i] * 16 + [ll, ll, i, i, vp]
+        f.argtypes = [vp] * 6 + [i] * 16 + [ll, ll] + [i] * 8 + [vp]
         f.restype = ctypes.c_int
     return f
 
@@ -92,13 +95,18 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     sh, sw = g.stride
     dh, dw = g.dilation
     kh, kw = g.kernel
+    if dtype == torch.bfloat16:
+        wk, plan = packed_weights(w), conv_plan(cin, cout, kh, kw, g.win_h,
+                                                 g.win_w)
+    else:
+        wk, plan = w, (0,) * 6
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     err = _fn()(xp.data_ptr(), idx.data_ptr(), count.data_ptr(),
-                w.data_ptr(), b.data_ptr() if b is not None else None,
+                wk.data_ptr(), b.data_ptr() if b is not None else None,
                 out_cache.data_ptr(), idx.numel(), DTYPE_CODE[dtype], cin,
                 cout, kh, kw, sh, sw, dh, dw, g.th, g.tw, g.win_h, g.win_w,
                 g.dx0, g.tiles_w, xp.shape[1] * cin, g.out_w_pad * cout,
-                int(activation == "relu"), int(b is not None), stream)
+                int(activation == "relu"), int(b is not None), *plan, stream)
     check(err, "delta_conv")
     KERNEL.launches += 1
     return out_cache

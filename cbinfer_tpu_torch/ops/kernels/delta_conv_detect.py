@@ -3,10 +3,11 @@
 Replaces ``cbinfer_tpu/ops/pallas/delta_conv_detect.py::
 delta_conv_detect_pallas``. The CUDA source (``csrc/delta_conv_detect.cu``)
 carries the design note: operations bound it on the H100 as they bound the
-delta conv; its block keeps the rounded out tile in shared memory beside
-the staged window, and after one barrier runs the consumer's detect on it
-(one warp per tile row), so the consumer never re-reads the tile and needs
-no launch or hint compaction of its own.
+delta conv, whose cluster it shares (the same split plan, so the same
+sums); the blocks of a tile's cluster combine their per-pixel maxima
+through distributed shared memory and accept their own channels of the
+changed pixels, so the consumer never re-reads the tile and needs no
+launch or hint compaction of its own.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..conv_plan import conv_plan, packed_weights
 from ..geometry import TileGeometry
 from . import DTYPE_CODE, Kernel
 from .build import check, library
@@ -67,7 +69,7 @@ def _fn():
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f.argtypes = ([vp] * 9 + [i] * 14 + [ll, ll, i, i, ctypes.c_float, i,
-                                            ll] + [i] * 10 + [vp])
+                                            ll] + [i] * 16 + [vp])
         f.restype = ctypes.c_int
     return f
 
@@ -136,9 +138,14 @@ def delta_conv_detect(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     dh, dw = g.dilation
     kh, kw = g.kernel
     s2h, s2w = g2.stride
+    if dtype == torch.bfloat16:
+        wk, plan = packed_weights(w), conv_plan(cin, cout, kh, kw, g.win_h,
+                                                 g.win_w, True)
+    else:
+        wk, plan = w, (0,) * 6
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     err = _fn()(xp.data_ptr(), idx.data_ptr(), count.data_ptr(),
-                w.data_ptr(), b.data_ptr() if b is not None else None,
+                wk.data_ptr(), b.data_ptr() if b is not None else None,
                 out_cache.data_ptr(), next_cache.data_ptr(), mask.data_ptr(),
                 npix.data_ptr(), idx.numel(), DTYPE_CODE[dtype], cin, cout,
                 kh, kw, sh, sw, dh, dw, g.win_h, g.win_w, g.dx0, g.tiles_w,
@@ -147,7 +154,7 @@ def delta_conv_detect(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                 float(next_tau), g.out_h, next_cache.shape[1] * cout,
                 g2.store_lo_h, g2.store_lo_w, g2.tiles_h, g2.tiles_w,
                 g2.th * s2h, g2.tw * s2w, g2.pad_lo_h, g2.pad_lo_w,
-                g2.win_h, g2.win_w, stream)
+                g2.win_h, g2.win_w, *plan, stream)
     check(err, "delta_conv_detect")
     KERNEL.launches += 1
     return out_cache, next_cache, mask, npix

@@ -58,7 +58,10 @@ Phases, each printing one JSON line:
               detects, the capacity overflow of the stem conv, the sparse
               detect on a pool's geometry, and the fused kernel against the
               delta conv followed by the sparse detect (bit for bit, at
-              tau2 = tuned, -1 and 1e9, listed tiles and every tile)
+              tau2 = tuned, -1 and 1e9, listed tiles and every tile); the
+              synthetic tile-conv cases (TILE_CONV_CASES: clusters of 1-8
+              blocks, cin/cout off the 16-channel grid, dilation, stride,
+              small tiles, ragged maps, counts 0, 1 and capacity)
   kernels     every kernel: launches, ms per launch, plain ms, bound ms
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line; without CUDA it exits 2 at once.
@@ -975,6 +978,104 @@ def _window_cover_bytes(np, idx, c, g, store_shape, cin, es):
     return int(cover.sum()) * cin * es
 
 
+# Synthetic cases of the bf16 tile-conv kernels (B2, and B6 where the fuse
+# gate holds), run by the check phase and by tests/test_torch_gpu.py:
+# name -> (H, W, cin, cout, kernel, dilation, stride, (th, tw), the
+# consumer's kernel). cout 512 is an 8-block cluster, 576 one whose first
+# block takes two slices, 264 a ragged last slice; 90 and 180 rows are the pose maps' ragged heights (529 tiles: a
+# launch of many clusters).
+TILE_CONV_CASES = {
+    "cout512_cluster8": (24, 48, 64, 512, 3, 1, 1, (8, 8), 3),
+    "cout576_two_slices_a_block": (20, 48, 32, 576, 3, 1, 1, (8, 8), 1),
+    "cout264_ragged_slice": (20, 48, 56, 264, 3, 1, 1, (8, 8), 3),
+    "cin24_cout56": (20, 48, 24, 56, 3, 1, 1, (8, 8), 3),
+    "cin56_cout24": (20, 48, 56, 24, 3, 1, 1, (8, 8), 1),
+    "dilation2": (24, 48, 32, 128, 3, 2, 1, (8, 8), 3),
+    "stride2": (40, 64, 32, 64, 3, 1, 2, (8, 8), 3),
+    "tile4x8": (20, 48, 32, 64, 3, 1, 1, (4, 8), None),
+    "ragged90": (90, 64, 64, 256, 3, 1, 1, (8, 8), 3),
+    "ragged180": (180, 32, 128, 128, 3, 1, 1, (8, 8), 1),
+    "ragged180_529_tiles": (180, 184, 64, 128, 3, 1, 1, (8, 8), 3),
+    "pointwise_cout56": (90, 48, 128, 56, 1, 1, 1, (8, 8), 3),
+}
+
+
+def check_tile_conv(torch, np, name):
+    """One TILE_CONV_CASES case in bf16 on the card, at counts 0, 1, a
+    few tiles and every tile of a capacity-long list: B2 within 2e-2 of
+    its plain version, tiles not listed bit-identical, count 0 a no-op;
+    B6 equal bit for bit to B2 followed by B1 (out cache, consumer cache,
+    mask, npix) at tau2 0.05, -1 and 1e9, and its conv within 2e-2 of the
+    plain version. Raises AssertionError; returns a summary."""
+    from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
+    from cbinfer_tpu_torch.ops.kernels import delta_conv as KC
+    from cbinfer_tpu_torch.ops.kernels import delta_conv_detect as KF
+    from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
+    H, W, cin, cout, k, dil, stride, (th, tw), k2 = TILE_CONV_CASES[name]
+    dt, dev = torch.bfloat16, "cuda"
+    rng = np.random.default_rng(H * 1000 + cout)
+    g = conv_tile_geometry((H, W, cin), (k, k), (stride, stride), (dil, dil),
+                           "SAME", th, tw)
+    g2 = (conv_tile_geometry((g.out_h, g.out_w, cout), (k2, k2), (1, 1),
+                             (1, 1), "SAME", 8, 8) if k2 else None)
+    fused = KF.fuse_gate(g, g2)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+    xp = t(rng.standard_normal(g.store_shape))
+    w = t(rng.standard_normal((k, k, cin, cout)) * (2.0 / (k * k * cin)) ** .5)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    out0 = t(rng.standard_normal((g.out_h_pad, g.out_w_pad, cout)))
+    if fused:
+        nc0 = rng.standard_normal(g2.store_shape) * 0.05
+        nc0[g2.store_lo_h:g2.store_lo_h + g.out_h,
+            g2.store_lo_w:g2.store_lo_w + g.out_w] += \
+            out0[:g.out_h].float().cpu().numpy()
+        nc0 = t(nc0)
+    order = rng.permutation(g.n_tiles).astype(np.int32)
+    idx = torch.from_numpy(order).to(dev)
+    report = dict(case=name, n_tiles=g.n_tiles, fused=fused,
+                  max_abs_err=0.0)
+    for c in sorted({0, 1, min(5, g.n_tiles), g.n_tiles}):
+        count = torch.tensor(c, dtype=torch.int32, device=dev)
+        ok_ = KC.delta_conv(xp, idx, w, b, out0.clone(), g, "relu", dt,
+                            count=count)
+        op_ = KC.delta_conv_plain(xp, idx, w, b, out0.clone(), g, "relu", dt,
+                                  count=count)
+        listed = torch.zeros(g.n_tiles, dtype=torch.bool, device=dev)
+        listed[idx[:c].long()] = True
+        keep = ~listed.view(g.tiles_h, 1, g.tiles_w, 1, 1).expand(
+            g.tiles_h, th, g.tiles_w, tw, cout).reshape(ok_.shape)
+        err = float((ok_.float() - op_.float()).abs().max())
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        if not (torch.allclose(ok_.float(), op_.float(), rtol=2e-2, atol=2e-2)
+                and torch.equal(ok_[keep], out0[keep])
+                and (c or torch.equal(ok_, out0))):
+            raise AssertionError(f"delta_conv {name} count {c}: max abs "
+                                 f"err {err} or untouched tiles written")
+        if not fused:
+            continue
+        for tau2 in (0.05, -1.0, 1e9):
+            of, nf = out0.clone(), nc0.clone()
+            _, _, mf, pf = KF.delta_conv_detect(xp, idx, w, b, of, g, "relu",
+                                                dt, nf, tau2, g2, count=count)
+            ou, nu = out0.clone(), nc0.clone()
+            KC.delta_conv(xp, idx, w, b, ou, g, "relu", dt, count=count)
+            _, mu, pu = KD.detect_sparse(ou, nu, tau2, idx, count, g2)
+            if not (torch.equal(of, ou) and torch.equal(nf, nu)
+                    and torch.equal(mf, mu) and torch.equal(pf, pu)
+                    and torch.allclose(of.float(), op_.float(), rtol=2e-2,
+                                       atol=2e-2)):
+                raise AssertionError(
+                    f"delta_conv_detect {name} count {c} tau2 {tau2}: not "
+                    "equal to delta_conv then detect_sparse")
+            if tau2 == -1.0 and c == g.n_tiles \
+                    and int(pf) != g.out_h * g.out_w:
+                raise AssertionError(f"delta_conv_detect {name}: {int(pf)} "
+                                     "pixels at tau2 = -1 on every tile")
+    return report
+
+
 def check_kernels(torch, np, calls):
     import torch.nn.functional as F
     from cbinfer_tpu_torch import network
@@ -996,6 +1097,9 @@ def check_kernels(torch, np, calls):
     checks = []
     context = {}
     zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    for case in TILE_CONV_CASES:
+        checks.append(dict(kernel="delta_conv+delta_conv_detect",
+                           **check_tile_conv(torch, np, case)))
 
     def acc(path, name, ms, pms, bound, by, err):
         p = per.setdefault((path, name), dict(

@@ -5,6 +5,9 @@ skip without one. Run them on a machine with a card:
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,10 @@ from cbinfer_tpu_torch.ops.kernels import delta_conv as KC
 from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
 from cbinfer_tpu_torch.ops.kernels import launches, pool_fused as KP
 from cbinfer_tpu_torch.ops.kernels import reset_launches
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  (the tile-conv cases it checks on the card)
 
 pytestmark = pytest.mark.gpu
 
@@ -415,3 +422,13 @@ def test_pose_frame_loop_never_syncs_with_host(cuda, path):
     assert got["accept_tiles"] == (9 if extra else 0)
     torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.TILE_CONV_CASES))
+def test_tile_conv_cases_on_card(cuda, case):
+    """The bf16 tile conv (B2) within 2e-2 of its plain version at counts
+    0, 1, a few and every tile, tiles not listed untouched; B6 equal bit
+    for bit to B2 then B1 at tau2 0.05, -1 and 1e9: clusters of 1 to 8
+    blocks, a ragged last slice, cin and cout off the 16-channel grid,
+    dilation, stride, th*tw < 64, the 90- and 180-row maps."""
+    chip_smoke.check_tile_conv(torch, np, case)
