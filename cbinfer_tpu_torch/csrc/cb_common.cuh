@@ -11,6 +11,33 @@
 #define CB_F32 0
 #define CB_BF16 1
 
+// Programmatic dependent launch (sm_90). A kernel launched by
+// cb_launch_after_fill may start while the kernel just before it in the
+// stream (its wrapper's zero-fill of the outputs) is still finishing, so
+// its launch and first loads overlap the fill. It may read anything and
+// write what the fill does not touch at once, but calls cb_wait_prior_grid
+// before it writes into the filled buffer, and once before it exits so
+// that its completion implies the fill's. Everything earlier in the stream
+// is complete: the fill itself started only after it.
+__device__ __forceinline__ void cb_wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... KArgs, typename... Args>
+cudaError_t cb_launch_after_fill(void (*kernel)(KArgs...), int grid,
+                                 int block, cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Two adjacent channels as float2, whatever the storage type.
 __device__ __forceinline__ float2 cb_load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);

@@ -1,6 +1,7 @@
 // The per-pixel detect + accept + dilate step over an HWC map, shared by the
-// sparse (hint-driven) and the full-map detect kernels and by the fused
-// conv + consumer detect, whose x is its own out tile in shared memory.
+// full-map detect kernel and by the fused conv + consumer detect, whose x is
+// its own out tile in shared memory. The sparse detect kernel keeps its own
+// row routine (detect_sparse.cu) and shares CbDetectArgs.
 #pragma once
 
 #include "cb_common.cuh"

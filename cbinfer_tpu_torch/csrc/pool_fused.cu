@@ -9,77 +9,185 @@
 // no input cache.
 //
 // Bound on the H100: bytes — a block reads hint_h*hint_w*C values and
-// writes a quarter of that; the max is one instruction per input value.
-// Design: one block per dirty block (grid sized to the block grid, blocks
-// at or past *count exit at once); threads walk (pooled pixel, channel
-// pair) with channels fastest, so each warp reads and writes contiguous
-// runs of 128 bytes; the max stays in registers.
+// writes a quarter of that; the max is one instruction per input value. At
+// the clips' densities a launch lists tens to a thousand blocks, so
+// latency is what it costs. Design:
+// - a grid sized to the card (the wrapper's walk_grid), each block walking
+//   the list i = blockIdx.x, i += gridDim.x while i < *count, the next
+//   entry's index loaded while the current one is pooled;
+// - a thread owns (pooled pixel, channel unit) items, a unit being 16
+//   bytes (8 bf16 or 4 f32 channels) where a pixel's channels are 16-byte
+//   aligned, else 4 bytes; channels fastest, so a warp reads and writes
+//   contiguous runs. The pool x pool loads of all of a thread's items (at
+//   most UPT of them per batch) are in flight before the first max; the
+//   pool and UPT are template constants for the 2x2 pool of every
+//   forwarding pool the gate admits (other pools: a runtime loop);
+// - launched to overlap the wrapper's fill of the mask
+//   (cb_launch_after_fill): only the mask writes wait for it.
 #include "cb_common.cuh"
 
 namespace {
 
 struct PoolArgs {
-  int C, blocks_w, hint_h, hint_w, pool, tiles_w;
-  long long x_row, out_row;  // row strides, elements
+  int cap;     // entries of idx
+  int units;   // load units per pixel
+  int blocks_w, hint_h, hint_w, pool, tiles_w;
+  long long x_row, out_row;  // row strides, in units
 };
 
+// Elementwise max of two 4-byte words. The max of T values is a T value:
+// nothing is rounded.
 template <typename T>
+__device__ __forceinline__ unsigned word_max(unsigned a, unsigned b);
+template <>
+__device__ __forceinline__ unsigned word_max<float>(unsigned a, unsigned b) {
+  return __float_as_uint(fmaxf(__uint_as_float(a), __uint_as_float(b)));
+}
+template <>
+__device__ __forceinline__ unsigned word_max<__nv_bfloat16>(unsigned a,
+                                                            unsigned b) {
+  __nv_bfloat162 m = __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                             *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<unsigned*>(&m);
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned unit_max(unsigned a, unsigned b) {
+  return word_max<T>(a, b);
+}
+template <typename T>
+__device__ __forceinline__ uint4 unit_max(uint4 a, uint4 b) {
+  return make_uint4(word_max<T>(a.x, b.x), word_max<T>(a.y, b.y),
+                    word_max<T>(a.z, b.z), word_max<T>(a.w, b.w));
+}
+
+// POOL: the pool size, or 0 for a runtime a.pool. UPT: items a thread
+// loads before it reduces.
+template <typename T, typename U, int POOL, int UPT>
 __global__ void __launch_bounds__(256)
-pool_fused_kernel(const T* __restrict__ x, T* __restrict__ out,
+pool_fused_kernel(const U* __restrict__ x, U* __restrict__ out,
                   const int* __restrict__ idx, const int* __restrict__ count,
                   float* __restrict__ mask, PoolArgs a) {
-  if ((int)blockIdx.x >= __ldg(count)) return;
-  const int t = idx[blockIdx.x];
-  const int hi = t / a.blocks_w;
-  const int hj = t - hi * a.blocks_w;
-  const int oh = a.hint_h / a.pool;
-  const int ow = a.hint_w / a.pool;
-  const int c2n = a.C / 2;
-  const int total = oh * ow * c2n;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int c = 2 * (e % c2n);
-    const int q = e / c2n;
-    const int oxl = q % ow;
-    const int oyl = q / ow;
-    const long long iy0 = (long long)hi * a.hint_h + oyl * a.pool;
-    const long long ix0 = (long long)hj * a.hint_w + oxl * a.pool;
-    float2 m = make_float2(-INFINITY, -INFINITY);
-    for (int py = 0; py < a.pool; ++py)
-      for (int px = 0; px < a.pool; ++px) {
-        float2 v = cb_load2(x + (iy0 + py) * a.x_row + (ix0 + px) * a.C + c);
-        m.x = fmaxf(m.x, v.x);
-        m.y = fmaxf(m.y, v.y);
+  const int pool = POOL ? POOL : a.pool;
+  const int oh = a.hint_h / pool;
+  const int ow = a.hint_w / pool;
+  const int total = oh * ow * a.units;  // items of one block
+  int i = blockIdx.x;  // < gridDim.x <= cap
+  int t = __ldg(idx + i);
+  const int n = __ldg(count);
+  while (i < n) {
+    const int next = i + gridDim.x;
+    const int t_next = next < a.cap ? __ldg(idx + next) : 0;
+    const int hi = t / a.blocks_w;
+    const int hj = t - hi * a.blocks_w;
+    for (int b = threadIdx.x; b < total; b += 256 * UPT) {
+      const U* src[UPT];
+      long long dst[UPT];
+#pragma unroll
+      for (int k = 0; k < UPT; ++k) {
+        const int e = min(b + 256 * k, total - 1);
+        const int g = e % a.units;
+        const int q = e / a.units;
+        const int oyl = q / ow;
+        const int oxl = q - oyl * ow;
+        src[k] = x + ((long long)hi * a.hint_h + oyl * pool) * a.x_row +
+                 ((long long)hj * a.hint_w + oxl * pool) * a.units + g;
+        dst[k] = ((long long)hi * oh + oyl) * a.out_row +
+                 ((long long)hj * ow + oxl) * a.units + g;
       }
-    // the max of T values is a T value: the store rounds nothing
-    cb_store2(out + ((long long)hi * oh + oyl) * a.out_row +
-                  ((long long)hj * ow + oxl) * a.C + c,
-              m);
+      if constexpr (POOL > 0) {
+        U v[UPT][POOL * POOL];
+#pragma unroll
+        for (int k = 0; k < UPT; ++k)
+#pragma unroll
+          for (int py = 0; py < POOL; ++py)
+#pragma unroll
+            for (int px = 0; px < POOL; ++px)
+              v[k][py * POOL + px] =
+                  __ldg(src[k] + py * a.x_row + px * a.units);
+#pragma unroll
+        for (int k = 0; k < UPT; ++k) {
+          U m = v[k][0];
+#pragma unroll
+          for (int r = 1; r < POOL * POOL; ++r) m = unit_max<T>(m, v[k][r]);
+          if (b + 256 * k < total) out[dst[k]] = m;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < UPT; ++k) {
+          U m = __ldg(src[k]);
+          for (int py = 0; py < pool; ++py)
+            for (int px = 0; px < pool; ++px)
+              m = unit_max<T>(m, __ldg(src[k] + py * a.x_row + px * a.units));
+          if (b + 256 * k < total) out[dst[k]] = m;
+        }
+      }
+    }
+    if (threadIdx.x == 0) {
+      cb_wait_prior_grid();  // the mask is the fill's
+      mask[((hi * oh) / 8) * a.tiles_w + (hj * ow) / 8] = 1.f;
+    }
+    i = next;
+    t = t_next;
   }
-  if (threadIdx.x == 0)
-    mask[((hi * oh) / 8) * a.tiles_w + (hj * ow) / 8] = 1.f;
+  if (threadIdx.x == 0) cb_wait_prior_grid();  // done only after the fill
+}
+
+template <typename T, typename U>
+int launch(const void* x, void* out, const int* idx, const int* count,
+           float* mask, int grid, const PoolArgs& a, cudaStream_t s) {
+  const U* xu = static_cast<const U*>(x);
+  U* ou = static_cast<U*>(out);
+  const int per_thread =
+      ((a.hint_h / 2) * (a.hint_w / 2) * a.units + 255) / 256;
+  // launched to overlap the wrapper's fill of the mask
+  auto kernel = a.pool != 2        ? &pool_fused_kernel<T, U, 0, 1>
+                : per_thread <= 1 ? &pool_fused_kernel<T, U, 2, 1>
+                : per_thread <= 2 ? &pool_fused_kernel<T, U, 2, 2>
+                                  : &pool_fused_kernel<T, U, 2, 4>;
+  const cudaError_t err =
+      cb_launch_after_fill(kernel, grid, 256, s, xu, ou, idx, count, mask, a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T>
+int launch_type(const void* x, void* out, const int* idx, const int* count,
+                float* mask, int grid, int cap, int C, int blocks_w,
+                int hint_h, int hint_w, int pool, int tiles_w,
+                long long x_row, long long out_row, cudaStream_t s) {
+  // 16-byte units where every pixel starts 16-byte aligned (all offsets
+  // are multiples of C elements), else 4-byte units
+  const int bytes = C * (int)sizeof(T);
+  const bool vec = bytes % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int ub = vec ? 16 : 4;  // bytes of a unit
+  const int per = ub / (int)sizeof(T);  // elements of a unit
+  PoolArgs a{cap,  bytes / ub, blocks_w,      hint_h,       hint_w,
+             pool, tiles_w,    x_row / per,   out_row / per};
+  if (vec) return launch<T, uint4>(x, out, idx, count, mask, grid, a, s);
+  return launch<T, unsigned>(x, out, idx, count, mask, grid, a, s);
 }
 
 }  // namespace
 
+// cap: entries of idx; grid: blocks to launch (1 <= grid <= cap).
 extern "C" int cb_pool_fused(const void* x, void* out, const int* idx,
-                             const int* count, float* mask, int n_blocks,
-                             int dtype, int C, int blocks_w, int hint_h,
-                             int hint_w, int pool, int tiles_w,
+                             const int* count, float* mask, int cap,
+                             int grid, int dtype, int C, int blocks_w,
+                             int hint_h, int hint_w, int pool, int tiles_w,
                              long long x_row, long long out_row,
                              void* stream) {
-  PoolArgs a{C, blocks_w, hint_h, hint_w, pool, tiles_w, x_row, out_row};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_blocks <= 0) return 0;
-  if (dtype == CB_BF16) {
-    pool_fused_kernel<__nv_bfloat16><<<n_blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<__nv_bfloat16*>(out), idx, count, mask, a);
-  } else if (dtype == CB_F32) {
-    pool_fused_kernel<float><<<n_blocks, 256, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), idx, count,
-        mask, a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (grid == 0) return 0;
+  if (grid < 0 || grid > cap) return (int)cudaErrorInvalidValue;
+  if (dtype == CB_BF16)
+    return launch_type<__nv_bfloat16>(x, out, idx, count, mask, grid, cap, C,
+                                      blocks_w, hint_h, hint_w, pool, tiles_w,
+                                      x_row, out_row, s);
+  if (dtype == CB_F32)
+    return launch_type<float>(x, out, idx, count, mask, grid, cap, C,
+                              blocks_w, hint_h, hint_w, pool, tiles_w, x_row,
+                              out_row, s);
+  return (int)cudaErrorInvalidValue;
 }

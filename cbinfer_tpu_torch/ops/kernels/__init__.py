@@ -11,12 +11,27 @@ kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
 
 # dtype codes of the C interface (CB_F32, CB_BF16 in csrc/cb_common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def walk_grid(capacity: int, sms: int, per_sm: int) -> int:
+    """Blocks of a kernel that walks a device-side list of at most
+    ``capacity`` entries (i = blockIdx.x, i += gridDim.x while i < count):
+    one per entry, at most ``per_sm`` on each of the card's ``sms``
+    multiprocessors. 0 for an empty list: nothing is launched."""
+    return min(capacity, per_sm * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Multiprocessors of a CUDA device, read once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @dataclasses.dataclass

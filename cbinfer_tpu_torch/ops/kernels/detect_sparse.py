@@ -3,9 +3,9 @@
 Replaces ``cbinfer_tpu/ops/pallas/detect.py::detect_sparse``. The CUDA
 source (``csrc/detect_sparse.cu``) carries the design note: bytes bound
 the kernel on the H100 (it reads x and the cache once per visited tile and
-writes the accepted pixels), one block per hint tile walks a device-side
-count, and each block touches only its own rows so the clamped bottom
-edge cannot race.
+writes the accepted pixels), a grid sized to the card walks the
+device-side count, a warp holds a whole tile row in flight, and each block
+touches only its own rows so the clamped bottom edge cannot race.
 """
 
 from __future__ import annotations
@@ -17,10 +17,13 @@ import torch
 from .. import detect as detect_ops
 from ..delta_conv import storage_interior, tile_ids
 from ..geometry import TileGeometry, cdiv
-from . import DTYPE_CODE, Kernel
+from . import DTYPE_CODE, Kernel, sm_count, walk_grid
 from .build import check, library
 
 HINT = 8
+# blocks of 256 threads per SM: a bf16 row of C = 256 holds 64 registers a
+# lane in loads, so two blocks fit an SM
+BLOCKS_PER_SM = 2
 
 KERNEL = Kernel(name="detect_sparse", route="cuda",
                 source="cbinfer_tpu_torch/csrc/detect_sparse.cu",
@@ -54,8 +57,8 @@ def _fn():
     f = library("detect_sparse").cb_detect_sparse
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp, vp, vp, vp, vp, vp, i, ctypes.c_float, i, i, i, i,
-                      ll, ll, i, i, i, i, i, i, i, i, i, i, vp]
+        f.argtypes = [vp, vp, vp, vp, vp, vp, i, i, ctypes.c_float, i, i, i,
+                      i, ll, ll, i, i, i, i, i, i, i, i, i, i, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -87,7 +90,8 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
             or tuple(storage.shape) != g.store_shape[:2] + (C,)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
             or count.numel() != 1
-            or idx.numel() > cdiv(H, HINT) * (W // HINT)):
+            or idx.numel() > cdiv(H, HINT) * (W // HINT)
+            or x.data_ptr() % 4 or storage.data_ptr() % 4):
         raise ValueError(
             f"detect_sparse: unsupported operands x{tuple(x.shape)} "
             f"{x.dtype} storage{tuple(storage.shape)} {storage.dtype} "
@@ -95,15 +99,19 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
     for t in (x, storage, idx):
         if not t.is_contiguous():
             raise ValueError("detect_sparse: operands must be contiguous")
-    mask = torch.zeros((g.tiles_h, g.tiles_w), dtype=torch.float32,
-                       device=storage.device)
-    npix = torch.zeros((1,), dtype=torch.int32, device=storage.device)
+    # mask and npix are two views of one buffer: one fill per call
+    n_mask = g.tiles_h * g.tiles_w
+    out = torch.zeros((n_mask + 1,), dtype=torch.int32, device=storage.device)
+    mask = out[:n_mask].view(torch.float32).view(g.tiles_h, g.tiles_w)
+    npix = out[n_mask:]
     sh, sw = g.stride
     stream = torch.cuda.current_stream(storage.device).cuda_stream
+    grid = walk_grid(idx.numel(), sm_count(storage.device.index),
+                     BLOCKS_PER_SM)
     err = _fn()(x.data_ptr(), storage.data_ptr(), idx.data_ptr(),
                 count.data_ptr(), mask.data_ptr(), npix.data_ptr(),
-                idx.numel(), float(tau), DTYPE_CODE[storage.dtype], H, C,
-                W // HINT, x.shape[1] * C, storage.shape[1] * C,
+                idx.numel(), grid, float(tau), DTYPE_CODE[storage.dtype], H,
+                C, W // HINT, x.shape[1] * C, storage.shape[1] * C,
                 g.store_lo_h, g.store_lo_w, g.tiles_h, g.tiles_w,
                 g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w, g.win_h,
                 g.win_w, stream)

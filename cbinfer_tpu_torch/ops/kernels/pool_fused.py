@@ -2,8 +2,9 @@
 
 Replaces ``cbinfer_tpu/ops/pallas/delta_pool.py::detect_pool_fused``. The
 CUDA source (``csrc/pool_fused.cu``) carries the design note: bytes bound
-it; one block per dirty block takes the max in registers and marks the one
-out tile it touches.
+it; a grid sized to the card walks the device-side count, every thread
+issues all its 16-byte pool loads before the max, and a block marks the
+one out tile each dirty block touches.
 """
 
 from __future__ import annotations
@@ -14,8 +15,12 @@ import torch
 
 from ..delta_conv import tile_ids
 from ..geometry import TileGeometry
-from . import DTYPE_CODE, Kernel
+from . import DTYPE_CODE, Kernel, sm_count, walk_grid
 from .build import check, library
+
+# blocks of 256 threads per SM: at C = 256 in bf16 a thread holds 16
+# 16-byte loads (64 registers), so two blocks fit an SM
+BLOCKS_PER_SM = 2
 
 KERNEL = Kernel(name="detect_pool_fused", route="cuda",
                 source="cbinfer_tpu_torch/csrc/pool_fused.cu",
@@ -65,7 +70,7 @@ def _fn():
     f = library("pool_fused").cb_pool_fused
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 5 + [i] * 8 + [ll, ll, vp]
+        f.argtypes = [vp] * 5 + [i] * 9 + [ll, ll, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -90,7 +95,8 @@ def detect_pool_fused(x: torch.Tensor, out_cache: torch.Tensor,
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, C)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
             or count.numel() != 1
-            or idx.numel() > (g.in_h // hint_h) * (g.in_w // hint_w)):
+            or idx.numel() > (g.in_h // hint_h) * (g.in_w // hint_w)
+            or x.data_ptr() % 4 or out_cache.data_ptr() % 4):
         raise ValueError(
             f"detect_pool_fused: unsupported operands x{tuple(x.shape)} "
             f"out{tuple(out_cache.shape)} {out_cache.dtype} "
@@ -101,8 +107,10 @@ def detect_pool_fused(x: torch.Tensor, out_cache: torch.Tensor,
     mask = torch.zeros((g.tiles_h, g.tiles_w), dtype=torch.float32,
                        device=out_cache.device)
     stream = torch.cuda.current_stream(out_cache.device).cuda_stream
+    grid = walk_grid(idx.numel(), sm_count(out_cache.device.index),
+                     BLOCKS_PER_SM)
     err = _fn()(x.data_ptr(), out_cache.data_ptr(), idx.data_ptr(),
-                count.data_ptr(), mask.data_ptr(), idx.numel(),
+                count.data_ptr(), mask.data_ptr(), idx.numel(), grid,
                 DTYPE_CODE[out_cache.dtype], C, g.in_w // hint_w, hint_h,
                 hint_w, pool, g.tiles_w, x.shape[1] * C, g.out_w_pad * C,
                 stream)

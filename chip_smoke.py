@@ -54,7 +54,9 @@ Phases, each printing one JSON line:
               layers; launches; ms/frame
   check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
-              count = 0, all-dirty lists, tau = -1 for the full-map
+              count = 0, all-dirty lists (for the sparse detect and the
+              fused pool: lists longer than the grid, so blocks walk
+              several entries), tau = -1 for the full-map
               detects, the capacity overflow of the stem conv, the sparse
               detect on a pool's geometry, and the fused kernel against the
               delta conv followed by the sparse detect (bit for bit, at
@@ -62,7 +64,9 @@ Phases, each printing one JSON line:
               synthetic tile-conv cases (TILE_CONV_CASES: clusters of 1-8
               blocks, cin/cout off the 16-channel grid, dilation, stride,
               small tiles, ragged maps, counts 0, 1 and capacity)
-  kernels     every kernel: launches, ms per launch, plain ms, bound ms
+  kernels     every kernel: launches, ms per launch, plain ms, bound ms;
+              B1 and B3 carry the launch floor (one fill and an empty
+              one-block kernel, timed as they are) in their context
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line; without CUDA it exits 2 at once.
 """
@@ -959,6 +963,13 @@ def _time_pair(torch, kernel, plain, buf_k, buf_p, orig):
                            sleep_cycles=0))
 
 
+def _grid(module, idx):
+    """Blocks the wrapper of ``module`` (B1, B3) launches for list ``idx``."""
+    from cbinfer_tpu_torch.ops.kernels import sm_count
+    return module.walk_grid(idx.numel(), sm_count(idx.device.index),
+                            module.BLOCKS_PER_SM)
+
+
 def _ulps(torch, a, b):
     """Largest distance of two bf16 tensors in bf16 ulps."""
     def ordered(t):
@@ -1172,7 +1183,8 @@ def check_kernels(torch, np, calls):
                 kernel=name, path=path, call=li, exact=ok, count0_noop=ok0,
                 all_dirty_exact=oka, clamped=g.in_h % 8 != 0,
                 pool_geometry=g.stride != (1, 1), count=int(count),
-                npix=int(nk)))
+                npix=int(nk), grid=_grid(KD, idx),
+                all_dirty_above_grid=n_hint > _grid(KD, ia)))
             ms, pms = _time_pair(
                 torch, lambda: KD.detect_sparse(x, st, tau, idx, count, g),
                 lambda: KD.detect_sparse_plain(x, sp, tau, idx, count, g),
@@ -1240,9 +1252,18 @@ def check_kernels(torch, np, calls):
             ok = torch.equal(ok_, op_) and torch.equal(mk, mp)
             z, m0 = KP.detect_pool_fused(x, out0.clone(), idx, zero, g, **kw)
             ok0 = torch.equal(z, out0) and not m0.any()
-            fail_unless(ok and ok0, dict(kernel=name, path=path, call=li,
-                                         exact=ok, count0_noop=ok0,
-                                         count=int(count)))
+            # every block of the map: more entries than the grid has blocks
+            n_blk = (g.in_h // kw["hint_h"]) * (g.in_w // kw["hint_w"])
+            ia = torch.arange(n_blk, dtype=torch.int32, device="cuda")
+            ca = torch.tensor(n_blk, dtype=torch.int32, device="cuda")
+            ya, ma = KP.detect_pool_fused(x, out0.clone(), ia, ca, g, **kw)
+            yb, mb = KP.detect_pool_fused_plain(x, out0.clone(), ia, ca, g,
+                                                **kw)
+            oka = torch.equal(ya, yb) and torch.equal(ma, mb)
+            fail_unless(ok and ok0 and oka, dict(
+                kernel=name, path=path, call=li, exact=ok, count0_noop=ok0,
+                all_blocks_exact=oka, count=int(count), grid=_grid(KP, idx),
+                all_blocks_above_grid=n_blk > _grid(KP, ia)))
             out_k, out_p = out0.clone(), out0.clone()
             ms, pms = _time_pair(
                 torch, lambda: KP.detect_pool_fused(x, out_k, idx, count, g,
@@ -1561,6 +1582,19 @@ def check_kernels(torch, np, calls):
     if not any(c.get("pool_geometry") for c in checks
                if c["kernel"] == "detect_sparse"):
         raise AssertionError("detect_sparse was not checked on a pool")
+    for name, key in (("detect_sparse", "all_dirty_above_grid"),
+                      ("detect_pool_fused", "all_blocks_above_grid")):
+        if not any(c.get(key) for c in checks if c["kernel"] == name):
+            raise AssertionError(f"{name}: no list outgrew the grid")
+    # what any launch of these costs at least, timed as the kernels are:
+    # one fill of B1's mask-and-npix buffer (flagship spec 2) and an empty
+    # one-block kernel
+    floor = {"launch_floor_ms": _time_launches(
+        torch, lambda: (torch.zeros(45 * 80 + 1, dtype=torch.int32,
+                                    device="cuda"), torch.cuda._sleep(0)),
+        lambda: None, 20)}
+    for name in ("detect_sparse", "detect_pool_fused"):
+        context[name] = floor
     fused_ctx = context.get("delta_conv_detect")
     if fused_ctx:
         fused_ctx["unfused_pair_ms"] /= fused_ctx.pop("calls")

@@ -432,3 +432,94 @@ def test_tile_conv_cases_on_card(cuda, case):
     blocks, a ragged last slice, cin and cout off the 16-channel grid,
     dilation, stride, th*tw < 64, the 90- and 180-row maps."""
     chip_smoke.check_tile_conv(torch, np, case)
+
+
+# (map height, forced grid): a grid of 3 makes every block walk many list
+# entries; None keeps the card's own grid, on a map wide enough that the
+# list outgrows it
+WALK_SHAPES = [(90, 3), (180, 3), (180, None)]
+WALK_WIDTHS = [6, 56, 128, 256, 512]  # 4-byte units, 7, 16, 32, 64 units
+
+
+def _force_grid(monkeypatch, module, grid):
+    if grid is not None:
+        monkeypatch.setattr(module, "walk_grid",
+                            lambda cap, sms, per_sm: min(cap, grid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", WALK_WIDTHS)
+@pytest.mark.parametrize("H,grid", WALK_SHAPES)
+def test_detect_sparse_walks_the_list_on_card(cuda, monkeypatch, dtype, C,
+                                              H, grid):
+    """B1 bit for bit against its plain version (cache, mask, npix) at
+    counts 0, 1 and every hint tile, on ragged maps (a clamped bottom hint
+    row), at widths that take 4-byte units (C = 6), 16-byte units in one
+    batch and in two (C = 512), with blocks walking several entries."""
+    from cbinfer_tpu_torch.ops.delta_conv import make_storage
+    from cbinfer_tpu_torch.ops.kernels import sm_count
+    rng = np.random.default_rng(C + H)
+    W = 64 if grid else 256
+    g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
+    n_hint = -(-H // 8) * (W // 8)
+    if grid is None:  # the card's grid: fewer blocks than entries
+        assert KD.walk_grid(n_hint, sm_count(cuda.index or 0),
+                            KD.BLOCKS_PER_SM) < n_hint
+    _force_grid(monkeypatch, KD, grid)
+    prev = torch.from_numpy(rng.standard_normal((H, W, C)).astype(
+        np.float32)).to(cuda, dtype)
+    st0 = make_storage(g, 0.0, 0.0, dtype, cuda)
+    st0[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W] = prev
+    # x is a padded producer cache: pad rows and columns must be ignored
+    x = torch.randn(H + 6, W + 8, C, device=cuda).to(dtype)
+    bump = torch.rand(H, W, 1, device=cuda) < 0.3
+    x[:H, :W] = prev + bump.to(dtype) * torch.where(
+        torch.rand(H, W, C, device=cuda) < 0.5, 0.4, 0.6).to(dtype)
+    order = torch.from_numpy(rng.permutation(n_hint).astype(np.int32)).to(
+        cuda)
+    reset_launches()
+    for c in (0, 1, n_hint):
+        count = torch.tensor(c, dtype=torch.int32, device=cuda)
+        sk, mk, nk = KD.detect_sparse(x, st0.clone(), 0.5, order, count, g)
+        sp, mp, np_ = KD.detect_sparse_plain(x, st0.clone(), 0.5, order,
+                                             count, g)
+        assert torch.equal(sk, sp) and torch.equal(mk, mp)
+        assert torch.equal(nk, np_)
+        assert (int(nk) > 0) == (c > 0)
+    assert torch.equal(KD.detect_sparse(x, st0.clone(), 0.5, order,
+                                        torch.zeros_like(count), g)[0], st0)
+    assert launches()["detect_sparse"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", WALK_WIDTHS)
+@pytest.mark.parametrize("H,grid", [(40, 3), (176, 3), (176, None)])
+def test_pool_fused_walks_the_list_on_card(cuda, monkeypatch, dtype, C, H,
+                                           grid):
+    """B3 bit for bit against its plain version (out cache, mask) at
+    counts 0, 1 and every block, on maps whose pooled height is off the
+    8-row tile grid (40 -> 20 rows), at widths that take 4-byte units,
+    16-byte units and more items a thread than one batch holds, with
+    blocks walking several entries."""
+    from cbinfer_tpu_torch.ops.kernels import sm_count
+    rng = np.random.default_rng(C + H)
+    W = 64 if grid else 256
+    g = conv_tile_geometry((H, W, C), (2, 2), (2, 2), (1, 1), "VALID", 8, 8)
+    n_blocks = (H // 8) * (W // 16)
+    if grid is None:
+        assert KP.walk_grid(n_blocks, sm_count(cuda.index or 0),
+                            KP.BLOCKS_PER_SM) < n_blocks
+    _force_grid(monkeypatch, KP, grid)
+    x = torch.from_numpy(rng.standard_normal((H + 8, W + 16, C)).astype(
+        np.float32)).to(cuda, dtype)
+    out0 = torch.randn(g.out_h_pad, g.out_w_pad, C, device=cuda).to(dtype)
+    order = torch.from_numpy(rng.permutation(n_blocks).astype(np.int32)).to(
+        cuda)
+    reset_launches()
+    for c in (0, 1, n_blocks):
+        count = torch.tensor(c, dtype=torch.int32, device=cuda)
+        yk, mk = KP.detect_pool_fused(x, out0.clone(), order, count, g)
+        yp, mp = KP.detect_pool_fused_plain(x, out0.clone(), order, count, g)
+        assert torch.equal(yk, yp) and torch.equal(mk, mp)
+        assert torch.equal(yk, out0) == (c == 0)
+    assert launches()["detect_pool_fused"] == 3

@@ -26,7 +26,9 @@ from cbinfer_tpu_torch.ops import delta_conv as tdc
 from cbinfer_tpu_torch.ops import detect as tdetect
 from cbinfer_tpu_torch.ops.geometry import \
     conv_tile_geometry as t_conv_tile_geometry
-from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+from cbinfer_tpu_torch.ops.kernels import launches, reset_launches, walk_grid
+from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
+from cbinfer_tpu_torch.ops.kernels import pool_fused as KP
 from cbinfer_tpu_torch.ops.kernels.delta_conv import delta_conv
 from cbinfer_tpu_torch.ops.kernels.detect_sparse import detect_sparse
 from cbinfer_tpu_torch.ops.kernels.pool_fused import detect_pool_fused
@@ -61,6 +63,14 @@ DETECT_CASES = {
     "clamped_all": dict(H=20, W=16, C=8, hint="all"),
     "count_zero": dict(H=20, W=16, C=8, hint=[]),
     "full_width": dict(H=16, W=32, C=128, hint=[(0, 0), (1, 3), (1, 2)]),
+    # 112 bytes a bf16 pixel (16-byte units, no power of two of them), and
+    # a clamped edge
+    "c56_clamped": dict(H=20, W=24, C=56, hint=[(0, 0), (2, 1), (1, 2)]),
+    # more units a pixel than one batch of the kernel holds
+    "c512": dict(H=16, W=16, C=512, hint=[(0, 1), (1, 0)]),
+    # the sparse detect in front of a re-detecting pool (the hintless path)
+    "pool_stride2": dict(H=20, W=32, C=16, hint=[(0, 0), (2, 3), (1, 2)],
+                         pool=True),
 }
 
 
@@ -69,7 +79,10 @@ def test_detect_sparse_plain_matches_pallas(case):
     p = DETECT_CASES[case]
     H, W, C = p["H"], p["W"], p["C"]
     rng = np.random.default_rng(17)
-    g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
+    window = ((2, 2), (2, 2), "VALID") if p.get("pool") else \
+        ((3, 3), (1, 1), "SAME")
+    g = conv_tile_geometry((H, W, C), window[0], window[1], (1, 1),
+                           window[2], 8, 8)
     hh, hw = -(-H // 8), W // 8
     hint = np.zeros((hh, hw), bool)
     if p["hint"] == "all":
@@ -94,8 +107,8 @@ def test_detect_sparse_plain_matches_pallas(case):
     reset_launches()
     tst, tmask, tnpix = detect_sparse(_t(x), _t(st), 0.5, _t(idx), _t(count),
                                       t_conv_tile_geometry(
-                                          (H, W, C), (3, 3), (1, 1), (1, 1),
-                                          "SAME", 8, 8))
+                                          (H, W, C), window[0], window[1],
+                                          (1, 1), window[2], 8, 8))
     np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
     np.testing.assert_array_equal(tnpix.numpy(), np.asarray(jnpix))
@@ -166,6 +179,8 @@ def test_dense_conv_shifted_matches_jax():
     (128, [(0, 0), (2, 2), (3, 3)]),
     (16, [(0, 1), (1, 0), (3, 3), (2, 1)]),
     (16, []),  # count = 0: a no-op with an empty mask
+    (56, [(0, 0), (1, 2), (3, 1)]),  # 7 16-byte units a bf16 pixel
+    (512, [(2, 3), (0, 1)]),  # more items a thread than one batch holds
 ])
 def test_detect_pool_fused_plain_matches_pallas(C, blocks):
     rng = np.random.default_rng(3)
@@ -187,6 +202,24 @@ def test_detect_pool_fused_plain_matches_pallas(C, blocks):
     np.testing.assert_array_equal(t_mask.numpy(), np.asarray(j_mask))
     if not blocks:
         np.testing.assert_array_equal(t_out.numpy(), old)
+
+
+# ------------------------ the grid of the list walkers ----------------------
+
+
+@pytest.mark.parametrize("module", [KD, KP], ids=["B1", "B3"])
+@pytest.mark.parametrize("rel", ["zero", "below", "at", "above", "all_720p"])
+def test_walk_grid_is_the_list_capped_at_blocks_per_sm(module, rel):
+    """B1 and B3 launch min(capacity, k * SMs) blocks, which walk the
+    device-side count: one block per entry up to k per SM, never more
+    blocks than entries, none for an empty list."""
+    sms, k = 132, module.BLOCKS_PER_SM
+    capacity = {"zero": 0, "below": k * sms - 1, "at": k * sms,
+                "above": k * sms + 1, "all_720p": 90 * 160}[rel]
+    grid = walk_grid(capacity, sms, k)
+    assert grid == min(capacity, k * sms)
+    assert (grid == 0) == (capacity == 0)
+    assert grid <= capacity and grid <= k * sms
 
 
 # ------------------------------ glue around them ----------------------------
