@@ -10,73 +10,156 @@
 // touched.
 //
 // Bound on the H100: bytes, a tile reads its window once and writes a
-// 1/(sh*sw) of it; the max is one operation per value read. Design: one
-// block per changed tile (the grid is sized to the tile grid, blocks at or
-// past *count exit at once); threads walk (output pixel, channel pair)
-// with channels fastest, so a warp reads and writes contiguous runs of 128
-// bytes and the max stays in registers. The TPU kernel's DMA extents
-// (win_h_dma, win_w_dma) and phase slices have no counterpart.
-#include "cb_common.cuh"
+// 1/(sh*sw) of it; the max is one instruction per value read. At the
+// clips' densities a launch lists tens to a few hundred tiles, so latency
+// is what it costs. Design (B3's, pool_fused.cu, whose units it shares
+// through cb_pool.cuh):
+// - a grid sized to the card (the wrapper's walk_grid), each block walking
+//   (list entry, part) pairs i = blockIdx.x, i += gridDim.x while
+//   i < *count * parts, the next pair's tile id loaded while the current
+//   part is pooled. A part is a run of the tile's rows holding at most 512
+//   items, two a thread (the whole tile at C 64 in bf16, half at 128, a
+//   quarter at 256), so a short list spreads over more SMs and a thread's
+//   loads are one round trip; whole tiles a block were 12-47% slower in
+//   the same-call A/B (PERF.md);
+// - a thread owns (out pixel, channel unit) items, a unit being 16 bytes
+//   where a pixel's channels are 16-byte aligned, else 4 bytes; channels
+//   fastest, so a warp reads and writes contiguous runs. The kh x kw loads
+//   of all of a thread's items (at most UPT of them per batch) are in
+//   flight before the first max. The 2x2 stride-2 window of every pool on
+//   the paths is a template constant; any other window, stride or dx0 the
+//   geometry admits takes a runtime loop in the same kernel.
+// B8 writes only the out cache, which the wrapper does not fill, so there
+// is no fill to overlap. The TPU kernel's DMA extents (win_h_dma,
+// win_w_dma) and phase slices have no counterpart.
+#include "cb_pool.cuh"
 
 namespace {
 
 struct DeltaPoolArgs {
-  int C, tiles_w, th, tw, kh, kw, sh, sw, dx0;
-  long long s_row, out_row;  // row strides, elements
+  int cap;    // entries of idx
+  int units;  // load units per pixel
+  int tiles_w, th, tw, kh, kw, sh, sw, dx0;
+  int rows, parts;  // rows of a part of a tile, parts of a tile
+  long long s_row, out_row;  // row strides, in units
 };
 
-template <typename T>
+// K: 2 for the 2x2 stride-2 window, or 0 for the runtime a.kh x a.kw
+// window at stride (a.sh, a.sw). UPT: items a thread loads before it
+// reduces.
+template <typename T, typename U, int K, int UPT>
 __global__ void __launch_bounds__(256)
-delta_pool_kernel(const T* __restrict__ st, const int* __restrict__ idx,
-                  const int* __restrict__ count, T* __restrict__ out,
+delta_pool_kernel(const U* __restrict__ st, const int* __restrict__ idx,
+                  const int* __restrict__ count, U* __restrict__ out,
                   DeltaPoolArgs a) {
-  if ((int)blockIdx.x >= __ldg(count)) return;
-  const int t = idx[blockIdx.x];
-  const int ti = t / a.tiles_w;
-  const int tj = t - ti * a.tiles_w;
-  const int c2n = a.C / 2;
-  const int total = a.th * a.tw * c2n;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int c = 2 * (e % c2n);
-    const int q = e / c2n;
-    const int ox = q % a.tw;
-    const int oy = q / a.tw;
-    const long long oyg = (long long)ti * a.th + oy;
-    const long long oxg = (long long)tj * a.tw + ox;
-    const T* win = st + oyg * a.sh * a.s_row + (oxg * a.sw + a.dx0) * a.C + c;
-    float2 m = make_float2(-INFINITY, -INFINITY);
-    for (int dy = 0; dy < a.kh; ++dy)
-      for (int dx = 0; dx < a.kw; ++dx) {
-        float2 v = cb_load2(win + dy * a.s_row + dx * a.C);
-        m.x = fmaxf(m.x, v.x);
-        m.y = fmaxf(m.y, v.y);
+  const int sh = K ? K : a.sh;
+  const int sw = K ? K : a.sw;
+  const int total = a.rows * a.tw * a.units;  // items of one part
+  int i = blockIdx.x;  // pairs i = (list entry i / parts, part i % parts)
+  int t = __ldg(idx + min(i / a.parts, a.cap - 1));
+  const int n = __ldg(count) * a.parts;
+  while (i < n) {
+    const int next = i + gridDim.x;
+    const int t_next = next < a.cap * a.parts ? __ldg(idx + next / a.parts)
+                                              : 0;
+    const int ti = t / a.tiles_w;
+    const int tj = t - ti * a.tiles_w;
+    const int r0 = (i % a.parts) * a.rows;
+    for (int b = threadIdx.x; b < total; b += 256 * UPT) {
+      const U* src[UPT];
+      long long dst[UPT];
+#pragma unroll
+      for (int k = 0; k < UPT; ++k) {
+        const int e = min(b + 256 * k, total - 1);
+        const int g = e % a.units;
+        const int q = e / a.units;
+        const int oy = q / a.tw;
+        const long long oyg = (long long)ti * a.th + r0 + oy;
+        const long long oxg = (long long)tj * a.tw + (q - oy * a.tw);
+        src[k] = st + oyg * sh * a.s_row + (oxg * sw + a.dx0) * a.units + g;
+        dst[k] = oyg * a.out_row + oxg * a.units + g;
       }
-    // the max of T values is a T value: the store rounds nothing
-    cb_store2(out + oyg * a.out_row + oxg * a.C + c, m);
+      if constexpr (K > 0) {
+        U v[UPT][K * K];
+#pragma unroll
+        for (int k = 0; k < UPT; ++k)
+#pragma unroll
+          for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx)
+              v[k][dy * K + dx] = __ldg(src[k] + dy * a.s_row + dx * a.units);
+#pragma unroll
+        for (int k = 0; k < UPT; ++k) {
+          U m = v[k][0];
+#pragma unroll
+          for (int r = 1; r < K * K; ++r) m = unit_max<T>(m, v[k][r]);
+          if (b + 256 * k < total) out[dst[k]] = m;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < UPT; ++k) {
+          U m = __ldg(src[k]);
+          for (int dy = 0; dy < a.kh; ++dy)
+            for (int dx = 0; dx < a.kw; ++dx)
+              m = unit_max<T>(m, __ldg(src[k] + dy * a.s_row + dx * a.units));
+          if (b + 256 * k < total) out[dst[k]] = m;
+        }
+      }
+    }
+    i = next;
+    t = t_next;
   }
+}
+
+template <typename T, typename U>
+int launch(const void* st, const int* idx, const int* count, void* out,
+           int grid, const DeltaPoolArgs& a, cudaStream_t s) {
+  const U* su = static_cast<const U*>(st);
+  U* ou = static_cast<U*>(out);
+  const bool k2 = a.kh == 2 && a.kw == 2 && a.sh == 2 && a.sw == 2;
+  const int upt = cb_pool_upt(a.rows * a.tw * a.units);
+  auto kernel = !k2        ? &delta_pool_kernel<T, U, 0, 1>
+                : upt == 1 ? &delta_pool_kernel<T, U, 2, 1>
+                : upt == 2 ? &delta_pool_kernel<T, U, 2, 2>
+                           : &delta_pool_kernel<T, U, 2, 4>;
+  kernel<<<grid, 256, 0, s>>>(su, idx, count, ou, a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_type(const void* st, const int* idx, const int* count, void* out,
+                int grid, int cap, int C, int tiles_w, int th, int tw, int kh,
+                int kw, int sh, int sw, int dx0, long long s_row,
+                long long out_row, cudaStream_t s) {
+  const int bytes = C * (int)sizeof(T);
+  const bool vec = cb_pool_units16(bytes, st, out);
+  const int per = (vec ? 16 : 4) / (int)sizeof(T);  // elements of a unit
+  int rows = th;  // rows of a part: at most 512 items, two a thread
+  while (rows % 2 == 0 && rows * tw * (C / per) > 512) rows /= 2;
+  DeltaPoolArgs a{cap, C / per, tiles_w, th, tw, kh, kw, sh, sw, dx0,
+                  rows, th / rows, s_row / per, out_row / per};
+  if (vec) return launch<T, uint4>(st, idx, count, out, grid, a, s);
+  return launch<T, unsigned>(st, idx, count, out, grid, a, s);
 }
 
 }  // namespace
 
+// cap: entries of idx; grid: blocks to launch (1 <= grid <= cap).
 extern "C" int cb_delta_pool(const void* storage, const int* idx,
-                             const int* count, void* out, int n_blocks,
+                             const int* count, void* out, int cap, int grid,
                              int dtype, int C, int tiles_w, int th, int tw,
                              int kh, int kw, int sh, int sw, int dx0,
                              long long s_row, long long out_row,
                              void* stream) {
-  DeltaPoolArgs a{C, tiles_w, th, tw, kh, kw, sh, sw, dx0, s_row, out_row};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_blocks <= 0) return 0;
-  if (dtype == CB_BF16) {
-    delta_pool_kernel<__nv_bfloat16><<<n_blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(storage), idx, count,
-        static_cast<__nv_bfloat16*>(out), a);
-  } else if (dtype == CB_F32) {
-    delta_pool_kernel<float><<<n_blocks, 256, 0, s>>>(
-        static_cast<const float*>(storage), idx, count,
-        static_cast<float*>(out), a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (grid == 0) return 0;
+  if (grid < 0 || grid > cap) return (int)cudaErrorInvalidValue;
+  if (dtype == CB_BF16)
+    return launch_type<__nv_bfloat16>(storage, idx, count, out, grid, cap, C,
+                                      tiles_w, th, tw, kh, kw, sh, sw, dx0,
+                                      s_row, out_row, s);
+  if (dtype == CB_F32)
+    return launch_type<float>(storage, idx, count, out, grid, cap, C, tiles_w,
+                              th, tw, kh, kw, sh, sw, dx0, s_row, out_row, s);
+  return (int)cudaErrorInvalidValue;
 }

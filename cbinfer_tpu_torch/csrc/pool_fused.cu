@@ -24,7 +24,7 @@
 //   forwarding pool the gate admits (other pools: a runtime loop);
 // - launched to overlap the wrapper's fill of the mask
 //   (cb_launch_after_fill): only the mask writes wait for it.
-#include "cb_common.cuh"
+#include "cb_pool.cuh"
 
 namespace {
 
@@ -34,32 +34,6 @@ struct PoolArgs {
   int blocks_w, hint_h, hint_w, pool, tiles_w;
   long long x_row, out_row;  // row strides, in units
 };
-
-// Elementwise max of two 4-byte words. The max of T values is a T value:
-// nothing is rounded.
-template <typename T>
-__device__ __forceinline__ unsigned word_max(unsigned a, unsigned b);
-template <>
-__device__ __forceinline__ unsigned word_max<float>(unsigned a, unsigned b) {
-  return __float_as_uint(fmaxf(__uint_as_float(a), __uint_as_float(b)));
-}
-template <>
-__device__ __forceinline__ unsigned word_max<__nv_bfloat16>(unsigned a,
-                                                            unsigned b) {
-  __nv_bfloat162 m = __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                             *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<unsigned*>(&m);
-}
-
-template <typename T>
-__device__ __forceinline__ unsigned unit_max(unsigned a, unsigned b) {
-  return word_max<T>(a, b);
-}
-template <typename T>
-__device__ __forceinline__ uint4 unit_max(uint4 a, uint4 b) {
-  return make_uint4(word_max<T>(a.x, b.x), word_max<T>(a.y, b.y),
-                    word_max<T>(a.z, b.z), word_max<T>(a.w, b.w));
-}
 
 // POOL: the pool size, or 0 for a runtime a.pool. UPT: items a thread
 // loads before it reduces.
@@ -138,13 +112,12 @@ int launch(const void* x, void* out, const int* idx, const int* count,
            float* mask, int grid, const PoolArgs& a, cudaStream_t s) {
   const U* xu = static_cast<const U*>(x);
   U* ou = static_cast<U*>(out);
-  const int per_thread =
-      ((a.hint_h / 2) * (a.hint_w / 2) * a.units + 255) / 256;
+  const int upt = cb_pool_upt((a.hint_h / 2) * (a.hint_w / 2) * a.units);
   // launched to overlap the wrapper's fill of the mask
-  auto kernel = a.pool != 2        ? &pool_fused_kernel<T, U, 0, 1>
-                : per_thread <= 1 ? &pool_fused_kernel<T, U, 2, 1>
-                : per_thread <= 2 ? &pool_fused_kernel<T, U, 2, 2>
-                                  : &pool_fused_kernel<T, U, 2, 4>;
+  auto kernel = a.pool != 2 ? &pool_fused_kernel<T, U, 0, 1>
+                : upt == 1  ? &pool_fused_kernel<T, U, 2, 1>
+                : upt == 2  ? &pool_fused_kernel<T, U, 2, 2>
+                            : &pool_fused_kernel<T, U, 2, 4>;
   const cudaError_t err =
       cb_launch_after_fill(kernel, grid, 256, s, xu, ou, idx, count, mask, a);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
@@ -155,12 +128,8 @@ int launch_type(const void* x, void* out, const int* idx, const int* count,
                 float* mask, int grid, int cap, int C, int blocks_w,
                 int hint_h, int hint_w, int pool, int tiles_w,
                 long long x_row, long long out_row, cudaStream_t s) {
-  // 16-byte units where every pixel starts 16-byte aligned (all offsets
-  // are multiples of C elements), else 4-byte units
   const int bytes = C * (int)sizeof(T);
-  const bool vec = bytes % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec = cb_pool_units16(bytes, x, out);
   const int ub = vec ? 16 : 4;  // bytes of a unit
   const int per = ub / (int)sizeof(T);  // elements of a unit
   PoolArgs a{cap,  bytes / ub, blocks_w,      hint_h,       hint_w,

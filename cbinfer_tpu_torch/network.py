@@ -185,27 +185,43 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
 
 def dense_pool(x: torch.Tensor, spec: PoolSpec) -> torch.Tensor:
-    """Max pool of one HWC frame (VALID or explicit symmetric padding).
-    An aligned VALID pool is one reduction over a free reshape."""
-    if spec.padding == "SAME":
-        raise NotImplementedError("SAME max pooling is not ported")
+    """Max pool of one HWC frame: VALID, SAME or explicit symmetric
+    padding, every pad -inf (the reference's ``lax.reduce_window`` with a
+    -inf init). SAME pads as XLA does, the odd pixel of an even total at
+    the end, so it is padded by hand: ``F.max_pool2d`` pads symmetrically
+    only. An aligned VALID pool is one reduction over a free reshape."""
     (kh, kw), (sh, sw) = spec.window, spec.stride
+    H, W, C = x.shape
     if spec.padding == "VALID" and (kh, kw) == (sh, sw):
-        H, W, C = x.shape
         Ho, Wo = H // kh, W // kw
         return x[:Ho * kh, :Wo * kw].reshape(Ho, kh, Wo, kw, C).amax(
             dim=(1, 3))
-    pad = (0, 0) if spec.padding == "VALID" else tuple(spec.padding)
-    y = F.max_pool2d(x.permute(2, 0, 1)[None], kernel_size=spec.window,
-                     stride=spec.stride, padding=pad)
+    xn = x.permute(2, 0, 1)[None]
+    pad = (0, 0)
+    if spec.padding == "SAME":
+        ph, pw = same_pads(H, kh, sh, 1), same_pads(W, kw, sw, 1)
+        xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]), value=-math.inf)
+    elif spec.padding != "VALID":
+        pad = tuple(spec.padding)
+    y = F.max_pool2d(xn, kernel_size=spec.window, stride=spec.stride,
+                     padding=pad)
     return y[0].permute(1, 2, 0)
 
 
 def upsample(x: torch.Tensor, spec: UpsampleSpec) -> torch.Tensor:
-    if spec.method != "nearest":
-        raise NotImplementedError("bilinear upsampling is not ported")
-    return x.repeat_interleave(spec.scale[0], 0).repeat_interleave(
-        spec.scale[1], 1)
+    """Nearest or bilinear upsampling of one HWC frame by an integer
+    scale. Bilinear is the reference's ``jax.image.resize(...,
+    "bilinear")``: half-pixel centres, and at the border the one input
+    pixel in reach takes the whole weight, which is
+    ``F.interpolate(align_corners=False)``'s clamp of the source index."""
+    if spec.method == "nearest":
+        return x.repeat_interleave(spec.scale[0], 0).repeat_interleave(
+            spec.scale[1], 1)
+    h, w, _ = x.shape
+    y = F.interpolate(x.permute(2, 0, 1)[None],
+                      size=(h * spec.scale[0], w * spec.scale[1]),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).contiguous()
 
 
 def dense_apply(specs: Sequence, params: Sequence, x: torch.Tensor,

@@ -2,8 +2,9 @@
 
 Replaces ``cbinfer_tpu/ops/pallas/delta_pool.py::delta_pool_pallas``. The
 CUDA source (``csrc/delta_pool.cu``) carries the design note: bytes bound
-it; one block per changed tile reads the window straight from the padded
-storage and keeps the max in registers.
+it; a grid sized to the card walks the device-side count, and every thread
+issues all its 16-byte window loads before the max, straight from the
+padded storage.
 """
 
 from __future__ import annotations
@@ -15,8 +16,12 @@ import torch
 from ..delta_conv import tile_ids
 from ..delta_pool import delta_pool_jnp
 from ..geometry import TileGeometry
-from . import DTYPE_CODE, Kernel
+from . import DTYPE_CODE, Kernel, sm_count, walk_grid
 from .build import check, library
+
+# blocks of 256 threads per SM, as B3's: at C = 128 in bf16 a thread holds
+# 16 16-byte loads (64 registers), so two blocks fit an SM
+BLOCKS_PER_SM = 2
 
 KERNEL = Kernel(name="delta_pool", route="cuda",
                 source="cbinfer_tpu_torch/csrc/delta_pool.cu",
@@ -35,7 +40,7 @@ def _fn():
     f = library("delta_pool").cb_delta_pool
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 4 + [i] * 11 + [ll, ll, vp]
+        f.argtypes = [vp] * 4 + [i] * 12 + [ll, ll, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -60,7 +65,8 @@ def delta_pool(storage: torch.Tensor, idx: torch.Tensor,
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, C)
             or g.dilation != (1, 1)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
-            or count.numel() != 1 or idx.numel() > g.n_tiles):
+            or count.numel() != 1 or idx.numel() > g.n_tiles
+            or storage.data_ptr() % 4 or out_cache.data_ptr() % 4):
         raise ValueError(
             f"delta_pool: unsupported operands storage{tuple(storage.shape)} "
             f"{dtype} out{tuple(out_cache.shape)} {out_cache.dtype} "
@@ -71,9 +77,11 @@ def delta_pool(storage: torch.Tensor, idx: torch.Tensor,
     kh, kw = g.kernel
     sh, sw = g.stride
     stream = torch.cuda.current_stream(storage.device).cuda_stream
+    grid = walk_grid(idx.numel(), sm_count(storage.device.index),
+                     BLOCKS_PER_SM)
     err = _fn()(storage.data_ptr(), idx.data_ptr(), count.data_ptr(),
-                out_cache.data_ptr(), idx.numel(), DTYPE_CODE[dtype], C,
-                g.tiles_w, g.th, g.tw, kh, kw, sh, sw, g.dx0,
+                out_cache.data_ptr(), idx.numel(), grid, DTYPE_CODE[dtype],
+                C, g.tiles_w, g.th, g.tw, kh, kw, sh, sw, g.dx0,
                 storage.shape[1] * C, g.out_w_pad * C, stream)
     check(err, "delta_pool")
     KERNEL.launches += 1

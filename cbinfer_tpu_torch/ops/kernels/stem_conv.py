@@ -2,11 +2,11 @@
 
 Replaces ``cbinfer_tpu/ops/pallas/patch_stem.py::patch_stem_conv``. The
 CUDA source (``csrc/stem_conv.cu``) carries the design note: bytes bound it
-at a static-camera clip's stem density; one block per tile stages the
-10 x 34 x cin window in shared memory, a thread keeps the 9*cin weights of
-its two output channels in registers and sums in (dy, dx, c) order in
-float32. When ``count > capacity`` every tile is computed (the reference's
-dense overflow branch, without a host branch).
+at a static-camera clip's stem density; a grid sized to the card walks
+(tile, tile row, 16-pixel half, channel chunk) items, one warp each, a lane
+keeping its channels' weights in registers and summing in (dy, dx, c)
+order in float32. When ``count > capacity`` the walk covers every tile
+(the reference's dense overflow branch, without a host branch).
 """
 
 from __future__ import annotations
@@ -19,8 +19,31 @@ import torch
 from .. import flat4
 from ..delta_conv import gather_windows, scatter_tiles
 from ..geometry import TileGeometry
-from . import DTYPE_CODE, Kernel
+from . import DTYPE_CODE, Kernel, sm_count, walk_grid
 from .build import check, library
+
+# blocks of 256 threads (8 warps) per SM: a lane holds its 108 weights and
+# 32 accumulators in registers, so one block fills an SM's registers
+BLOCKS_PER_SM = 1
+
+
+def lane_split(cout: int) -> tuple:
+    """(cc, lanes, cs) of B5 at ``cout``: a lane takes cc = 4 channels (1
+    where cout is no multiple of 4); a block of 8 pixels takes ``lanes``
+    lanes, a power of two up to 32 (lanes past cout idle), so that the
+    blocks of a 16-pixel item split the warp evenly; a chunk is the
+    channels of those lanes, and cout takes 1 << cs chunks, a power of two
+    (a chunk past cout idles). The kernel takes these as they are."""
+    cc = 4 if cout % 4 == 0 else 1
+    lanes = min(32, 1 << (cout // cc - 1).bit_length())
+    return cc, lanes, (-(-cout // (lanes * cc)) - 1).bit_length()
+
+
+def walk_blocks(g: TileGeometry, cout: int) -> int:
+    """Blocks of 8 work items (a warp each) that the walk over every tile
+    covers, the overflow's: a tile has 8 rows x 2 halves x chunks items."""
+    return g.n_tiles * 2 * (1 << lane_split(cout)[2])
+
 
 KERNEL = Kernel(name="stem_conv", route="cuda",
                 source="cbinfer_tpu_torch/csrc/stem_conv.cu",
@@ -73,7 +96,7 @@ def _fn():
     f = library("stem_conv").cb_stem_conv
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 6 + [i] * 8 + [ll, ll, vp]
+        f.argtypes = [vp] * 6 + [i] * 12 + [ll, ll, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -110,8 +133,9 @@ def stem_conv(storage: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
             or tuple(storage.shape) != g.store_shape or cin != g.cin
             or tuple(w.shape[:2]) != (3, 3)
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, cout)
-            # a thread owns two channels; 256 threads split evenly over them
-            or cout < 2 or cout % 2 or 256 % (cout // 2)
+            # at most 4 chunks of 32 lanes' channels
+            or lane_split(cout)[2] > 2
+            or out_cache.data_ptr() % 16 or w.data_ptr() % 16
             or (b is not None and (b.dtype != torch.float32
                                    or b.shape != (cout,)))
             or idx.dtype != torch.int32 or count.dtype != torch.int32
@@ -126,11 +150,14 @@ def stem_conv(storage: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError("stem_conv: operands must be contiguous")
     stream = torch.cuda.current_stream(storage.device).cuda_stream
+    # the overflow walk's items, the most a call can have
+    grid = walk_grid(walk_blocks(g, cout), sm_count(storage.device.index),
+                     BLOCKS_PER_SM)
     err = _fn()(storage.data_ptr(), idx.data_ptr(), count.data_ptr(),
                 w.data_ptr(), b.data_ptr() if b is not None else None,
-                out_cache.data_ptr(), g.n_tiles, DTYPE_CODE[dtype], cin,
-                cout, g.tiles_w, capacity, g.dx0,
-                int(activation == "relu"), storage.shape[1] * cin,
+                out_cache.data_ptr(), grid, DTYPE_CODE[dtype], cin,
+                cout, *lane_split(cout), g.tiles_w, g.n_tiles, capacity,
+                g.dx0, int(activation == "relu"), storage.shape[1] * cin,
                 g.out_w_pad * cout, stream)
     check(err, "stem_conv")
     KERNEL.launches += 1

@@ -298,10 +298,14 @@ _WORKLOAD_PROFILES = {
 
 
 def workload_video_kwargs(name: str) -> dict:
-    """SpriteVideoConfig kwargs of a workload's evaluation distribution.
-    Merge them into SpriteVideoConfig(...) before per-call fields like
-    height and seed; unknown names raise."""
+    """SpriteVideoConfig kwargs of a workload's evaluation distribution:
+    a registered profile, or "<base>_hard" for a base without its own entry
+    (the base's profile on the hard palette). Merge them into
+    SpriteVideoConfig(...) before per-call fields like height and seed;
+    unknown names raise."""
     if name in _WORKLOAD_PROFILES:
         return dict(_WORKLOAD_PROFILES[name])
+    if name.endswith("_hard") and name[:-5] in _WORKLOAD_PROFILES:
+        return {**_WORKLOAD_PROFILES[name[:-5]], "palette": "hard"}
     raise KeyError(f"no video profile for workload {name!r} "
                    f"(have {sorted(_WORKLOAD_PROFILES)})")

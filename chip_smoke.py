@@ -49,15 +49,17 @@ Phases, each printing one JSON line:
               0.05 and 0.02), the FLOP reduction and the stem's density
   pose_unfused  bit-identity of outputs, stats and caches with pose over a
               refresh frame and 31 steady frames; both sides' launches and
-              ms/frame in alternating chunks (F U U F)
+              ms/frame in alternating chunks (F U U F); one more frame
+              whose stem conv and delta pool calls the check phase holds
   pose_fwd    equality with pose run at tau = -1 on the three forwarded
               layers; launches; ms/frame
   check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
-              count = 0, all-dirty lists (for the sparse detect and the
-              fused pool: lists longer than the grid, so blocks walk
-              several entries), tau = -1 for the full-map
-              detects, the capacity overflow of the stem conv, the sparse
+              count = 0, all-dirty lists (for the sparse detect and both
+              pools: lists longer than the grid, so blocks walk several
+              entries), tau = -1 for the full-map detects, the capacity
+              overflow of the stem conv (a walk of every tile, longer than
+              its grid), the sparse
               detect on a pool's geometry, and the fused kernel against the
               delta conv followed by the sparse detect (bit for bit, at
               tau2 = tuned, -1 and 1e9, listed tiles and every tile); the
@@ -66,7 +68,8 @@ Phases, each printing one JSON line:
               small tiles, ragged maps, counts 0, 1 and capacity)
   kernels     every kernel: launches, ms per launch, plain ms, bound ms;
               B1 and B3 carry the launch floor (one fill and an empty
-              one-block kernel, timed as they are) in their context
+              one-block kernel, timed as they are) in their context, B5
+              and B8, which make no fill, the empty kernel alone
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line; without CUDA it exits 2 at once.
 """
@@ -152,7 +155,7 @@ def main():
     torch.cuda.empty_cache()
     pctx = phase("pose_setup", make_pose_context, torch, np)
     calls += phase("pose", pose_path, torch, np, pctx)
-    phase("pose_unfused", pose_unfused_path, torch, pctx)
+    calls += phase("pose_unfused", pose_unfused_path, torch, pctx)
     calls += phase("pose_fwd", pose_fwd_path, torch, pctx)
     del pctx
     torch.cuda.empty_cache()
@@ -868,6 +871,12 @@ def pose_unfused_path(torch, ctx):
          launches=counts["pose_unfused"], launches_pose=counts["pose"],
          per_frame=PER_FRAME["pose_unfused"],
          kernel_launches_per_frame=per_frame)
+    # the next frame's calls of B5 and B8 (the unfused net's stem and pool
+    # are pose's; its 18 detects and 17 convs are not held here again)
+    calls = capture_frame(torch, ctx, "pose_unfused", wu.net, wl.taus,
+                          states["pose_unfused"], None, ctx.out_shape,
+                          frame=ctx.chunks[3][0])
+    return [c for c in calls if c[1] in ("stem_conv", "delta_pool")]
 
 
 def pose_fwd_path(torch, ctx):
@@ -964,10 +973,20 @@ def _time_pair(torch, kernel, plain, buf_k, buf_p, orig):
 
 
 def _grid(module, idx):
-    """Blocks the wrapper of ``module`` (B1, B3) launches for list ``idx``."""
+    """Blocks the wrapper of ``module`` (B1, B3, B8) launches for list
+    ``idx``."""
     from cbinfer_tpu_torch.ops.kernels import sm_count
     return module.walk_grid(idx.numel(), sm_count(idx.device.index),
                             module.BLOCKS_PER_SM)
+
+
+def _stem_walk(g, cout):
+    """(blocks of 8 items B5's overflow walk covers, the blocks its wrapper
+    launches)."""
+    from cbinfer_tpu_torch.ops.kernels import sm_count
+    from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
+    walk = KSC.walk_blocks(g, cout)
+    return walk, KSC.walk_grid(walk, sm_count(0), KSC.BLOCKS_PER_SM)
 
 
 def _ulps(torch, a, b):
@@ -1337,6 +1356,7 @@ def check_kernels(torch, np, calls):
             # (another summation order: sums that cancel differ by more
             # than an ulp of their small result, so this one is absolute)
             err_dense = float((ov_k.float() - dense.float()).abs().max())
+            walk, grid = _stem_walk(g, cout)
             fail_unless(
                 c < g.n_tiles and ulp <= 1 and kept and ok0
                 and ulp_over <= 1 and err_dense <= 2e-2,
@@ -1346,7 +1366,8 @@ def check_kernels(torch, np, calls):
                      overflow_vs_dense_conv_max_abs_err=err_dense,
                      differs_from_dense_conv=float(
                          (ov_k != dense).float().mean()),
-                     count=c, capacity=cap, n_tiles=g.n_tiles))
+                     count=c, capacity=cap, n_tiles=g.n_tiles, grid=grid,
+                     overflow_walk_above_grid=walk > grid))
             out_k, out_p = out0.clone(), out0.clone()
             ms, pms = _time_pair(
                 torch, lambda: KSC.stem_conv(st, idx, count, w, b, out_k, g,
@@ -1561,7 +1582,9 @@ def check_kernels(torch, np, calls):
                 KDP.delta_pool_plain(st, ia, out0.clone(), g, count=ca))
             fail_unless(ok and ok0 and oka, dict(
                 kernel=name, path=path, call=li, exact=ok, count0_noop=ok0,
-                all_tiles_exact=oka, count=c, n_tiles=g.n_tiles))
+                all_tiles_exact=oka, count=c, n_tiles=g.n_tiles,
+                grid=_grid(KDP, idx),
+                all_tiles_above_grid=g.n_tiles > _grid(KDP, ia)))
             out_k, out_p = out0.clone(), out0.clone()
             ms, pms = _time_pair(
                 torch, lambda: KDP.delta_pool(st, idx, out_k, g, count=count),
@@ -1583,7 +1606,9 @@ def check_kernels(torch, np, calls):
                if c["kernel"] == "detect_sparse"):
         raise AssertionError("detect_sparse was not checked on a pool")
     for name, key in (("detect_sparse", "all_dirty_above_grid"),
-                      ("detect_pool_fused", "all_blocks_above_grid")):
+                      ("detect_pool_fused", "all_blocks_above_grid"),
+                      ("delta_pool", "all_tiles_above_grid"),
+                      ("stem_conv", "overflow_walk_above_grid")):
         if not any(c.get(key) for c in checks if c["kernel"] == name):
             raise AssertionError(f"{name}: no list outgrew the grid")
     # what any launch of these costs at least, timed as the kernels are:
@@ -1595,6 +1620,11 @@ def check_kernels(torch, np, calls):
         lambda: None, 20)}
     for name in ("detect_sparse", "detect_pool_fused"):
         context[name] = floor
+    # ... and of B5 and B8, which make no fill: an empty one-block kernel
+    floor = _time_launches(torch, lambda: torch.cuda._sleep(0),
+                           lambda: None, 20)
+    for name in ("stem_conv", "delta_pool"):
+        context[name]["launch_floor_no_fill_ms"] = floor
     fused_ctx = context.get("delta_conv_detect")
     if fused_ctx:
         fused_ctx["unfused_pair_ms"] /= fused_ctx.pop("calls")

@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
 """Same-call A/B of the list-walking kernels (B1 ``cb_detect_sparse``, B3
-``cb_pool_fused``) built from two or more source trees, on one card, in
-turns.
+``cb_pool_fused``, B8 ``cb_delta_pool``, B5 ``cb_stem_conv``) built from
+two or more source trees, on one card, in turns.
 
     mkdir -p build/parent
     git archive d4b4d4c cbinfer_tpu_torch | tar -x -C build/parent
     python3 scripts/torch_detect_ab.py \\
         --csrc build/parent/cbinfer_tpu_torch/csrc --csrc cbinfer_tpu_torch/csrc
 
-Each ``--csrc`` directory holds ``detect_sparse.cu`` and ``pool_fused.cu``
-(and the headers they include). Two C interfaces are known, and each tree
-gets its own: one block per list entry up to the capacity (a grid of
-``n_blocks``), or a grid sized to the card that walks the list (``cap``
-and ``grid``: ``walk_grid`` with the ``BLOCKS_PER_SM`` of the tree's own
-``../ops/kernels/*.py`` where it has them, else this checkout's). Every
+Each ``--csrc`` directory holds ``detect_sparse.cu``, ``pool_fused.cu``,
+``delta_pool.cu`` and ``stem_conv.cu`` (and the headers they include).
+Two C interfaces of each are known, and each tree gets its own: one block
+per list entry up to the capacity, or per tile for B5 (a grid of
+``n_blocks``), or a grid sized to the card that walks the list
+(``walk_grid`` with the ``BLOCKS_PER_SM`` of the tree's own
+``../ops/kernels/*.py`` where it has them, else this checkout's); a B5
+that takes its channel split (``int cc, int lanes, int cs``) gets this
+checkout's ``lane_split``. Every
 tree's kernels are built with nvcc (sm_90a) and run on the same seeded
 bf16 inputs at the steady-frame shapes and list lengths that
-``chip_smoke.py`` records on the scene flagship and on pose, plus one
-all-tiles case each: per-launch device ms by CUDA events, L2 flushed, the
-cache restored and the mask and npix zeroed before each launch, the trees
-taking turns (A B .. B A) for ``--rounds`` rounds; ``ms_per_launch`` is
-the kernel alone, ``ms_per_call`` the kernel after the zero-fills its tree's
-wrapper makes (one for a list walker, one per output before), as
-``chip_smoke.py`` times a call. Each case reports whether every
-tree's outputs (cache, mask, npix) equal the first tree's bit for bit and
-whether the first tree's equal this checkout's plain version. Prints the
-card's name and power limit, then one JSON line per case. Needs a CUDA GPU
-and nvcc.
+``chip_smoke.py`` records on the scene flagship, on ``hintless`` and on
+pose, plus one all-tiles case each (for B5 the capacity overflow, which
+walks every tile): per-launch device ms by CUDA events, L2 flushed, the
+outputs restored and the mask and npix zeroed before each launch, the
+trees taking turns (A B .. B A) for ``--rounds`` rounds;
+``ms_per_launch`` is the kernel alone, ``ms_per_call`` the kernel after
+the zero-fills its tree's wrapper makes (one for a list walker of B1 and
+B3, one per output before; B5 and B8 make none), as ``chip_smoke.py``
+times a call. Each case reports whether every tree's outputs (cache or out
+cache, mask, npix) equal the first tree's bit for bit, and for B5 the
+largest distance in bf16 ulps from the first tree's and from this
+checkout's plain version, and whether the first tree's equal the plain
+version. Prints the card's name and power limit, then one JSON line per
+case. Needs a CUDA GPU and nvcc.
 """
 
 import argparse
@@ -44,12 +50,17 @@ import torch  # noqa: E402
 
 from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import sm_count, walk_grid  # noqa: E402
+from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import pool_fused as KP  # noqa: E402
+from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels.build import ARCH, nvcc_path  # noqa: E402
 
 TAU = 0.15  # the scene net's tuned taus
-# (kernel, case, map, channels, the layer's geometry, listed entries)
+NEG_FILL = -3.0e38  # a pool storage's margin (layers.NEG_FILL)
+STEM_CAPACITY = 0.375  # of the stem tiles, as the paths configure it
+# (kernel, case, map, channels (B5: cout), the layer's geometry, listed
+# entries; for B5 past the capacity an overflow, which walks every tile)
 CASES = [
     ("B1", "flagship 360x640 C128 (spec 2)", (360, 640), 128, "conv", 62),
     ("B1", "flagship 180x320 C256 (spec 4)", (180, 320), 256, "conv", 31),
@@ -65,7 +76,17 @@ CASES = [
     ("B3", "pose 720x1280 C64", (720, 1280), 64, "pool", 878),
     ("B3", "pose 360x640 C128", (360, 640), 128, "pool", 429),
     ("B3", "all blocks 720x1280 C128", (720, 1280), 128, "pool", 7200),
+    ("B8", "hintless 720x1280 C128 (spec 1)", (720, 1280), 128, "pool", 62),
+    ("B8", "hintless 360x640 C256 (spec 3)", (360, 640), 256, "pool", 31),
+    ("B8", "pose 180x320 C256", (180, 320), 256, "pool", 14),
+    ("B8", "all tiles 720x1280 C128", (720, 1280), 128, "pool", 3600),
+    ("B5", "flagship 720x1280 cout 128", (720, 1280), 128, "stem", 69),
+    ("B5", "pose 720x1280 cout 64", (720, 1280), 64, "stem", 599),
+    ("B5", "overflow 720x1280 cout 128", (720, 1280), 128, "stem", 1351),
+    ("B5", "overflow 720x1280 cout 64", (720, 1280), 64, "stem", 1351),
 ]
+WRAPPERS = {"B1": ("detect_sparse", KD), "B3": ("pool_fused", KP),
+            "B8": ("delta_pool", KDP), "B5": ("stem_conv", KSC)}
 
 
 def _blocks_per_sm(csrc, wrapper, default):
@@ -79,76 +100,134 @@ def _blocks_per_sm(csrc, wrapper, default):
 
 
 class Tree:
-    """One source tree's B1 and B3 behind one calling convention."""
+    """One source tree's B1, B3, B8 and B5 behind one calling convention
+    each."""
+
+    # a phrase of each walking kernel's C interface
+    WALKS = {"B1": r"int cap,\s+int grid", "B3": r"int cap,\s+int grid",
+             "B8": r"int cap,\s+int grid",
+             "B5": r"int n_tiles,\s+int capacity"}
 
     def __init__(self, csrc, out_dir, tag):
-        with open(os.path.join(csrc, "detect_sparse.cu")) as f:
-            self.walks = "int cap, int grid" in f.read()
-        self.per_sm = {
-            "B1": _blocks_per_sm(csrc, "detect_sparse.py", KD.BLOCKS_PER_SM),
-            "B3": _blocks_per_sm(csrc, "pool_fused.py", KP.BLOCKS_PER_SM)}
-        procs, libs = [], {}
-        for name in ("detect_sparse", "pool_fused"):
+        self.walks, self.per_sm, procs, libs = {}, {}, [], {}
+        for kind, (name, mod) in WRAPPERS.items():
+            with open(os.path.join(csrc, f"{name}.cu")) as f:
+                src = f.read()
+            self.walks[kind] = bool(re.search(self.WALKS[kind], src))
+            if kind == "B5":  # takes its channel split from the caller
+                self.split = bool(re.search(r"int cc,\s+int lanes", src))
+            self.per_sm[kind] = _blocks_per_sm(csrc, f"{name}.py",
+                                               mod.BLOCKS_PER_SM)
             so = os.path.join(out_dir, f"lib{name}_{tag}.so")
             procs.append(subprocess.Popen(
                 [nvcc_path(), ARCH, "-std=c++17", "-O3", "-shared",
                  "-Xcompiler", "-fPIC", "-o", so,
                  os.path.join(csrc, f"{name}.cu")]))
-            libs[name] = so
+            libs[kind] = so
         for p in procs:
             if p.wait():
                 raise RuntimeError(f"nvcc failed on {csrc}")
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        grid = [i, i] if self.walks else [i]
-        self.b1 = ctypes.CDLL(libs["detect_sparse"]).cb_detect_sparse
-        self.b1.argtypes = ([vp] * 6 + grid + [ctypes.c_float] + [i] * 4
-                            + [ll, ll] + [i] * 10 + [vp])
-        self.b1.restype = i
-        self.b3 = ctypes.CDLL(libs["pool_fused"]).cb_pool_fused
-        self.b3.argtypes = [vp] * 5 + grid + [i] * 7 + [ll, ll, vp]
-        self.b3.restype = i
 
-    def grid(self, kind, cap):
-        if not self.walks:
+        def grid(kind):
+            return [i, i] if self.walks[kind] else [i]
+        self.fn = {
+            "B1": ("cb_detect_sparse", [vp] * 6 + grid("B1")
+                   + [ctypes.c_float] + [i] * 4 + [ll, ll] + [i] * 10
+                   + [vp]),
+            "B3": ("cb_pool_fused", [vp] * 5 + grid("B3") + [i] * 7
+                   + [ll, ll, vp]),
+            "B8": ("cb_delta_pool", [vp] * 4 + grid("B8") + [i] * 10
+                   + [ll, ll, vp]),
+            "B5": ("cb_stem_conv", [vp] * 6 + [i] * 7 + grid("B5")
+                   + [i] * (3 * self.split) + [ll, ll, vp]),
+        }
+        for kind, (name, argtypes) in self.fn.items():
+            f = getattr(ctypes.CDLL(libs[kind]), name)
+            f.argtypes, f.restype = argtypes, i
+            self.fn[kind] = f
+
+    def grid(self, kind, cap, walk=None):
+        """The grid arguments of a launch over a list of ``cap`` entries
+        (B5: ``walk`` blocks of 8 items cover every tile)."""
+        sms = sm_count(torch.cuda.current_device())
+        if kind == "B5":
+            return [walk_grid(walk, sms, self.per_sm[kind])
+                    if self.walks[kind] else cap]
+        if not self.walks[kind]:
             return [cap]
-        return [cap, walk_grid(cap, sm_count(torch.cuda.current_device()),
-                               self.per_sm[kind])]
+        return [cap, walk_grid(cap, sms, self.per_sm[kind])]
 
 
 def make_case(kind, hw, C, geom, n, gen):
-    """Seeded inputs of one case: x, the cache it updates (B1) or the out
-    cache (B3), the list, its count, the geometry."""
+    """Seeded inputs of one case: a dict of x, the buffer the kernel updates
+    in place (``st``), the list, its count, the geometry, the list's
+    capacity, and for B5 the weights and bias."""
     h, w = hw
     bf = torch.bfloat16
-    if geom == "conv":
-        g = conv_tile_geometry((h, w, C), (3, 3), (1, 1), (1, 1), "SAME",
-                               8, 8)
-    else:
-        g = conv_tile_geometry((h, w, C), (2, 2), (2, 2), (1, 1), "VALID",
-                               8, 8)
-    if kind == "B1":
-        cap = -(-h // 8) * (w // 8)
-        prev = torch.randn(h, w, C, device="cuda", generator=gen)
-        # a quarter of the pixels move by 0.05..0.5 on every channel
-        move = (torch.rand(h, w, 1, device="cuda", generator=gen) < 0.25) \
-            * torch.empty(h, w, C, device="cuda").uniform_(
-                0.05, 0.5, generator=gen)
-        x = (prev + move).to(bf)
-        st = torch.zeros(g.store_shape, dtype=bf, device="cuda")
-        st[g.store_lo_h:g.store_lo_h + h,
-           g.store_lo_w:g.store_lo_w + w] = prev.to(bf)
-    else:
-        cap = (h // 8) * (w // 16)
-        x = torch.randn(h, w, C, device="cuda", generator=gen).to(bf)
-        st = torch.randn(g.out_h_pad, g.out_w_pad, C, device="cuda",
+    dev = "cuda"
+    case = {}
+    if geom == "stem":
+        g = conv_tile_geometry((h, w, 3), (3, 3), (1, 1), (1, 1), "SAME",
+                               8, 32)
+        cap = int(STEM_CAPACITY * g.n_tiles)
+        x = torch.zeros(g.store_shape, dtype=bf, device=dev)
+        x[g.store_lo_h:g.store_lo_h + h, g.store_lo_w:g.store_lo_w + w] = \
+            torch.rand(h, w, 3, device=dev, generator=gen).to(bf)
+        case["w"] = (torch.randn(3, 3, 3, C, device=dev, generator=gen)
+                     * 0.2).to(bf)
+        case["b"] = torch.randn(C, device=dev, generator=gen)
+        st = torch.randn(g.out_h_pad, g.out_w_pad, C, device=dev,
                          generator=gen).to(bf)
+        listed = min(n, cap)
+    else:
+        if geom == "conv":
+            g = conv_tile_geometry((h, w, C), (3, 3), (1, 1), (1, 1), "SAME",
+                                   8, 8)
+        else:
+            g = conv_tile_geometry((h, w, C), (2, 2), (2, 2), (1, 1),
+                                   "VALID", 8, 8)
+        listed = n
+        if kind == "B1":
+            cap = -(-h // 8) * (w // 8)
+            prev = torch.randn(h, w, C, device=dev, generator=gen)
+            # a quarter of the pixels move by 0.05..0.5 on every channel
+            move = (torch.rand(h, w, 1, device=dev, generator=gen) < 0.25) \
+                * torch.empty(h, w, C, device=dev).uniform_(
+                    0.05, 0.5, generator=gen)
+            x = (prev + move).to(bf)
+            st = torch.zeros(g.store_shape, dtype=bf, device=dev)
+            st[g.store_lo_h:g.store_lo_h + h,
+               g.store_lo_w:g.store_lo_w + w] = prev.to(bf)
+        elif kind == "B3":
+            cap = (h // 8) * (w // 16)
+            x = torch.randn(h, w, C, device=dev, generator=gen).to(bf)
+            st = torch.randn(g.out_h_pad, g.out_w_pad, C, device=dev,
+                             generator=gen).to(bf)
+        else:  # B8: the pool's padded storage, "-inf" margins
+            cap = g.n_tiles
+            x = torch.full(g.store_shape, NEG_FILL, dtype=bf, device=dev)
+            x[g.store_lo_h:g.store_lo_h + h,
+              g.store_lo_w:g.store_lo_w + w] = torch.randn(
+                  h, w, C, device=dev, generator=gen).to(bf)
+            st = torch.randn(g.out_h_pad, g.out_w_pad, C, device=dev,
+                             generator=gen).to(bf)
     # compaction lists ids in row-major order
-    idx = torch.randperm(cap, device="cuda", generator=gen)[:n].sort() \
+    idx = torch.randperm(cap, device=dev, generator=gen)[:listed].sort() \
         .values.to(torch.int32)
-    idx = torch.cat([idx, torch.full((cap - n,), cap, dtype=torch.int32,
-                                     device="cuda")])
-    count = torch.tensor(n, dtype=torch.int32, device="cuda")
-    return x, st, idx, count, g, cap
+    idx = torch.cat([idx, torch.full((cap - listed,), cap, dtype=torch.int32,
+                                     device=dev)])
+    count = torch.tensor(n, dtype=torch.int32, device=dev)
+    case.update(x=x, st=st, idx=idx, count=count, g=g, cap=cap)
+    return case
+
+
+def _ulps(a, b):
+    """Largest distance of two bf16 tensors in bf16 ulps."""
+    def ordered(t):
+        v = t.view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+    return int((ordered(a) - ordered(b)).abs().max())
 
 
 def main():
@@ -156,6 +235,8 @@ def main():
     ap.add_argument("--csrc", action="append", required=True)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default="B1,B3,B8,B5",
+                    help="comma-separated kernels whose cases run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -168,20 +249,27 @@ def main():
     trees = [Tree(c, tmp, str(k)) for k, c in enumerate(args.csrc)]
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    kinds = args.kernels.split(",")
     for kind, name, hw, C, geom, n in CASES:
+        if kind not in kinds:
+            continue
         gen = torch.Generator(device="cuda").manual_seed(0)
-        x, st0, idx, count, g, cap = make_case(kind, hw, C, geom, n, gen)
+        case = make_case(kind, hw, C, geom, n, gen)
+        x, st0, idx, count, g, cap = (case[k] for k in (
+            "x", "st", "idx", "count", "g", "cap"))
         st = st0.clone()
         n_mask = g.tiles_h * g.tiles_w
         out = torch.zeros((n_mask + 1,), dtype=torch.int32, device="cuda")
         mask = out[:n_mask].view(torch.float32).view(g.tiles_h, g.tiles_w)
         npix = out[n_mask:]
+        walk = KSC.walk_blocks(g, C)  # B5's blocks of 8 items
 
         def launch(j):
             tree = trees[j]
+            fn = tree.fn[kind]
             if kind == "B1":
                 sh, sw = g.stride
-                err = tree.b1(
+                err = fn(
                     x.data_ptr(), st.data_ptr(), idx.data_ptr(),
                     count.data_ptr(), mask.data_ptr(), npix.data_ptr(),
                     *tree.grid(kind, cap), TAU, 1, g.in_h, C, g.in_w // 8,
@@ -189,19 +277,38 @@ def main():
                     g.store_lo_w, g.tiles_h, g.tiles_w, g.th * sh,
                     g.tw * sw, g.pad_lo_h, g.pad_lo_w, g.win_h, g.win_w,
                     stream)
-            else:
-                err = tree.b3(
+            elif kind == "B3":
+                err = fn(
                     x.data_ptr(), st.data_ptr(), idx.data_ptr(),
                     count.data_ptr(), mask.data_ptr(),
                     *tree.grid(kind, cap), 1, C, g.in_w // 16, 8, 16, 2,
                     g.tiles_w, x.shape[1] * C, g.out_w_pad * C, stream)
+            elif kind == "B8":
+                (kh, kw), (sh, sw) = g.kernel, g.stride
+                err = fn(
+                    x.data_ptr(), idx.data_ptr(), count.data_ptr(),
+                    st.data_ptr(), *tree.grid(kind, cap), 1, C, g.tiles_w,
+                    g.th, g.tw, kh, kw, sh, sw, g.dx0, x.shape[1] * C,
+                    g.out_w_pad * C, stream)
+            else:  # B5
+                n_tiles = [g.n_tiles] if tree.walks[kind] else []
+                split = list(KSC.lane_split(C)) if tree.split else []
+                err = fn(
+                    x.data_ptr(), idx.data_ptr(), count.data_ptr(),
+                    case["w"].data_ptr(), case["b"].data_ptr(),
+                    st.data_ptr(), *tree.grid(kind, g.n_tiles, walk), 1, 3,
+                    C, *split, g.tiles_w, *n_tiles, cap, g.dx0, 1,
+                    x.shape[1] * 3, g.out_w_pad * C, stream)
             if err:
                 raise RuntimeError(f"CUDA error {err} at launch")
 
         def fill(j):
             """The zero-fills of tree j's wrapper: one for a list walker
-            (mask and npix share a buffer), else one per output."""
-            if trees[j].walks:
+            of B1 and B3 (mask and npix share a buffer), else one per
+            output; none for B5 and B8."""
+            if kind in ("B5", "B8"):
+                return
+            if trees[j].walks[kind]:
                 out.zero_()
             else:
                 mask.zero_()
@@ -220,18 +327,28 @@ def main():
             outs.append((st.clone(), mask.clone(), npix.clone()))
         same = [all(torch.equal(a, b) for a, b in zip(o, outs[0]))
                 for o in outs]
+        ulps = changed = None
         if kind == "B1":
             sp, mp, pp = KD.detect_sparse_plain(x, st0.clone(), TAU, idx,
                                                 count, g)
             plain = (torch.equal(outs[0][0], sp) and torch.equal(
                 outs[0][1], mp) and torch.equal(outs[0][2], pp))
             changed = int(pp)
-        else:
+        elif kind == "B3":
             sp, mp = KP.detect_pool_fused_plain(x, st0.clone(), idx, count,
                                                 g)
             plain = (torch.equal(outs[0][0], sp)
                      and torch.equal(outs[0][1], mp))
-            changed = None
+        elif kind == "B8":
+            sp = KDP.delta_pool_plain(x, idx, st0.clone(), g, count=count)
+            plain = torch.equal(outs[0][0], sp)
+        else:
+            sp = KSC.stem_conv_plain(x, idx, count, case["w"], case["b"],
+                                     st0.clone(), g, "relu", torch.bfloat16,
+                                     capacity=cap)
+            plain = torch.equal(outs[0][0], sp)
+            ulps = {"to_first": [_ulps(o[0], outs[0][0]) for o in outs],
+                    "to_plain": [_ulps(o[0], sp) for o in outs]}
 
         def time_one(j, with_fill):
             total = 0.0
@@ -260,9 +377,10 @@ def main():
         print(json.dumps({
             "kernel": kind, "case": name, "channels": C, "listed": n,
             "of": cap, "changed_pixels": changed,
-            "grids": [t.grid(kind, cap)[-1] for t in trees],
+            "grids": [t.grid(kind, cap, walk)[-1] for t in trees],
             "bit_identical_to_first": same, "first_equals_plain": plain,
-            "ms_per_launch": series, "ms_per_call": calls}), flush=True)
+            "max_ulps": ulps, "ms_per_launch": series,
+            "ms_per_call": calls}), flush=True)
     return 0
 
 

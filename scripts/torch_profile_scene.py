@@ -17,7 +17,8 @@ producer's hint). It warms up, then profiles one chunk of CB frames (no refresh 
 the same frames through the dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
 the host thread's CPU ms per frame while enqueuing,
 device-busy ms per frame (union of kernel intervals), the device's idle
-share, and the top kernels by device time per frame. Needs a CUDA GPU.
+share, the top kernels by device time per frame, and the device time and
+launches per frame of each of the port's own kernels. Needs a CUDA GPU.
 """
 
 import argparse
@@ -35,6 +36,7 @@ from cbinfer_tpu_torch import zoo  # noqa: E402
 from cbinfer_tpu_torch.convert import (convert, convert_flagship,  # noqa: E402
                                        num_cb_layers)
 from cbinfer_tpu_torch.metrics import heat_argmax  # noqa: E402
+from cbinfer_tpu_torch.ops.kernels import KERNELS  # noqa: E402
 from cbinfer_tpu_torch.runner import scan_video  # noqa: E402
 from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,  # noqa
                                      workload_video_kwargs)
@@ -42,9 +44,22 @@ from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,  # noqa
 H, W = 720, 1280
 
 
+def port_kernel(fn_name):
+    """The registry's kernel (``KERNELS``) that a CUDA kernel function
+    belongs to: its source is ``<stem>.cu`` and its functions are named
+    ``<stem>[_variant]_kernel``; the longest such stem, or None."""
+    if not fn_name.endswith("_kernel"):
+        return None
+    stems = {os.path.splitext(os.path.basename(k.source))[0]: k.name
+             for k in KERNELS}
+    hits = [st for st in stems if fn_name.startswith(st)]
+    return stems[max(hits, key=len)] if hits else None
+
+
 def kernel_table(prof, n_frames, top):
     """Device-busy ms per frame (union of kernel intervals), device
-    activities (kernels, copies, fills) per frame, and the top kernels."""
+    activities (kernels, copies, fills) per frame, the top kernels, and
+    the port's own kernels."""
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
@@ -63,10 +78,21 @@ def kernel_table(prof, n_frames, top):
         d = by_name.setdefault(e.name, [0.0, 0])
         d[0] += e.time_range.end - e.time_range.start
         d[1] += 1
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the port's own kernels, by registry name, however far down they rank
+    own = {}
+    for k, (t, c) in rows:
+        words = k.split("<")[0].rsplit("::", 1)[-1].split("(")[0].split()
+        name = port_kernel(words[-1]) if words else None
+        if name:
+            d = own.setdefault(name, [0.0, 0])
+            d[0] += t / 1e3 / n_frames
+            d[1] += c / n_frames
     return busy / 1e3 / n_frames, len(kern) / n_frames, [
         {"kernel": k[:90], "ms_per_frame": v[0] / 1e3 / n_frames,
-         "calls_per_frame": v[1] / n_frames} for k, v in rows]
+         "calls_per_frame": v[1] / n_frames} for k, v in rows[:top]], {
+        k: {"ms_per_frame": t, "calls_per_frame": c}
+        for k, (t, c) in own.items()}
 
 
 def main():
@@ -148,7 +174,7 @@ def main():
             e1.record()
             torch.cuda.synchronize()
         wall = e0.elapsed_time(e1) / args.frames
-        busy, n_kern, top = kernel_table(prof, args.frames, args.top)
+        busy, n_kern, top, own = kernel_table(prof, args.frames, args.top)
         print(json.dumps({"path": name, "net": args.path, "card": smi,
                           "frames": args.frames,
                           "wall_ms_per_frame": plain_wall,
@@ -157,7 +183,7 @@ def main():
                           "device_busy_ms_per_frame": busy,
                           "device_activities_per_frame": n_kern,
                           "idle_share_profiled": 1.0 - busy / wall,
-                          "top": top}),
+                          "top": top, "port_kernels": own}),
               flush=True)
     return 0
 

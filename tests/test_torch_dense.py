@@ -13,13 +13,14 @@ from cbinfer_tpu import checkpoint as jckpt
 from cbinfer_tpu import network as jnet
 from cbinfer_tpu.config import ConvSpec as JConvSpec
 from cbinfer_tpu.config import PoolSpec as JPoolSpec
+from cbinfer_tpu.config import UpsampleSpec as JUpsampleSpec
 from cbinfer_tpu.models import get_model as j_get_model
 from cbinfer_tpu.video import SpriteVideo as JSpriteVideo
 from cbinfer_tpu.video import SpriteVideoConfig as JSpriteVideoConfig
 
 from cbinfer_tpu_torch import network as tnet
 from cbinfer_tpu_torch.checkpoint import load_npz_params, params_from_numpy
-from cbinfer_tpu_torch.config import ConvSpec, PoolSpec
+from cbinfer_tpu_torch.config import ConvSpec, PoolSpec, UpsampleSpec
 from cbinfer_tpu_torch.models import get_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -114,3 +115,55 @@ def test_dense_pool_and_flops_match_reference():
     for shape in [(64, 128, 3), (720, 1280, 3)]:
         assert tnet.dense_flops(get_model("scene", width=128), shape) == \
             jnet.dense_flops(j_get_model("scene", width=128), shape)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("window,stride", [(2, 1), (2, 2), (3, 1), (3, 2)])
+@pytest.mark.parametrize("H,W", [(9, 13), (10, 14)])
+def test_same_max_pool_equals_reference(H, W, window, stride, dtype):
+    """SAME max pooling on odd and even maps: XLA pads the odd pixel of an
+    even total at the end, -inf everywhere. The max of the inputs is one
+    of them, so the values are equal exactly, bf16 too."""
+    rng = np.random.default_rng(H * 100 + window * 10 + stride)
+    x = rng.standard_normal((H, W, 5)).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if dtype == "bfloat16"
+                                else torch.float32)
+    kw = dict(window=(window, window), stride=(stride, stride),
+              padding="SAME")
+    want = jnet.dense_pool(jx, JPoolSpec(**kw))
+    got = tnet.dense_pool(tx, PoolSpec(**kw))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("scale", [(2, 2), (4, 4)])
+@pytest.mark.parametrize("H,W", [(5, 7), (8, 6)])
+def test_bilinear_upsample_matches_reference(H, W, scale):
+    """Bilinear upsampling against ``jax.image.resize``. The weights are the
+    same dyadic fractions in both (1/4, 3/4 at scale 2; 1/8 .. 7/8 at 4),
+    but the reference sums rows, then columns, each as a matrix product,
+    and PyTorch takes the four taps in one pass: the f32 roundings differ
+    by a few ulps (2^-24 each) of the inputs in reach, hence 1e-6 relative
+    to the input's scale. (Relative to each output it cannot hold: where
+    the taps cancel, a few ulps of the inputs are many of the result.) The
+    border rows and columns copy the edge pixel in both."""
+    rng = np.random.default_rng(H * W + scale[0])
+    x = rng.standard_normal((H, W, 3)).astype(np.float32)
+    want = np.asarray(jnet.upsample(jnp.asarray(x),
+                                    JUpsampleSpec(scale=scale,
+                                                  method="bilinear")))
+    got = tnet.upsample(torch.from_numpy(x),
+                        UpsampleSpec(scale=scale, method="bilinear")).numpy()
+    assert got.shape == (H * scale[0], W * scale[1], 3)
+    tol = dict(rtol=1e-6, atol=1e-6 * float(np.abs(x).max()))
+    np.testing.assert_allclose(got, want, **tol)
+    sh, sw = scale[0] // 2, scale[1] // 2
+    np.testing.assert_allclose(got[:sh, :sw], np.broadcast_to(
+        x[:1, :1], (sh, sw, 3)), **tol)
+    np.testing.assert_allclose(got[-sh:, -sw:], np.broadcast_to(
+        x[-1:, -1:], (sh, sw, 3)), **tol)
+    nearest = tnet.upsample(torch.from_numpy(x), UpsampleSpec(scale=scale))
+    np.testing.assert_array_equal(nearest.numpy(), np.asarray(jnet.upsample(
+        jnp.asarray(x), JUpsampleSpec(scale=scale))))

@@ -330,3 +330,21 @@ def test_fuse_next_gate_matches_reference(shape, k1, k2, s2, tile):
         if mk is JConv:
             want = rows
     assert rows == want and rows[1:6] == [False] * 5
+
+
+@pytest.mark.parametrize("H,W", [(4, 16), (16, 12)])
+def test_hinted_cuda_layers_refuse_maps_off_the_kernel_gate(H, W):
+    """A deliberate divergence: where the reference falls back to XLA ops
+    (a full-map ``where``), a hinted ``"cuda"`` layer and a forward-hint
+    conv need at least 8 rows and 8-aligned columns (the sparse detect and
+    tile copy kernels) and raise on any device."""
+    cfg = PipelineConfig(device="cpu")
+    g = conv_tile_geometry((H, W, 8), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
+    st = torch.zeros(g.store_shape)
+    x = torch.ones(H, W, 8)
+    hint = tlayers.DirtyHint(mask=torch.ones((-(-H // 8), -(-W // 8)),
+                                             dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="sparse detect"):
+        tlayers._detect_and_mask(x, st, 0.1, g, cfg, hint)
+    with pytest.raises(NotImplementedError, match="tile copy"):
+        tlayers._accept_hinted(x, st, hint, g)

@@ -523,3 +523,149 @@ def test_pool_fused_walks_the_list_on_card(cuda, monkeypatch, dtype, C, H,
         assert torch.equal(yk, yp) and torch.equal(mk, mp)
         assert torch.equal(yk, out0) == (c == 0)
     assert launches()["detect_pool_fused"] == 3
+
+
+POOL_WALK_GEOMS = {"2x2s2": ((2, 2), (2, 2), "VALID"),
+                   "3x3s2same": ((3, 3), (2, 2), "SAME")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [6, 128, 256])  # 4-byte and 16-byte units
+@pytest.mark.parametrize("pool", sorted(POOL_WALK_GEOMS))
+@pytest.mark.parametrize("H,W,grid", [(40, 72, 3), (256, 512, None)])
+def test_delta_pool_walks_the_list_on_card(cuda, monkeypatch, dtype, C, pool,
+                                           H, W, grid):
+    """B8 bit for bit against its plain version at counts 0, 1 and every
+    out tile, on the 2x2 stride-2 window of the paths (a template constant)
+    and on a 3x3 stride-2 SAME pool (the runtime window), at widths that
+    take 4-byte units (C = 6) and 16-byte units in one batch and in two,
+    with a grid forced below the list (3 blocks) and the card's own grid
+    below a 512-tile list. Tiles not listed are never written."""
+    from cbinfer_tpu_torch.layers import NEG_FILL
+    from cbinfer_tpu_torch.ops.delta_conv import make_storage
+    from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
+    from cbinfer_tpu_torch.ops.kernels import sm_count
+    rng = np.random.default_rng(C + H)
+    k, s, pad = POOL_WALK_GEOMS[pool]
+    g = conv_tile_geometry((H, W, C), k, s, (1, 1), pad, 8, 8)
+    if grid is None:
+        assert KDP.walk_grid(g.n_tiles, sm_count(cuda.index or 0),
+                             KDP.BLOCKS_PER_SM) < g.n_tiles
+    _force_grid(monkeypatch, KDP, grid)
+    st = make_storage(g, 0.0, NEG_FILL, dtype, cuda)
+    st[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W] = \
+        torch.from_numpy(rng.standard_normal((H, W, C)).astype(
+            np.float32)).to(cuda, dtype)
+    out0 = torch.randn(g.out_h_pad, g.out_w_pad, C, device=cuda).to(dtype)
+    order = torch.from_numpy(rng.permutation(g.n_tiles).astype(np.int32)).to(
+        cuda)
+    reset_launches()
+    for c in (0, 1, g.n_tiles):
+        count = torch.tensor(c, dtype=torch.int32, device=cuda)
+        yk = KDP.delta_pool(st, order, out0.clone(), g, count=count)
+        yp = KDP.delta_pool_plain(st, order, out0.clone(), g, count=count)
+        assert torch.equal(yk, yp)
+        listed = torch.zeros(g.n_tiles, dtype=torch.bool, device=cuda)
+        listed[order[:c].long()] = True
+        keep = ~listed.view(g.tiles_h, 1, g.tiles_w, 1, 1).expand(
+            g.tiles_h, 8, g.tiles_w, 8, C).reshape(yk.shape)
+        assert torch.equal(yk[keep], out0[keep])
+        assert torch.equal(yk, out0) == (c == 0)
+    assert launches()["delta_pool"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [64, 128])
+@pytest.mark.parametrize("H,W,grid", [(64, 256, 3), (720, 1280, None)])
+def test_stem_conv_walks_the_list_on_card(cuda, monkeypatch, dtype, cout, H,
+                                          W, grid):
+    """B5 against its plain version at counts 0, 1 and the capacity
+    (0.375 of the tiles), and on overflow at the capacity + 1, which
+    computes every tile: float32 within 1e-5, bf16 within 1 ulp; tiles
+    not listed bit-identical; count 0 a no-op. The grid is forced below
+    the walk (3 blocks), or is the card's own, below the 720p walk."""
+    from cbinfer_tpu_torch.ops.delta_conv import make_storage
+    from cbinfer_tpu_torch.ops.kernels import sm_count
+    from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
+    rng = np.random.default_rng(cout + H)
+    g = conv_tile_geometry((H, W, 3), (3, 3), (1, 1), (1, 1), "SAME", 8, 32)
+    cap = int(0.375 * g.n_tiles)
+    walk = KSC.walk_blocks(g, cout)
+    if grid is None:
+        assert KSC.walk_grid(walk, sm_count(cuda.index or 0),
+                             KSC.BLOCKS_PER_SM) < walk
+    _force_grid(monkeypatch, KSC, grid)
+    st = make_storage(g, 0.0, 0.0, dtype, cuda)
+    st[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W] = \
+        torch.from_numpy(rng.uniform(0, 1, (H, W, 3)).astype(
+            np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.standard_normal((3, 3, 3, cout)) * 0.2).astype(
+        np.float32)).to(cuda, dtype)
+    b = torch.randn(cout, device=cuda)
+    out0 = torch.randn(H, W, cout, device=cuda).to(dtype)
+    idx = torch.from_numpy(np.sort(rng.permutation(g.n_tiles)[:cap]).astype(
+        np.int32)).to(cuda)
+    reset_launches()
+    for c in (0, 1, cap, cap + 1):
+        count = torch.tensor(c, dtype=torch.int32, device=cuda)
+        ok = KSC.stem_conv(st, idx, count, w, b, out0.clone(), g, "relu",
+                           dtype, capacity=cap)
+        op = KSC.stem_conv_plain(st, idx, count, w, b, out0.clone(), g,
+                                 "relu", dtype, capacity=cap)
+        if dtype == torch.float32:
+            torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+        else:
+            assert _ulps(ok, op) <= 1
+        listed = torch.zeros(g.n_tiles, dtype=torch.bool, device=cuda)
+        listed[idx[:c].long() if c <= cap else slice(None)] = True
+        keep = ~listed.view(g.tiles_h, 1, g.tiles_w, 1, 1).expand(
+            g.tiles_h, 8, g.tiles_w, 32, cout).reshape(ok.shape)
+        assert torch.equal(ok[keep], out0[keep])
+        assert torch.equal(ok, out0) == (c == 0)
+    assert launches()["stem_conv"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [6, 30, 96, 160, 256, 512])
+@pytest.mark.parametrize("cin", [1, 2, 3])
+def test_stem_conv_widths_on_card(cuda, monkeypatch, dtype, cout, cin):
+    """B5 at every branch of its channel split against its plain version:
+    one channel a lane (cout 6, 30), lanes rounded up to a power of two
+    (30, 96), 2 and 4 chunks (160, 256, 512), and cin 1 to 3; at a list of
+    half the tiles and on overflow, with the grid forced below the walk:
+    float32 within 1e-5, bf16 within 1 ulp, tiles not listed
+    bit-identical."""
+    from cbinfer_tpu_torch.ops.delta_conv import make_storage
+    from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
+    H, W = 32, 128
+    rng = np.random.default_rng(cout * 4 + cin)
+    g = conv_tile_geometry((H, W, cin), (3, 3), (1, 1), (1, 1), "SAME", 8, 32)
+    cap = g.n_tiles // 2
+    _force_grid(monkeypatch, KSC, 3)
+    st = make_storage(g, 0.0, 0.0, dtype, cuda)
+    st[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W] = \
+        torch.from_numpy(rng.uniform(0, 1, (H, W, cin)).astype(
+            np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) * 0.2)
+                         .astype(np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(
+        cuda)
+    out0 = torch.from_numpy(rng.standard_normal((H, W, cout)).astype(
+        np.float32)).to(cuda, dtype)
+    idx = torch.from_numpy(np.sort(rng.permutation(g.n_tiles)[:cap]).astype(
+        np.int32)).to(cuda)
+    for c in (cap, cap + 1):
+        count = torch.tensor(c, dtype=torch.int32, device=cuda)
+        ok = KSC.stem_conv(st, idx, count, w, b, out0.clone(), g, "relu",
+                           dtype, capacity=cap)
+        op = KSC.stem_conv_plain(st, idx, count, w, b, out0.clone(), g,
+                                 "relu", dtype, capacity=cap)
+        if dtype == torch.float32:
+            torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+        else:
+            assert _ulps(ok, op) <= 1
+        listed = torch.zeros(g.n_tiles, dtype=torch.bool, device=cuda)
+        listed[idx[:c].long() if c <= cap else slice(None)] = True
+        keep = ~listed.view(g.tiles_h, 1, g.tiles_w, 1, 1).expand(
+            g.tiles_h, 8, g.tiles_w, 32, cout).reshape(ok.shape)
+        assert torch.equal(ok[keep], out0[keep])

@@ -41,6 +41,9 @@ GEOMETRIES = {
                     margin=NEG_FILL),
     "pool3x3s2": dict(kernel=(3, 3), stride=(2, 2), padding="VALID",
                       margin=NEG_FILL),
+    # SAME pooling: the network builds it since its dense pool pads as XLA
+    "pool3x3s2same": dict(kernel=(3, 3), stride=(2, 2), padding="SAME",
+                          margin=NEG_FILL),
 }
 
 
@@ -122,7 +125,7 @@ POOL_TILES = {"partial": [1, -1], "all": "all", "count_zero": []}
 
 
 @pytest.mark.parametrize("tiles", sorted(POOL_TILES))
-@pytest.mark.parametrize("name", ["pool2x2", "pool3x3s2"])
+@pytest.mark.parametrize("name", ["pool2x2", "pool3x3s2", "pool3x3s2same"])
 def test_delta_pool_plain_matches_pallas(name, tiles):
     H, W, C = 36, 48, 8  # out rows 18 (2x2): the tile grid overhangs
     rng = np.random.default_rng(2)

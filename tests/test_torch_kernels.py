@@ -27,8 +27,10 @@ from cbinfer_tpu_torch.ops import detect as tdetect
 from cbinfer_tpu_torch.ops.geometry import \
     conv_tile_geometry as t_conv_tile_geometry
 from cbinfer_tpu_torch.ops.kernels import launches, reset_launches, walk_grid
+from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
 from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
 from cbinfer_tpu_torch.ops.kernels import pool_fused as KP
+from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
 from cbinfer_tpu_torch.ops.kernels.delta_conv import delta_conv
 from cbinfer_tpu_torch.ops.kernels.detect_sparse import detect_sparse
 from cbinfer_tpu_torch.ops.kernels.pool_fused import detect_pool_fused
@@ -207,19 +209,54 @@ def test_detect_pool_fused_plain_matches_pallas(C, blocks):
 # ------------------------ the grid of the list walkers ----------------------
 
 
-@pytest.mark.parametrize("module", [KD, KP], ids=["B1", "B3"])
+@pytest.mark.parametrize("module", [KD, KP, KDP, KSC],
+                         ids=["B1", "B3", "B8", "B5"])
 @pytest.mark.parametrize("rel", ["zero", "below", "at", "above", "all_720p"])
 def test_walk_grid_is_the_list_capped_at_blocks_per_sm(module, rel):
-    """B1 and B3 launch min(capacity, k * SMs) blocks, which walk the
-    device-side count: one block per entry up to k per SM, never more
-    blocks than entries, none for an empty list."""
+    """B1, B3, B8 and B5 launch min(capacity, k * SMs) blocks, which walk
+    the device-side count: one block per entry up to k per SM, never more
+    blocks than entries, none for an empty list. B5's capacity is its
+    items over 8 warps a block: every tile's, since on overflow the walk
+    covers all of them (3600 stem tiles at 720p, 16 items a tile at cout
+    128)."""
     sms, k = 132, module.BLOCKS_PER_SM
+    stem = t_conv_tile_geometry((720, 1280, 3), (3, 3), (1, 1), (1, 1),
+                                "SAME", 8, 32)
     capacity = {"zero": 0, "below": k * sms - 1, "at": k * sms,
-                "above": k * sms + 1, "all_720p": 90 * 160}[rel]
+                "above": k * sms + 1,
+                "all_720p": (KSC.walk_blocks(stem, 128) if module is KSC
+                             else 90 * 160)}[rel]
+    if module is KSC:
+        assert stem.n_tiles == 3600 and KSC.walk_blocks(stem, 128) == 7200
+        assert KSC.walk_blocks(stem, 64) == 7200  # 16 lanes a block
     grid = walk_grid(capacity, sms, k)
     assert grid == min(capacity, k * sms)
     assert (grid == 0) == (capacity == 0)
     assert grid <= capacity and grid <= k * sms
+
+
+@pytest.mark.parametrize("cout", [1, 6, 16, 30, 64, 68, 96, 124, 128, 160,
+                                  256, 384, 512])
+def test_stem_conv_lane_split_covers_every_channel_once(cout):
+    """B5's split of an item's 2 pixel blocks x cout channels over the 32
+    lanes of a warp and 1 << cs chunks, as stem_conv.cu maps lane and chunk
+    to (block, first channel): every (block, channel) falls to exactly one
+    active lane, at widths whose lanes are no power of two too (cout 96:
+    24 lanes' channels), where an even split of the warp needs the lanes
+    rounded up."""
+    cc, lanes, cs = KSC.lane_split(cout)
+    assert cc == (4 if cout % 4 == 0 else 1) and cs <= 2
+    assert 32 % lanes == 0
+    cover = np.zeros((2, cout), np.int32)
+    for chunk in range(1 << cs):
+        for lane in range(32):
+            n0 = (chunk * lanes + lane % lanes) * cc
+            pb0 = 0 if lanes == 32 else lane // lanes
+            pb1 = 2 if lanes == 32 else min(pb0 + 1, 2)
+            if n0 < cout and pb0 < 2:
+                cover[pb0:pb1, n0:n0 + cc] += 1
+    np.testing.assert_array_equal(cover, 1)
+    assert KSC.lane_split(516)[2] > 2  # past 4 chunks: the wrapper refuses
 
 
 # ------------------------------ glue around them ----------------------------

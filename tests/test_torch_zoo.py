@@ -103,12 +103,18 @@ def test_load_refresh_cadence_matches_reference(name, t, h, w):
         == jzoo.load_refresh_cadence(name, t, h, w, default=5)
 
 
-@pytest.mark.parametrize("name", ["scene", "scene_hard"])
+@pytest.mark.parametrize("name", ["scene", "scene_hard", "pose_hard"])
 def test_workload_clip_is_byte_identical(name):
+    """"pose_hard" has no entry of its own: the "<base>_hard" rule gives the
+    pose profile's graded dynamics on the hard palette, in both packages."""
     kw = tvideo.workload_video_kwargs(name)
     assert kw == jvideo.workload_video_kwargs(name)
+    if name == "pose_hard":
+        assert kw == {**tvideo.workload_video_kwargs("pose"),
+                      "palette": "hard"}
     cfg = dict(height=48, width=64, n_sprites=3, sprite_size=10, speed=3.0,
-               noise_std=0.002, seed=4, **kw)
+               noise_std=0.002, seed=4, distinct_classes=name == "pose_hard",
+               **kw)
     want = jvideo.SpriteVideo(jvideo.SpriteVideoConfig(**cfg))
     got = tvideo.SpriteVideo(tvideo.SpriteVideoConfig(**cfg))
     wf, wl = want.clip_with_labels(4)
@@ -118,5 +124,10 @@ def test_workload_clip_is_byte_identical(name):
                                   jvideo.CLASS_PALETTE_HARD)
     with pytest.raises(KeyError):
         tvideo.workload_video_kwargs("seg")
+    # the port has no seg profile until the seg workload is ported, so
+    # "seg_hard" raises here too; the reference has one and returns it
+    with pytest.raises(KeyError):
+        tvideo.workload_video_kwargs("seg_hard")
+    assert jvideo.workload_video_kwargs("seg_hard")["palette"] == "hard"
     with pytest.raises(ValueError, match="palette"):
         tvideo.SpriteVideo(tvideo.SpriteVideoConfig(palette="soft"))
