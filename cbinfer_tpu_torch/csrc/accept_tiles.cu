@@ -8,12 +8,24 @@
 // input storage. No diff, no threshold, no mask.
 //
 // Bound on the H100: bytes (each visited tile is read once and written
-// once, 2 * 8*8*C elements; no arithmetic). Design: one block of 128
-// threads per hint tile (the grid is sized to the hint grid; blocks at or
-// past *count, read from device memory, exit at once). A tile row is 8*C
-// contiguous elements in x and in the storage, so the block copies 8 such
-// rows, 16 bytes per thread and step where the wrapper found every row
-// start 16-byte aligned, else 4 bytes.
+// once, 2 * 8*8*C elements; no arithmetic). At the paths' densities a call
+// lists about 30 of 240 tiles, half a megabyte, so what it costs is
+// latency: launch, the count and the index, one round trip for the data.
+// The TPU kernel keeps a ring of four tile DMAs in flight; here every
+// thread's loads are in flight at once. Design (B8's, delta_pool.cu):
+// - a grid sized to the card (the wrapper's walk_grid over the pairs),
+//   each block walking (list entry, part) pairs i = blockIdx.x,
+//   i += gridDim.x while i < *count * parts, the next pair's tile id loaded
+//   while the current part is copied;
+// - a tile is 8 rows of 8*C contiguous elements in x and in the storage,
+//   cut into units: 16 bytes where the wrapper found every row start
+//   16-byte aligned, else 4 bytes. A part is a run of `per` consecutive
+//   units of the tile's (row, unit) order, at most UPT a thread of the
+//   256 (the wrapper's part_split; this file only checks it), so a short
+//   list spreads over many SMs. Every thread issues all its loads before
+//   its first store: a copy costs one round trip.
+// The kernel writes nothing that a fill would have to clear, and the
+// wrapper makes none.
 //
 // Clamped bottom edge: the last hint row starts at H - 8 when H % 8 != 0
 // and overlaps the row above, as in the JAX package. Two blocks may then
@@ -23,50 +35,90 @@
 
 namespace {
 
-template <typename V>
-__global__ void __launch_bounds__(128)
-accept_tiles_kernel(const unsigned char* __restrict__ x,
-                    unsigned char* __restrict__ st,
+constexpr int kThreads = 256;
+
+struct AcceptArgs {
+  int cap;          // entries of idx
+  int H, hint_tiles_w;
+  int row_units;    // units of one tile row (8 * C elements)
+  int parts, per;   // parts of a tile, units of a part
+  long long x_row, s_row, s_origin;  // in units
+};
+
+template <typename U, int UPT>
+__global__ void __launch_bounds__(kThreads)
+accept_tiles_kernel(const U* __restrict__ x, U* __restrict__ st,
                     const int* __restrict__ idx,
-                    const int* __restrict__ count, int H, int hint_tiles_w,
-                    long long x_row, long long s_row, long long s_origin,
-                    int tile_row_bytes) {
-  if ((int)blockIdx.x >= __ldg(count)) return;
-  const int t = idx[blockIdx.x];
-  const int hi = t / hint_tiles_w;
-  const int hj = t - hi * hint_tiles_w;
-  const int oy = min(hi * 8, H - 8);
-  const int row_vecs = tile_row_bytes / (int)sizeof(V);
-  for (int e = threadIdx.x; e < 8 * row_vecs; e += 128) {
-    const int r = e / row_vecs;
-    const int v = e - r * row_vecs;
-    const long long col = (long long)hj * tile_row_bytes + (long long)v * sizeof(V);
-    *reinterpret_cast<V*>(st + s_origin + (oy + r) * s_row + col) =
-        *reinterpret_cast<const V*>(x + (oy + r) * x_row + col);
+                    const int* __restrict__ count, AcceptArgs a) {
+  const int items = 8 * a.row_units;
+  int i = blockIdx.x;  // pairs i = (list entry i / parts, part i % parts)
+  int t = __ldg(idx + min(i / a.parts, a.cap - 1));
+  const int n = __ldg(count) * a.parts;
+  while (i < n) {
+    const int next = i + gridDim.x;
+    const int t_next = next < a.cap * a.parts ? __ldg(idx + next / a.parts)
+                                              : 0;
+    const int hi = t / a.hint_tiles_w;
+    const int hj = t - hi * a.hint_tiles_w;
+    const long long oy = min(hi * 8, a.H - 8);
+    const int e0 = (i % a.parts) * a.per + threadIdx.x;
+    const int e1 = min((i % a.parts + 1) * a.per, items);
+    U v[UPT];
+    long long dst[UPT];
+#pragma unroll
+    for (int k = 0; k < UPT; ++k) {
+      const int e = e0 + kThreads * k;
+      const int r = e / a.row_units;
+      const long long col = (long long)hj * a.row_units + (e - r * a.row_units);
+      if (e < e1) {
+        v[k] = __ldg(x + (oy + r) * a.x_row + col);
+        dst[k] = a.s_origin + (oy + r) * a.s_row + col;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < UPT; ++k)
+      if (e0 + kThreads * k < e1) st[dst[k]] = v[k];
+    i = next;
+    t = t_next;
   }
+}
+
+template <typename U>
+int launch(const void* x, void* st, const int* idx, const int* count,
+           int grid, int upt, const AcceptArgs& a, cudaStream_t s) {
+  auto kernel = upt == 1 ? &accept_tiles_kernel<U, 1>
+                : upt == 2 ? &accept_tiles_kernel<U, 2>
+                           : &accept_tiles_kernel<U, 4>;
+  kernel<<<grid, kThreads, 0, s>>>(static_cast<const U*>(x),
+                                   static_cast<U*>(st), idx, count, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x_row, s_row: bytes between rows; s_origin: byte offset of the interior's
 // first pixel inside the storage; tile_row_bytes: 8 * C * element size.
+// cap: entries of idx; grid: blocks (1 <= grid <= cap * parts); parts, per,
+// upt: the split of a tile's units (16 bytes with vec16, else 4) into parts
+// of per <= 256 * upt units, upt 1, 2 or 4.
 extern "C" int cb_accept_tiles(const void* x, void* storage, const int* idx,
-                               const int* count, int n_blocks, int H,
+                               const int* count, int cap, int grid, int H,
                                int hint_tiles_w, long long x_row,
                                long long s_row, long long s_origin,
-                               int tile_row_bytes, int vec16, void* stream) {
+                               int tile_row_bytes, int vec16, int parts,
+                               int per, int upt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_blocks <= 0) return 0;
-  const unsigned char* xb = static_cast<const unsigned char*>(x);
-  unsigned char* sb = static_cast<unsigned char*>(storage);
-  if (vec16) {
-    accept_tiles_kernel<uint4><<<n_blocks, 128, 0, s>>>(
-        xb, sb, idx, count, H, hint_tiles_w, x_row, s_row, s_origin,
-        tile_row_bytes);
-  } else {
-    accept_tiles_kernel<uint32_t><<<n_blocks, 128, 0, s>>>(
-        xb, sb, idx, count, H, hint_tiles_w, x_row, s_row, s_origin,
-        tile_row_bytes);
-  }
-  return (int)cudaGetLastError();
+  if (grid == 0) return 0;
+  const int ub = vec16 ? 16 : 4;
+  const int row_units = tile_row_bytes / ub;
+  if (grid < 0 || grid > cap * parts || tile_row_bytes % ub || x_row % ub ||
+      s_row % ub || s_origin % ub || (upt != 1 && upt != 2 && upt != 4) ||
+      per <= 0 || per > kThreads * upt || parts <= 0 ||
+      (long long)parts * per < 8LL * row_units ||
+      (long long)(parts - 1) * per >= 8LL * row_units)
+    return (int)cudaErrorInvalidValue;
+  AcceptArgs a{cap,   H,         hint_tiles_w,  row_units,    parts,
+               per,   x_row / ub, s_row / ub,   s_origin / ub};
+  if (vec16) return launch<uint4>(x, storage, idx, count, grid, upt, a, s);
+  return launch<unsigned>(x, storage, idx, count, grid, upt, a, s);
 }

@@ -14,69 +14,222 @@
 // Bound on the H100: bytes, the frame read once (12 bytes a pixel) and the
 // cache read once and written where changed (6 bytes a pixel in bf16).
 // Design: the TPU kernel needs the 4-lane flat4 layout, masked lane rolls
-// and an indicator matmul to dilate; none of that is needed here. One
-// thread per pixel, a block per 8 rows x 32 pixels so a warp reads one
-// contiguous run of a row; the count is one __syncthreads_count and one
-// atomic per block, the dilation a few same-value stores per changed pixel.
+// and an indicator matmul to dilate; none of that is needed here.
+// - A block of 8 warps owns one row of cells (8 map rows) and 32 cells of
+//   it: warp w takes map row 8a + w, lane l the 8 pixels of cell b0 + l in
+//   that row. A thread issues all its loads before its first compare: the
+//   frame's 8*C floats (2C 16-byte loads) and the cache's 8*C elements (C
+//   16-byte loads in bf16), 16 bytes wide where the wrapper found the
+//   frame, the cache's row starts and its interior origin 16-byte aligned,
+//   else one element a load.
+// - A changed group is written back whole (unchanged pixels with the value
+//   just read: the kernel is the storage's only writer).
+// - Marking: three warp ballots give each warp its row's cells and the
+//   cells left and right of the block; one __syncthreads, then the OR over
+//   the block's rows, and at most one same-value store per cell the block
+//   marks, in its own cell row and the rows above and below (a pixel of
+//   the first and last map row of a cell reaches the next cell row).
+// - npix: one atomic per block after a block sum.
+// - Launched to overlap the wrapper's one fill of mask and npix
+//   (cb_launch_after_fill): the loads and the accept need nothing of it;
+//   the marks and the atomic come after cb_wait_prior_grid.
 #include "cb_common.cuh"
 
 namespace {
 
-struct StemDetectArgs {
-  int H, W, C;
-  long long s_row;   // elements between rows of the storage
-  int slo_h, slo_w;  // interior origin inside the storage
-  CbTileGrid grid;   // the 8x8 cell grid and its input window
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPix = 8;  // pixels a thread: one cell's row
+
+// A storage element as raw bits (a union member), cb_to_float and
+// cb_round on them.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  using raw = float;
+  __device__ static float value(float v) { return v; }
+  __device__ static float round(float v) { return cb_round<float>(v); }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  using raw = unsigned short;
+  __device__ static float value(unsigned short v) {
+    return cb_to_float(__ushort_as_bfloat16(v));
+  }
+  __device__ static unsigned short round(float v) {
+    return __bfloat16_as_ushort(cb_round<__nv_bfloat16>(v));
+  }
 };
 
-template <typename T>
+// N elements of type R held as 16-byte units too (N * sizeof(R) is a
+// multiple of 16 for every C: 8 pixels of 2- or 4-byte elements)
+template <typename R, int N>
+union Group {
+  uint4 u[N * sizeof(R) / 16];
+  R e[N];
+};
+
+template <bool VEC, typename R, int N>
+__device__ __forceinline__ void load_group(Group<R, N>& g, const R* p) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int k = 0; k < N * (int)sizeof(R) / 16; ++k)
+      g.u[k] = __ldg(reinterpret_cast<const uint4*>(p) + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) g.e[k] = __ldg(p + k);
+  }
+}
+
+struct StemDetectArgs {
+  int W;
+  long long s_row;   // elements between rows of the storage
+  int slo_h, slo_w;  // interior origin inside the storage
+  int cells_h, cells_w, bw;  // the 8x8 cell grid; blocks over a cell row
+};
+
+template <typename T, int C, bool VEC>
 __global__ void __launch_bounds__(256)
 stem_detect_kernel(const float* __restrict__ x, T* __restrict__ st,
                    float* __restrict__ mask, int* __restrict__ npix,
                    float tau, StemDetectArgs a) {
-  const int c = blockIdx.x * 32 + (threadIdx.x & 31);
-  const int r = blockIdx.y * 8 + (threadIdx.x >> 5);
-  bool changed = false;
-  if (r < a.H && c < a.W) {
-    const float* xp = x + ((long long)r * a.W + c) * a.C;
-    T* sp = st + (long long)(r + a.slo_h) * a.s_row +
-            (long long)(c + a.slo_w) * a.C;
-    float m = 0.f;
-    for (int ch = 0; ch < a.C; ++ch)
-      m = fmaxf(m, fabsf(xp[ch] - cb_to_float(sp[ch])));
-    changed = m > tau;
-    if (changed) {
-      for (int ch = 0; ch < a.C; ++ch) sp[ch] = cb_round<T>(xp[ch]);
-      cb_mark_tiles(mask, a.grid, r, c);
+  using E = Elem<T>;
+  using R = typename E::raw;
+  __shared__ unsigned long long s_mark[8];
+  __shared__ int s_n[8];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ca = blockIdx.x / a.bw;                  // cell row
+  const int cb0 = (blockIdx.x - ca * a.bw) * 32;     // first cell column
+  const int cb = cb0 + lane;
+  const int r = ca * 8 + warp;
+  unsigned bits = 0;  // bit p: pixel 8*cb + p of row r changed
+  if (cb < a.cells_w) {
+    Group<float, kPix * C> xv;
+    Group<R, kPix * C> cv;
+    R* sp = reinterpret_cast<R*>(st) + (long long)(r + a.slo_h) * a.s_row +
+            (long long)(a.slo_w + cb * kPix) * C;
+    // read-only loads of the cache too: a thread writes only the pixels
+    // it has read
+    load_group<VEC>(xv, x + ((long long)r * a.W + cb * kPix) * C);
+    load_group<VEC>(cv, sp);
+#pragma unroll
+    for (int p = 0; p < kPix; ++p) {
+      float m = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        m = fmaxf(m, fabsf(xv.e[p * C + c] - E::value(cv.e[p * C + c])));
+      bits |= (unsigned)(m > tau) << p;
+    }
+    if (bits) {
+#pragma unroll
+      for (int p = 0; p < kPix; ++p)
+        if (bits >> p & 1) {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            cv.e[p * C + c] = E::round(xv.e[p * C + c]);
+        }
+      if constexpr (VEC) {
+#pragma unroll
+        for (int k = 0; k < kPix * C * (int)sizeof(R) / 16; ++k)
+          reinterpret_cast<uint4*>(sp)[k] = cv.u[k];
+      } else {
+#pragma unroll
+        for (int p = 0; p < kPix; ++p)
+          if (bits >> p & 1) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) sp[p * C + c] = cv.e[p * C + c];
+          }
+      }
     }
   }
-  const int n = __syncthreads_count(changed);
-  if (threadIdx.x == 0 && n) atomicAdd(npix, n);
+  // this row's marks on cells cb0 - 1 .. cb0 + 32 (bit j: cell cb0 - 1 + j):
+  // a changed pixel marks its own cell, its first column the cell to the
+  // left, its last column the cell to the right
+  const unsigned own = __ballot_sync(kFull, bits != 0);
+  const unsigned left = __ballot_sync(kFull, bits & 1u);
+  const unsigned right = __ballot_sync(kFull, bits >> (kPix - 1) & 1u);
+  const int n = __reduce_add_sync(kFull, __popc(bits));
+  if (lane == 0) {
+    s_mark[warp] = (unsigned long long)own << 1 | left |
+                   (unsigned long long)right << 2;
+    s_n[warp] = n;
+  }
+  __syncthreads();
+  cb_wait_prior_grid();  // mask and npix are the fill's
+  // threads 0..101: cell row ca - 1 (from map row 8ca), ca, ca + 1 (from
+  // map row 8ca + 7), 34 cells each
+  if (threadIdx.x < 3 * 34) {
+    const int dr = threadIdx.x / 34;  // 0, 1, 2: cell rows ca - 1, ca, ca + 1
+    const int j = threadIdx.x - dr * 34;
+    unsigned long long m = 0;
+    if (dr == 1) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) m |= s_mark[w];
+    } else {
+      m = s_mark[dr == 0 ? 0 : 7];
+    }
+    const int row = ca - 1 + dr;
+    const int col = cb0 - 1 + j;
+    if ((m >> j & 1) && row >= 0 && row < a.cells_h && col >= 0 &&
+        col < a.cells_w)
+      mask[(long long)row * a.cells_w + col] = 1.f;
+  }
+  if (threadIdx.x == 0) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += s_n[w];
+    if (s) atomicAdd(npix, s);
+  }
+}
+
+template <typename T, int C>
+int launch_c(const float* x, void* st, float* mask, int* npix, float tau,
+             bool vec, int grid, const StemDetectArgs& a, cudaStream_t s) {
+  // launched to overlap the wrapper's fill of mask and npix
+  auto kernel = vec ? &stem_detect_kernel<T, C, true>
+                    : &stem_detect_kernel<T, C, false>;
+  const cudaError_t err = cb_launch_after_fill(
+      kernel, grid, 256, s, x, static_cast<T*>(st), mask, npix, tau, a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T>
+int launch_type(const float* x, void* st, float* mask, int* npix, float tau,
+                int C, bool vec, int grid, const StemDetectArgs& a,
+                cudaStream_t s) {
+  switch (C) {
+    case 1: return launch_c<T, 1>(x, st, mask, npix, tau, vec, grid, a, s);
+    case 2: return launch_c<T, 2>(x, st, mask, npix, tau, vec, grid, a, s);
+    case 3: return launch_c<T, 3>(x, st, mask, npix, tau, vec, grid, a, s);
+    case 4: return launch_c<T, 4>(x, st, mask, npix, tau, vec, grid, a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The stem's 3x3 SAME window on the 8x8 cell grid: H and W multiples of 8.
+// vec16: the frame, the storage's row starts and its interior origin are
+// 16-byte aligned (16-byte loads). bw: blocks over a cell row (the
+// wrapper's block_plan, cdiv(W / 8, 32)); the grid is bw * H / 8.
 extern "C" int cb_stem_detect(const float* x, void* storage, float* mask,
                               int* npix, float tau, int dtype, int H, int W,
                               int C, long long s_row, int slo_h, int slo_w,
-                              int cells_h, int cells_w, int step_h,
-                              int step_w, int pad_lo_h, int pad_lo_w,
-                              int win_h, int win_w, void* stream) {
-  StemDetectArgs a{H,     W,     C,
-                   s_row, slo_h, slo_w,
-                   {cells_h, cells_w, step_h, step_w, pad_lo_h, pad_lo_w,
-                    win_h, win_w}};
+                              int vec16, int bw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H <= 0 || W <= 0) return 0;
-  dim3 grid((W + 31) / 32, (H + 7) / 8);
-  if (dtype == CB_BF16) {
-    stem_detect_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        x, static_cast<__nv_bfloat16*>(storage), mask, npix, tau, a);
-  } else if (dtype == CB_F32) {
-    stem_detect_kernel<float><<<grid, 256, 0, s>>>(
-        x, static_cast<float*>(storage), mask, npix, tau, a);
-  } else {
+  const int cells_w = W / 8;
+  if (H % 8 || W % 8 || bw <= 0 || bw * 32 < cells_w ||
+      (bw - 1) * 32 >= cells_w)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  StemDetectArgs a{W, s_row, slo_h, slo_w, H / 8, cells_w, bw};
+  const int grid = bw * (H / 8);
+  if (dtype == CB_BF16)
+    return launch_type<__nv_bfloat16>(x, storage, mask, npix, tau, C, vec16,
+                                      grid, a, s);
+  if (dtype == CB_F32)
+    return launch_type<float>(x, storage, mask, npix, tau, C, vec16, grid,
+                              a, s);
+  return (int)cudaErrorInvalidValue;
 }

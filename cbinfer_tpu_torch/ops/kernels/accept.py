@@ -2,9 +2,10 @@
 
 Replaces ``cbinfer_tpu/ops/pallas/accept.py::accept_tiles``. The CUDA
 source (``csrc/accept_tiles.cu``) carries the design note: bytes bound the
-kernel on the H100 (a pure copy of the hinted 8x8xC tiles), one block per
-hint tile walks a device-side count, and the clamped bottom tile may
-overlap the row above because both blocks write the same bytes.
+kernel on the H100 (a pure copy of the hinted 8x8xC tiles), a grid sized to
+the card walks (tile, part) pairs up to the device-side count with every
+load of a thread in flight before its stores, and the clamped bottom tile
+may overlap the row above because both blocks write the same bytes.
 """
 
 from __future__ import annotations
@@ -15,10 +16,18 @@ import torch
 
 from ..delta_conv import tile_ids
 from ..geometry import TileGeometry, cdiv
-from . import DTYPE_CODE, Kernel
+from . import DTYPE_CODE, Kernel, sm_count, walk_grid
 from .build import check, library
 
 HINT = 8
+THREADS = 256  # of a block (kThreads in csrc/accept_tiles.cu)
+# blocks of 256 threads per SM (a thread holds two 16-byte units, 31
+# registers): against two, lists of every tile walked 1.05-1.07x faster and
+# 30-tile lists within 3%; eight gained at most 4% more (same-call A/B,
+# PERF.md), and at four every tile of a C = 256 map still outgrows the grid
+BLOCKS_PER_SM = 4
+# units a part holds at most: two a thread (of THREADS), as B8's parts
+PART_UNITS = 512
 
 KERNEL = Kernel(name="accept_tiles", route="cuda",
                 source="cbinfer_tpu_torch/csrc/accept_tiles.cu",
@@ -44,11 +53,43 @@ def accept_tiles_plain(x: torch.Tensor, storage: torch.Tensor,
     return storage
 
 
+def part_split(row_units: int, part_units: int = PART_UNITS) -> tuple:
+    """(parts, per, upt) of B9 for a tile of 8 rows of ``row_units`` load
+    units: the tile's units, in (row, unit) order, are cut into ``parts``
+    runs of ``per`` units (the last may be shorter, none is empty), the
+    fewest runs of at most ``part_units``; a thread of the block loads
+    ``upt`` (1, 2 or 4) of its run's units before it stores. The kernel
+    takes these as they are."""
+    items = 8 * row_units
+    parts = -(-items // part_units)
+    per = -(-items // parts)
+    upt = -(-per // THREADS)
+    return parts, per, 1 << (upt - 1).bit_length()
+
+
+def _strides(x: torch.Tensor, storage: torch.Tensor, g: TileGeometry):
+    """Bytes between rows of x and of the storage, the interior's origin in
+    the storage, and a tile row's bytes."""
+    C, es = storage.shape[-1], storage.element_size()
+    s_row = storage.shape[1] * C * es
+    return (x.shape[1] * C * es, s_row,
+            g.store_lo_h * s_row + g.store_lo_w * C * es, HINT * C * es)
+
+
+def unit_bytes(x: torch.Tensor, storage: torch.Tensor,
+               g: TileGeometry) -> int:
+    """B9's load unit: 16 bytes where both pointers and every row start of
+    a tile (in x and in the storage) are 16-byte aligned, else 4."""
+    return 4 if any(v % 16 for v in (x.data_ptr(), storage.data_ptr(),
+                                     *_strides(x, storage, g))) else 16
+
+
 def _fn():
     f = library("accept_tiles").cb_accept_tiles
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp, vp, vp, vp, i, i, i, ll, ll, ll, i, i, vp]
+        f.argtypes = [vp, vp, vp, vp, i, i, i, i, ll, ll, ll, i, i, i, i, i,
+                      vp]
         f.restype = ctypes.c_int
     return f
 
@@ -76,6 +117,7 @@ def accept_tiles(x: torch.Tensor, storage: torch.Tensor, idx: torch.Tensor,
     es = storage.element_size()
     if (storage.dtype not in DTYPE_CODE or x.dtype != storage.dtype
             or x.shape[-1] != C or (C * es) % 4
+            or x.data_ptr() % 4 or storage.data_ptr() % 4
             or x.shape[0] < H or x.shape[1] < W
             or tuple(storage.shape) != g.store_shape[:2] + (C,)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
@@ -88,15 +130,16 @@ def accept_tiles(x: torch.Tensor, storage: torch.Tensor, idx: torch.Tensor,
     for t in (x, storage, idx):
         if not t.is_contiguous():
             raise ValueError("accept_tiles: operands must be contiguous")
-    x_row, s_row = x.shape[1] * C * es, storage.shape[1] * C * es
-    s_origin = g.store_lo_h * s_row + g.store_lo_w * C * es
-    tile_row = HINT * C * es
-    vec16 = not any(v % 16 for v in (x.data_ptr(), storage.data_ptr(), x_row,
-                                     s_row, s_origin, tile_row))
+    x_row, s_row, s_origin, tile_row = _strides(x, storage, g)
+    unit = unit_bytes(x, storage, g)
+    parts, per, upt = part_split(tile_row // unit)
+    grid = walk_grid(idx.numel() * parts, sm_count(storage.device.index),
+                     BLOCKS_PER_SM)
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     err = _fn()(x.data_ptr(), storage.data_ptr(), idx.data_ptr(),
-                count.data_ptr(), idx.numel(), H, W // HINT, x_row, s_row,
-                s_origin, tile_row, int(vec16), stream)
+                count.data_ptr(), idx.numel(), grid, H, W // HINT, x_row,
+                s_row, s_origin, tile_row, int(unit == 16), parts, per, upt,
+                stream)
     check(err, "accept_tiles")
     KERNEL.launches += 1
     return storage

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Same-call A/B of the list-walking kernels (B1 ``cb_detect_sparse``, B3
-``cb_pool_fused``, B8 ``cb_delta_pool``, B5 ``cb_stem_conv``) built from
-two or more source trees, on one card, in turns.
+``cb_pool_fused``, B8 ``cb_delta_pool``, B5 ``cb_stem_conv``, B9
+``cb_accept_tiles``) and of the stem's full-map detect (B4
+``cb_stem_detect``) built from two or more source trees, on one card, in
+turns.
 
     mkdir -p build/parent
     git archive d4b4d4c cbinfer_tpu_torch | tar -x -C build/parent
@@ -9,30 +11,34 @@ two or more source trees, on one card, in turns.
         --csrc build/parent/cbinfer_tpu_torch/csrc --csrc cbinfer_tpu_torch/csrc
 
 Each ``--csrc`` directory holds ``detect_sparse.cu``, ``pool_fused.cu``,
-``delta_pool.cu`` and ``stem_conv.cu`` (and the headers they include).
-Two C interfaces of each are known, and each tree gets its own: one block
-per list entry up to the capacity, or per tile for B5 (a grid of
-``n_blocks``), or a grid sized to the card that walks the list
-(``walk_grid`` with the ``BLOCKS_PER_SM`` of the tree's own
-``../ops/kernels/*.py`` where it has them, else this checkout's); a B5
-that takes its channel split (``int cc, int lanes, int cs``) gets this
-checkout's ``lane_split``. Every
-tree's kernels are built with nvcc (sm_90a) and run on the same seeded
-bf16 inputs at the steady-frame shapes and list lengths that
-``chip_smoke.py`` records on the scene flagship, on ``hintless`` and on
-pose, plus one all-tiles case each (for B5 the capacity overflow, which
-walks every tile): per-launch device ms by CUDA events, L2 flushed, the
-outputs restored and the mask and npix zeroed before each launch, the
-trees taking turns (A B .. B A) for ``--rounds`` rounds;
-``ms_per_launch`` is the kernel alone, ``ms_per_call`` the kernel after
-the zero-fills its tree's wrapper makes (one for a list walker of B1 and
-B3, one per output before; B5 and B8 make none), as ``chip_smoke.py``
-times a call. Each case reports whether every tree's outputs (cache or out
-cache, mask, npix) equal the first tree's bit for bit, and for B5 the
-largest distance in bf16 ulps from the first tree's and from this
-checkout's plain version, and whether the first tree's equal the plain
-version. Prints the card's name and power limit, then one JSON line per
-case. Needs a CUDA GPU and nvcc.
+``delta_pool.cu``, ``stem_conv.cu``, ``accept_tiles.cu`` and
+``stem_detect.cu`` (and the headers they include). Two C interfaces of
+each are known, and each tree gets its own: one block per list entry up to
+the capacity, or per tile for B5 (a grid of ``n_blocks``), or a grid sized
+to the card that walks the list (``walk_grid`` with the ``BLOCKS_PER_SM``
+of the tree's own ``../ops/kernels/*.py`` where it has them, else this
+checkout's; B9's over its (tile, part) pairs, split by this checkout's
+``part_split`` at the tree's own ``PART_UNITS``); a B5 that takes its
+channel split (``int cc, int lanes, int cs``) gets this checkout's
+``lane_split``; B4 either takes the cell grid's window and one thread a
+pixel, or its block plan and load width (``int vec16, int bw``: this
+checkout's ``block_plan`` and ``vec16``). Every tree's kernels are built
+with nvcc (sm_90a) and run on the same seeded bf16 inputs at the
+steady-frame shapes and list lengths that ``chip_smoke.py`` records on the
+scene flagship, on ``hintless``, on pose and on ``pose_fwd``, plus one
+all-tiles case each (for B5 the capacity overflow, which walks every tile;
+for B4 tau = -1, which marks every pixel): per-launch device ms by CUDA
+events, L2 flushed, the outputs restored and the mask and npix zeroed
+before each launch, the trees taking turns (A B .. B A) for ``--rounds``
+rounds; ``ms_per_launch`` is the kernel alone, ``ms_per_call`` the kernel
+after the zero-fills its tree's wrapper makes (one for a list walker of B1
+and B3 and for B4 with a block plan, one per output before; B5, B8 and B9
+make none), as ``chip_smoke.py`` times a call. Each case reports whether
+every tree's outputs (cache or out cache, mask, npix) equal the first
+tree's bit for bit, and for B5 the largest distance in bf16 ulps from the
+first tree's and from this checkout's plain version, and whether the
+first tree's equal the plain version. Prints the card's name and power
+limit, then one JSON line per case. Needs a CUDA GPU and nvcc.
 """
 
 import argparse
@@ -49,18 +55,22 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry  # noqa: E402
+from cbinfer_tpu_torch.ops import flat4  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import sm_count, walk_grid  # noqa: E402
+from cbinfer_tpu_torch.ops.kernels import accept as KA  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import pool_fused as KP  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC  # noqa: E402
+from cbinfer_tpu_torch.ops.kernels import stem_detect as KSD  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels.build import ARCH, nvcc_path  # noqa: E402
 
 TAU = 0.15  # the scene net's tuned taus
 NEG_FILL = -3.0e38  # a pool storage's margin (layers.NEG_FILL)
 STEM_CAPACITY = 0.375  # of the stem tiles, as the paths configure it
 # (kernel, case, map, channels (B5: cout), the layer's geometry, listed
-# entries; for B5 past the capacity an overflow, which walks every tile)
+# entries; for B5 past the capacity an overflow, which walks every tile;
+# for B4 the changed pixels of the frame pair, -1 for tau = -1)
 CASES = [
     ("B1", "flagship 360x640 C128 (spec 2)", (360, 640), 128, "conv", 62),
     ("B1", "flagship 180x320 C256 (spec 4)", (180, 320), 256, "conv", 31),
@@ -84,29 +94,43 @@ CASES = [
     ("B5", "pose 720x1280 cout 64", (720, 1280), 64, "stem", 599),
     ("B5", "overflow 720x1280 cout 128", (720, 1280), 128, "stem", 1351),
     ("B5", "overflow 720x1280 cout 64", (720, 1280), 64, "stem", 1351),
+    ("B9", "pose_fwd 90x160 C128 (bottom row listed)", (90, 160), 128,
+     "accept", 30),
+    ("B9", "pose_fwd 90x160 C256 (bottom row listed)", (90, 160), 256,
+     "accept", 30),
+    ("B9", "all tiles 90x160 C256", (90, 160), 256, "accept", 240),
+    ("B9", "all tiles 180x320 C128 (longer than the grid)", (180, 320), 128,
+     "accept", 900),
+    ("B4", "flagship 720x1280x3 steady frame", (720, 1280), 3, "full", 1794),
+    ("B4", "pose 720x1280x3 steady frame", (720, 1280), 3, "full", 5116),
+    ("B4", "tau = -1 720x1280x3", (720, 1280), 3, "full", -1),
 ]
 WRAPPERS = {"B1": ("detect_sparse", KD), "B3": ("pool_fused", KP),
-            "B8": ("delta_pool", KDP), "B5": ("stem_conv", KSC)}
+            "B8": ("delta_pool", KDP), "B5": ("stem_conv", KSC),
+            "B9": ("accept_tiles", KA), "B4": ("stem_detect", KSD)}
 
 
-def _blocks_per_sm(csrc, wrapper, default):
+def _constant(csrc, wrapper, name, default):
+    """The integer ``name = N`` of the tree's own wrapper module, else
+    ``default``."""
     path = os.path.join(csrc, os.pardir, "ops", "kernels", wrapper)
     if os.path.exists(path):
         with open(path) as f:
-            m = re.search(r"^BLOCKS_PER_SM = (\d+)", f.read(), re.M)
+            m = re.search(rf"^{name} = (\d+)", f.read(), re.M)
         if m:
             return int(m.group(1))
     return default
 
 
 class Tree:
-    """One source tree's B1, B3, B8 and B5 behind one calling convention
-    each."""
+    """One source tree's B1, B3, B8, B5, B9 and B4 behind one calling
+    convention each."""
 
-    # a phrase of each walking kernel's C interface
+    # a phrase of each walking kernel's C interface (B4: the block plan's)
     WALKS = {"B1": r"int cap,\s+int grid", "B3": r"int cap,\s+int grid",
              "B8": r"int cap,\s+int grid",
-             "B5": r"int n_tiles,\s+int capacity"}
+             "B5": r"int n_tiles,\s+int capacity",
+             "B9": r"int cap,\s+int grid", "B4": r"int vec16,\s+int bw"}
 
     def __init__(self, csrc, out_dir, tag):
         self.walks, self.per_sm, procs, libs = {}, {}, [], {}
@@ -116,8 +140,12 @@ class Tree:
             self.walks[kind] = bool(re.search(self.WALKS[kind], src))
             if kind == "B5":  # takes its channel split from the caller
                 self.split = bool(re.search(r"int cc,\s+int lanes", src))
-            self.per_sm[kind] = _blocks_per_sm(csrc, f"{name}.py",
-                                               mod.BLOCKS_PER_SM)
+            wrapper = mod.__name__.rsplit(".", 1)[1] + ".py"
+            self.per_sm[kind] = _constant(csrc, wrapper, "BLOCKS_PER_SM",
+                                          getattr(mod, "BLOCKS_PER_SM", 0))
+            if kind == "B9":
+                self.part_units = _constant(csrc, wrapper, "PART_UNITS",
+                                            KA.PART_UNITS)
             so = os.path.join(out_dir, f"lib{name}_{tag}.so")
             procs.append(subprocess.Popen(
                 [nvcc_path(), ARCH, "-std=c++17", "-O3", "-shared",
@@ -141,6 +169,11 @@ class Tree:
                    + [ll, ll, vp]),
             "B5": ("cb_stem_conv", [vp] * 6 + [i] * 7 + grid("B5")
                    + [i] * (3 * self.split) + [ll, ll, vp]),
+            "B9": ("cb_accept_tiles", [vp] * 4 + grid("B9") + [i, i]
+                   + [ll] * 3 + [i, i] + [i] * (3 * self.walks["B9"])
+                   + [vp]),
+            "B4": ("cb_stem_detect", [vp] * 4 + [ctypes.c_float] + [i] * 4
+                   + [ll] + [i] * (4 if self.walks["B4"] else 10) + [vp]),
         }
         for kind, (name, argtypes) in self.fn.items():
             f = getattr(ctypes.CDLL(libs[kind]), name)
@@ -149,13 +182,16 @@ class Tree:
 
     def grid(self, kind, cap, walk=None):
         """The grid arguments of a launch over a list of ``cap`` entries
-        (B5: ``walk`` blocks of 8 items cover every tile)."""
+        (B5: ``walk`` blocks of 8 items cover every tile; B9: ``walk``
+        parts a tile)."""
         sms = sm_count(torch.cuda.current_device())
         if kind == "B5":
             return [walk_grid(walk, sms, self.per_sm[kind])
                     if self.walks[kind] else cap]
         if not self.walks[kind]:
             return [cap]
+        if kind == "B9":
+            return [cap, walk_grid(cap * walk, sms, self.per_sm[kind])]
         return [cap, walk_grid(cap, sms, self.per_sm[kind])]
 
 
@@ -167,6 +203,44 @@ def make_case(kind, hw, C, geom, n, gen):
     bf = torch.bfloat16
     dev = "cuda"
     case = {}
+    if geom == "full":  # B4: a float32 frame pair, the bf16 stem cache
+        g = conv_tile_geometry((h, w, C), (3, 3), (1, 1), (1, 1), "SAME",
+                               8, 32)
+        prev = torch.rand(h, w, C, device=dev, generator=gen).to(bf).float()
+        # sensor noise below tau on every pixel, n pixels moved above it
+        x = prev + (torch.rand(h, w, C, device=dev, generator=gen) - 0.5) \
+            * 0.02
+        if n > 0:
+            moved = torch.randperm(h * w, device=dev, generator=gen)[:n]
+            x.view(-1, C)[moved] += 0.5
+        st = torch.zeros(g.store_shape, dtype=bf, device=dev)
+        st[g.store_lo_h:g.store_lo_h + h,
+           g.store_lo_w:g.store_lo_w + w] = prev.to(bf)
+        case.update(x=x, st=st, g=g, cap=h * w,
+                    tau=TAU if n >= 0 else -1.0,
+                    mask_hw=(h // flat4.CELL, w // flat4.CELL),
+                    idx=None, count=None)
+        return case
+    if geom == "accept":  # B9: the producer's padded out cache
+        g = conv_tile_geometry((h, w, C), (1, 1), (1, 1), (1, 1), "SAME",
+                               8, 8)
+        cap = -(-h // 8) * (w // 8)
+        x = torch.randn(g.out_h_pad, g.out_w_pad, C, device=dev,
+                        generator=gen).to(bf)
+        st = torch.randn(g.store_shape[:2] + (C,), device=dev,
+                         generator=gen).to(bf)
+        # every tile, or the clamped bottom row's first and last tile
+        # among those listed
+        bottom = torch.tensor([cap - w // 8, cap - 1], device=dev)
+        rest = torch.randperm(cap - w // 8, device=dev,
+                              generator=gen)[:n - 2]
+        idx = (torch.arange(cap, device=dev) if n == cap
+               else torch.cat([rest, bottom]).sort().values).to(torch.int32)
+        idx = torch.cat([idx, torch.full((cap - n,), cap, dtype=torch.int32,
+                                         device=dev)])
+        count = torch.tensor(n, dtype=torch.int32, device=dev)
+        case.update(x=x, st=st, idx=idx, count=count, g=g, cap=cap)
+        return case
     if geom == "stem":
         g = conv_tile_geometry((h, w, 3), (3, 3), (1, 1), (1, 1), "SAME",
                                8, 32)
@@ -235,8 +309,13 @@ def main():
     ap.add_argument("--csrc", action="append", required=True)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="B1,B3,B8,B5",
+    ap.add_argument("--kernels", default="B1,B3,B8,B5,B9,B4",
                     help="comma-separated kernels whose cases run")
+    ap.add_argument("--flush", choices=("write", "read"), default="write",
+                    help="evict L2 before each launch by writing 64 MiB "
+                    "(as chip_smoke.py does: L2 is left dirty, so a launch "
+                    "also pays for writing back what it evicts) or by "
+                    "reading them (L2 left clean)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -258,11 +337,17 @@ def main():
         x, st0, idx, count, g, cap = (case[k] for k in (
             "x", "st", "idx", "count", "g", "cap"))
         st = st0.clone()
-        n_mask = g.tiles_h * g.tiles_w
-        out = torch.zeros((n_mask + 1,), dtype=torch.int32, device="cuda")
-        mask = out[:n_mask].view(torch.float32).view(g.tiles_h, g.tiles_w)
-        npix = out[n_mask:]
-        walk = KSC.walk_blocks(g, C)  # B5's blocks of 8 items
+        mh, mw = case.get("mask_hw", (g.tiles_h, g.tiles_w))
+        out = torch.zeros((mh * mw + 1,), dtype=torch.int32, device="cuda")
+        mask = out[:mh * mw].view(torch.float32).view(mh, mw)
+        npix = out[mh * mw:]
+        if kind == "B5":  # blocks of 8 items
+            walk = KSC.walk_blocks(g, C)
+        elif kind == "B9":  # parts of a tile (16-byte units)
+            walk = {t: KA.part_split(8 * C * 2 // 16, t.part_units)
+                    for t in trees}
+        else:
+            walk = None
 
         def launch(j):
             tree = trees[j]
@@ -290,6 +375,28 @@ def main():
                     st.data_ptr(), *tree.grid(kind, cap), 1, C, g.tiles_w,
                     g.th, g.tw, kh, kw, sh, sw, g.dx0, x.shape[1] * C,
                     g.out_w_pad * C, stream)
+            elif kind == "B9":
+                x_row, s_row = x.shape[1] * C * 2, st.shape[1] * C * 2
+                split = list(walk[tree]) if tree.walks[kind] else []
+                err = fn(
+                    x.data_ptr(), st.data_ptr(), idx.data_ptr(),
+                    count.data_ptr(), *tree.grid(kind, cap, walk[tree][0]),
+                    g.in_h, g.in_w // 8, x_row, s_row,
+                    g.store_lo_h * s_row + g.store_lo_w * C * 2, 8 * C * 2,
+                    1, *split, stream)
+            elif kind == "B4":
+                s_row = st.shape[1] * C
+                if tree.walks[kind]:
+                    plan = [int(KSD.vec16(
+                        x.data_ptr(), st.data_ptr(), s_row * 2,
+                        (g.store_lo_h * s_row + g.store_lo_w * C) * 2)),
+                        KSD.block_plan(g.in_h, g.in_w)[0]]
+                else:  # the cell grid's window: 8x8 cells, 3x3 SAME
+                    plan = [mh, mw, 8, 8, 1, 1, 10, 10]
+                err = fn(
+                    x.data_ptr(), st.data_ptr(), mask.data_ptr(),
+                    npix.data_ptr(), case["tau"], 1, g.in_h, g.in_w, C,
+                    s_row, g.store_lo_h, g.store_lo_w, *plan, stream)
             else:  # B5
                 n_tiles = [g.n_tiles] if tree.walks[kind] else []
                 split = list(KSC.lane_split(C)) if tree.split else []
@@ -304,15 +411,15 @@ def main():
 
         def fill(j):
             """The zero-fills of tree j's wrapper: one for a list walker
-            of B1 and B3 (mask and npix share a buffer), else one per
-            output; none for B5 and B8."""
-            if kind in ("B5", "B8"):
+            of B1 and B3 and for B4 with a block plan (mask and npix share
+            a buffer), else one per output; none for B5, B8 and B9."""
+            if kind in ("B5", "B8", "B9"):
                 return
             if trees[j].walks[kind]:
                 out.zero_()
             else:
                 mask.zero_()
-                if kind == "B1":
+                if kind in ("B1", "B4"):
                     npix.zero_()
 
         def restore():
@@ -342,6 +449,15 @@ def main():
         elif kind == "B8":
             sp = KDP.delta_pool_plain(x, idx, st0.clone(), g, count=count)
             plain = torch.equal(outs[0][0], sp)
+        elif kind == "B9":
+            sp = KA.accept_tiles_plain(x, st0.clone(), idx, count, g)
+            plain = torch.equal(outs[0][0], sp)
+        elif kind == "B4":
+            sp, mp, pp = KSD.stem_detect_plain(x, st0.clone(), case["tau"],
+                                               g)
+            plain = (torch.equal(outs[0][0], sp) and torch.equal(
+                outs[0][1], mp) and torch.equal(outs[0][2], pp))
+            changed = int(pp)
         else:
             sp = KSC.stem_conv_plain(x, idx, count, case["w"], case["b"],
                                      st0.clone(), g, "relu", torch.bfloat16,
@@ -354,7 +470,10 @@ def main():
             total = 0.0
             for _ in range(args.reps):
                 restore()
-                flush.zero_()
+                if args.flush == "write":
+                    flush.zero_()
+                else:
+                    flush.view(torch.int64).sum()
                 torch.cuda._sleep(2_000_000)
                 e0, e1 = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
@@ -367,6 +486,15 @@ def main():
                 total += e0.elapsed_time(e1)
             return total / args.reps
 
+        def grid_of(tree):
+            if kind == "B4":
+                return (KSD.block_plan(g.in_h, g.in_w)[1]
+                        if tree.walks[kind]
+                        else -(-g.in_w // 32) * -(-g.in_h // 8))
+            if kind == "B9":
+                return tree.grid(kind, cap, walk[tree][0])[-1]
+            return tree.grid(kind, cap, walk)[-1]
+
         order = list(range(len(trees)))
         series = {c: [] for c in args.csrc}
         calls = {c: [] for c in args.csrc}
@@ -375,9 +503,10 @@ def main():
                 series[args.csrc[j]].append(time_one(j, False))
                 calls[args.csrc[j]].append(time_one(j, True))
         print(json.dumps({
-            "kernel": kind, "case": name, "channels": C, "listed": n,
+            "kernel": kind, "case": name, "flush": args.flush,
+            "channels": C, "listed": n,
             "of": cap, "changed_pixels": changed,
-            "grids": [t.grid(kind, cap, walk)[-1] for t in trees],
+            "grids": [grid_of(t) for t in trees],
             "bit_identical_to_first": same, "first_equals_plain": plain,
             "max_ulps": ulps, "ms_per_launch": series,
             "ms_per_call": calls}), flush=True)

@@ -13,7 +13,8 @@ the pose network (w64, on the pose profile's graded-dynamics video, the
 18 heat-channel argmaxes as output): ``pose`` (zoo.load("pose"), 13 conv
 pairs on the fused conv + consumer detect), ``pose_unfused`` (the same
 without the fusion) or ``pose_fwd`` (layers 15, 16 and 20 forwarding their
-producer's hint). It warms up, then profiles one chunk of CB frames (no refresh frame) and
+producer's hint). The clip is seeded with the constant SEED, so two source
+trees are profiled on the same frames. It warms up, then profiles one chunk of CB frames (no refresh frame) and
 the same frames through the dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
 the host thread's CPU ms per frame while enqueuing,
 device-busy ms per frame (union of kernel intervals), the device's idle
@@ -42,6 +43,9 @@ from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,  # noqa
                                      workload_video_kwargs)
 
 H, W = 720, 1280
+# of the profiled clip: fixed, so that two source trees (or two runs) are
+# profiled on the same frames and their device time compares
+SEED = 1
 
 
 def port_kernel(fn_name):
@@ -130,7 +134,7 @@ def main():
             extra_overrides={k: "forward_hint" for k in (15, 16, 20)})
     video = SpriteVideo(SpriteVideoConfig(
         height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
-        noise_std=0.002, seed=int(time.time()) % 100000,
+        noise_std=0.002, seed=SEED,
         distinct_classes=is_pose,
         **workload_video_kwargs("pose" if is_pose else "scene")))
     warm, clip_t, clip_p = (torch.from_numpy(video.clip(args.frames)).cuda()
@@ -175,7 +179,8 @@ def main():
             torch.cuda.synchronize()
         wall = e0.elapsed_time(e1) / args.frames
         busy, n_kern, top, own = kernel_table(prof, args.frames, args.top)
-        print(json.dumps({"path": name, "net": args.path, "card": smi,
+        print(json.dumps({"path": name, "net": args.path, "seed": SEED,
+                          "card": smi,
                           "frames": args.frames,
                           "wall_ms_per_frame": plain_wall,
                           "host_cpu_ms_per_frame": host,

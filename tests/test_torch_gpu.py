@@ -669,3 +669,112 @@ def test_stem_conv_widths_on_card(cuda, monkeypatch, dtype, cout, cin):
         keep = ~listed.view(g.tiles_h, 1, g.tiles_w, 1, 1).expand(
             g.tiles_h, 8, g.tiles_w, 32, cout).reshape(ok.shape)
         assert torch.equal(ok[keep], out0[keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [8, 24, 128, 256])
+@pytest.mark.parametrize("unit", [16, 4])
+@pytest.mark.parametrize("H,grid", [(90, 3), (96, 3), (90, None)])
+def test_accept_tiles_walks_the_list_on_card(cuda, monkeypatch, dtype, C,
+                                             unit, H, grid):
+    """B9 bit for bit against its plain version at counts 0, 1, 30 and
+    every hint tile, on 90-row maps (a clamped bottom hint row overlapping
+    the row above) and 96-row ones, 160 and 640 pixels wide, at C 8 to 256 in 16-byte units and, on
+    a producer cache whose pointer is 4 bytes off 16, in 4-byte units; with
+    a grid forced below the list (3 blocks) and the card's own grid below
+    every tile's pairs. Pixels not listed are never written."""
+    from cbinfer_tpu_torch.ops.kernels import accept as KA
+    from cbinfer_tpu_torch.ops.kernels import sm_count
+    rng = np.random.default_rng(C + H)
+    W = 160 if grid else 640  # 960 hint tiles: more than the card's grid
+    g = conv_tile_geometry((H, W, C), (1, 1), (1, 1), (1, 1), "SAME", 8, 8)
+    n_hint = -(-H // 8) * (W // 8)
+    es = torch.tensor([], dtype=dtype).element_size()
+    parts = KA.part_split(8 * C * es // unit)[0]
+    if grid is None:
+        assert KA.walk_grid(n_hint * parts, sm_count(cuda.index or 0),
+                            KA.BLOCKS_PER_SM) < n_hint * parts
+    _force_grid(monkeypatch, KA, grid)
+    # x is the producer's padded out cache: pad rows and columns unread
+    shape = (H + 6, W + 8, C)
+    n = int(np.prod(shape))
+    off = 0 if unit == 16 else 4 // es
+    x = torch.empty(n + off, dtype=dtype, device=cuda)[off:].view(shape)
+    x.copy_(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
+    assert (x.data_ptr() % 16 == 0) == (unit == 16)
+    st0 = torch.from_numpy(rng.standard_normal(g.store_shape).astype(
+        np.float32)).to(cuda, dtype)
+    # the bottom row's tiles first: in the lists of counts 1 and 30
+    first = [n_hint - 1, n_hint - 20]
+    perm = rng.permutation(n_hint)
+    order = torch.from_numpy(np.concatenate(
+        [first, perm[~np.isin(perm, first)]]).astype(np.int32)).to(cuda)
+    reset_launches()
+    for c in (0, 1, 30, n_hint):
+        count = torch.tensor(c, dtype=torch.int32, device=cuda)
+        sk = KA.accept_tiles(x, st0.clone(), order, count, g)
+        sp = KA.accept_tiles_plain(x, st0.clone(), order, count, g)
+        assert torch.equal(sk, sp)
+        assert torch.equal(sk, st0) == (c == 0)
+    assert torch.equal(
+        sk[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W],
+        x[:H, :W])
+    assert launches()["accept_tiles"] == 4
+
+
+def _stem_storage(g, base, dtype, shift, dev):
+    """The stem's padded storage holding ``base``, its pointer ``shift``
+    elements past a 16-byte boundary."""
+    from cbinfer_tpu_torch.ops.delta_conv import storage_interior
+    n = int(np.prod(g.store_shape))
+    st = torch.zeros(n + shift, dtype=dtype, device=dev)[shift:].view(
+        g.store_shape)
+    storage_interior(st, g).copy_(torch.from_numpy(base))
+    return st
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("H,W,shift", [(16, 72, 0), (24, 264, 0),
+                                       (24, 264, 1), (720, 1280, 0),
+                                       (720, 1280, 1)])
+def test_stem_detect_shapes_on_card(cuda, dtype, C, H, W, shift):
+    """B4 bit for bit against its plain version (cache, cell mask, npix) at
+    tau 0.05, -1 (every pixel) and 1e9 (none), on 8-aligned maps whose
+    width is no multiple of the block's 256 pixels, at C 1 to 4, float32
+    and bf16 caches, 16-byte loads and, on a storage whose interior is off
+    16 bytes, element loads; changed pixels on every cell border and
+    corner, across block borders, at the map's edges, and a borderline
+    pixel whose rounded input would compare otherwise."""
+    from cbinfer_tpu_torch.ops.kernels import stem_detect as KSD
+    rng = np.random.default_rng(C * 1000 + H + W + shift)
+    g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME", 8,
+                           32 if W % 32 == 0 else 8)
+    base = rng.uniform(0, 1, (H, W, C)).astype(np.float32)
+    base = torch.from_numpy(base).to(dtype).float().numpy()  # cache-exact
+    x = base.copy()
+    for r in sorted({0, 7, 8, 15, H - 8, H - 1}):
+        for c in sorted({0, 7, 8, 255, 256, W - 8, W - 1} & set(range(W))):
+            x[r, c, (r + c) % C] += 0.5
+    x[rng.uniform(size=(H, W)) < 0.01] -= 0.3
+    x[3, 5] = base[3, 5] + 0.0501  # changed at 0.05, x unrounded
+    st0 = _stem_storage(g, base, dtype, shift, cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    es = st0.element_size()
+    s_row = g.store_shape[1] * C * es
+    origin = (g.store_lo_h * g.store_shape[1] + g.store_lo_w) * C * es
+    assert KSD.vec16(xt.data_ptr(), st0.data_ptr(), s_row, origin) == (
+        shift == 0)
+    reset_launches()
+    for tau in (0.05, -1.0, 1e9):
+        sk, mk, nk = KSD.stem_detect(xt, st0.clone(), tau, g)
+        sp, mp, np_ = KSD.stem_detect_plain(xt, st0.clone(), tau, g)
+        assert torch.equal(sk, sp) and torch.equal(mk, mp)
+        assert torch.equal(nk, np_)
+        if tau < 0:
+            assert int(nk) == H * W and bool((mk == 1).all())
+        elif tau > 1:
+            assert int(nk) == 0 and not mk.any() and torch.equal(sk, st0)
+        else:
+            assert 0 < int(nk) < H * W
+    assert launches()["stem_detect"] == 3

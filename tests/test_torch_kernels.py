@@ -26,11 +26,14 @@ from cbinfer_tpu_torch.ops import delta_conv as tdc
 from cbinfer_tpu_torch.ops import detect as tdetect
 from cbinfer_tpu_torch.ops.geometry import \
     conv_tile_geometry as t_conv_tile_geometry
+from cbinfer_tpu_torch.ops import flat4
 from cbinfer_tpu_torch.ops.kernels import launches, reset_launches, walk_grid
+from cbinfer_tpu_torch.ops.kernels import accept as KA
 from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
 from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
 from cbinfer_tpu_torch.ops.kernels import pool_fused as KP
 from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
+from cbinfer_tpu_torch.ops.kernels import stem_detect as KSD
 from cbinfer_tpu_torch.ops.kernels.delta_conv import delta_conv
 from cbinfer_tpu_torch.ops.kernels.detect_sparse import detect_sparse
 from cbinfer_tpu_torch.ops.kernels.pool_fused import detect_pool_fused
@@ -209,26 +212,30 @@ def test_detect_pool_fused_plain_matches_pallas(C, blocks):
 # ------------------------ the grid of the list walkers ----------------------
 
 
-@pytest.mark.parametrize("module", [KD, KP, KDP, KSC],
-                         ids=["B1", "B3", "B8", "B5"])
+@pytest.mark.parametrize("module", [KD, KP, KDP, KSC, KA],
+                         ids=["B1", "B3", "B8", "B5", "B9"])
 @pytest.mark.parametrize("rel", ["zero", "below", "at", "above", "all_720p"])
 def test_walk_grid_is_the_list_capped_at_blocks_per_sm(module, rel):
-    """B1, B3, B8 and B5 launch min(capacity, k * SMs) blocks, which walk
-    the device-side count: one block per entry up to k per SM, never more
-    blocks than entries, none for an empty list. B5's capacity is its
+    """B1, B3, B8, B5 and B9 launch min(capacity, k * SMs) blocks, which
+    walk the device-side count: one block per entry up to k per SM, never
+    more blocks than entries, none for an empty list. B5's capacity is its
     items over 8 warps a block: every tile's, since on overflow the walk
     covers all of them (3600 stem tiles at 720p, 16 items a tile at cout
-    128)."""
+    128). B9's is its (tile, part) pairs: every hint tile of pose_fwd's
+    90x160 maps, 4 parts a tile at C 256 in bf16."""
     sms, k = 132, module.BLOCKS_PER_SM
     stem = t_conv_tile_geometry((720, 1280, 3), (3, 3), (1, 1), (1, 1),
                                 "SAME", 8, 32)
-    capacity = {"zero": 0, "below": k * sms - 1, "at": k * sms,
-                "above": k * sms + 1,
-                "all_720p": (KSC.walk_blocks(stem, 128) if module is KSC
-                             else 90 * 160)}[rel]
+    all_720p = 90 * 160
     if module is KSC:
-        assert stem.n_tiles == 3600 and KSC.walk_blocks(stem, 128) == 7200
+        all_720p = KSC.walk_blocks(stem, 128)
+        assert stem.n_tiles == 3600 and all_720p == 7200
         assert KSC.walk_blocks(stem, 64) == 7200  # 16 lanes a block
+    elif module is KA:
+        all_720p = 12 * 20 * KA.part_split(8 * 256 * 2 // 16)[0]
+        assert all_720p == 960
+    capacity = {"zero": 0, "below": k * sms - 1, "at": k * sms,
+                "above": k * sms + 1, "all_720p": all_720p}[rel]
     grid = walk_grid(capacity, sms, k)
     assert grid == min(capacity, k * sms)
     assert (grid == 0) == (capacity == 0)
@@ -257,6 +264,141 @@ def test_stem_conv_lane_split_covers_every_channel_once(cout):
                 cover[pb0:pb1, n0:n0 + cc] += 1
     np.testing.assert_array_equal(cover, 1)
     assert KSC.lane_split(516)[2] > 2  # past 4 chunks: the wrapper refuses
+
+
+@pytest.mark.parametrize("es", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("unit", [16, 4])
+@pytest.mark.parametrize("C", [8, 16, 24, 56, 64, 128, 200, 256, 384, 512])
+def test_accept_tiles_part_split_covers_every_unit_once(C, unit, es):
+    """B9's split of a tile (8 rows of 8*C elements in 16- or 4-byte
+    units) into parts, as accept_tiles.cu maps (part, thread, k) to the
+    unit part * per + thread + 256 * k below the part's end: every unit
+    of the tile falls to exactly one thread, no part is empty, a thread
+    holds at most upt units (1, 2 or 4) and a part at most PART_UNITS;
+    the arguments pass the kernel's own checks."""
+    row_units = 8 * C * es // unit
+    items = 8 * row_units
+    parts, per, upt = KA.part_split(row_units)
+    assert upt in (1, 2, 4) and per <= 256 * upt and per <= KA.PART_UNITS
+    assert parts * per >= items > (parts - 1) * per
+    cover = np.zeros(items, np.int32)
+    for part in range(parts):
+        end = min((part + 1) * per, items)
+        for k in range(upt):
+            e = part * per + np.arange(256) + 256 * k
+            np.add.at(cover, e[e < end], 1)
+    np.testing.assert_array_equal(cover, 1)
+    # a thread of a full part moves more than one unit where it can: the
+    # pose_fwd widths (C 128 and 256 in bf16, 16-byte units) take two
+    if items > 256:
+        assert upt == 2 and per > 256
+
+
+@pytest.mark.parametrize("W", [8, 64, 248, 256, 264, 1280])
+@pytest.mark.parametrize("H", [8, 24, 720])
+def test_stem_detect_block_plan_covers_every_pixel_once(H, W):
+    """B4's block plan, as stem_detect.cu maps (block, warp, lane, pixel)
+    to map pixels: block -> (cell row, 32 cells), warp -> map row, lane ->
+    cell, 8 pixels of the cell's row a thread; every pixel of 8-aligned
+    maps falls to exactly one thread, widths off the 256-pixel block too,
+    and lanes past the map load nothing."""
+    bw, grid = KSD.block_plan(H, W)
+    cover = np.zeros((H, W), np.int32)
+    for blk in range(grid):
+        ca, cb0 = blk // bw, blk % bw * 32
+        for warp in range(8):
+            for lane in range(32):
+                cb = cb0 + lane
+                if cb < W // 8:
+                    cover[ca * 8 + warp, cb * 8:cb * 8 + 8] += 1
+    np.testing.assert_array_equal(cover, 1)
+    assert bw * 32 >= W // 8 > (bw - 1) * 32
+
+
+def _block_marks(changed):
+    """The cell mask stem_detect.cu builds from a changed map: per warp
+    three ballots (a lane's cell, the cell left of its first pixel, right
+    of its last) on the block's 34-cell window, per block the OR of its 8
+    rows on its own cell row and rows 0 and 7 on the rows above and below,
+    clipped to the map."""
+    H, W = changed.shape
+    ch, cw = H // 8, W // 8
+    bw, grid = KSD.block_plan(H, W)
+    mask = np.zeros((ch, cw), np.float32)
+    for blk in range(grid):
+        ca, cb0 = blk // bw, blk % bw * 32
+        rows = []
+        for warp in range(8):
+            m = 0
+            for lane in range(32):
+                cb = cb0 + lane
+                bits = (changed[ca * 8 + warp, cb * 8:cb * 8 + 8]
+                        if cb < cw else np.zeros(8, bool))
+                m |= (int(bits.any()) << (lane + 1) | int(bits[0]) << lane
+                      | int(bits[7]) << (lane + 2))
+            rows.append(m)
+        own = 0
+        for m in rows:
+            own |= m
+        for dr, m in enumerate((rows[0], own, rows[7])):
+            row = ca - 1 + dr
+            for j in range(34):
+                col = cb0 - 1 + j
+                if m >> j & 1 and 0 <= row < ch and 0 <= col < cw:
+                    mask[row, col] = 1.0
+    return mask
+
+
+@pytest.mark.parametrize("H,W", [(24, 64), (16, 264), (32, 512)])
+def test_stem_detect_block_marks_equal_the_windowed_or(H, W):
+    """B4's block-level marking (at most one store a cell a block marks)
+    gives exactly the 3x3 SAME windowed OR onto the 8x8 cells of the plain
+    version (``changed_tile_mask`` on the cell geometry): changed pixels
+    on every cell border and corner, across block borders (32 cells) and
+    at the map's edges, and random ones."""
+    rng = np.random.default_rng(H + W)
+    g = flat4.cell_geometry(t_conv_tile_geometry(
+        (H, W, 3), (3, 3), (1, 1), (1, 1), "SAME", 8, 32 if W % 32 == 0
+        else 8))
+    for trial in range(4):
+        if trial == 0:  # every border and corner pixel of some cells
+            changed = np.zeros((H, W), bool)
+            for r in (0, 7, 8, H - 8, H - 1):
+                for c in (0, 7, 8, 255, 256, W - 8, W - 1):
+                    if r < H and c < W:
+                        changed[r, c] = True
+        elif trial == 1:
+            changed = np.ones((H, W), bool)
+        else:
+            changed = rng.uniform(size=(H, W)) < 0.003 * trial
+        want = tdetect.changed_tile_mask(_t(changed), g).float().numpy()
+        np.testing.assert_array_equal(_block_marks(changed), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("shift", [0, 2, 4, 8])
+def test_stem_detect_load_width(dtype, C, shift):
+    """B4 takes 16-byte loads only where every thread's group of 8 pixels
+    starts 16-byte aligned in the frame and in the storage, and always on
+    the stem storage as ``make_storage`` allocates it (the paths' case);
+    a storage whose pointer is shifted off 16 bytes takes element loads."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    for W in (64, 1280):
+        H = 16
+        g = t_conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME",
+                                 8, 32)
+        s_row = g.store_shape[1] * C * es
+        origin = (g.store_lo_h * g.store_shape[1] + g.store_lo_w) * C * es
+        st_ptr = 4096 + shift * es
+        vec = KSD.vec16(4096, st_ptr, s_row, origin)
+        starts = [(st_ptr + origin + r * s_row + cb * 8 * C * es,
+                   4096 + (r * W + cb * 8) * C * 4)
+                  for r in range(H) for cb in range(W // 8)]
+        aligned = all(a % 16 == 0 and b % 16 == 0 for a, b in starts)
+        assert vec == aligned
+        assert vec == (shift * es % 16 == 0)
+        assert (8 * C * es) % 16 == 0  # a group is whole 16-byte units
 
 
 # ------------------------------ glue around them ----------------------------
