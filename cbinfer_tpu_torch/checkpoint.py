@@ -1,16 +1,21 @@
-"""Weights for the port: the ``w{i}``/``b{i}`` npz format of the JAX
-package's ``checkpoint.load_npz_params``, and the carry-across from numpy
+"""Weights and state for the port: the ``w{i}``/``b{i}`` npz format of the
+JAX package's ``checkpoint.load_npz_params``, the carry-across from numpy
 HWIO parameters (what ``cbinfer_tpu`` holds, as numpy arrays) to the port's
-tensors."""
+tensors, a mid-video checkpoint of params plus the per-layer caches
+(``save`` / ``restore``, so a stream resumes without a cold start), and the
+tuner's threshold files in the JAX package's JSON format."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import dataclasses
+import json
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import ConvSpec
+from .layers import CBLayerState
 from .network import resolve_device, torch_dtype
 
 
@@ -74,3 +79,94 @@ def load_npz_params(path: str, params_like: Sequence, specs: Sequence
     if device is None:
         return list(params_like)
     return params_from_numpy(specs, params_np, device, dtype)
+
+
+def _plain(tree):
+    """A state or params tree with every ``CBLayerState`` as a dict of its
+    tensors: what ``torch.load(weights_only=True)`` reads back."""
+    if isinstance(tree, CBLayerState):
+        return {f.name: getattr(tree, f.name)
+                for f in dataclasses.fields(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_plain(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
+
+
+def _like(saved, like, in_place: bool):
+    """``saved`` (plain, as loaded) in the structure of ``like``: a
+    ``CBLayerState`` where ``like`` has one; with ``in_place`` every tensor
+    is copied into ``like``'s and ``like``'s objects are returned."""
+    if isinstance(like, torch.Tensor):
+        if tuple(saved.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint tensor {tuple(saved.shape)} != "
+                             f"{tuple(like.shape)}")
+        if in_place:
+            return like.copy_(saved)
+        return saved.to(like.device, like.dtype)
+    if isinstance(like, CBLayerState):
+        fields = {f.name: _like(saved[f.name], getattr(like, f.name),
+                                in_place)
+                  for f in dataclasses.fields(like)}
+        return like if in_place else CBLayerState(**fields)
+    if isinstance(like, (list, tuple)):
+        if len(saved) != len(like):
+            raise ValueError(f"checkpoint holds {len(saved)} entries where "
+                             f"{len(like)} are expected")
+        out = type(like)(_like(s, v, in_place) for s, v in zip(saved, like))
+        return like if in_place else out
+    if isinstance(like, dict):
+        out = {k: _like(saved[k], v, in_place) for k, v in like.items()}
+        return like if in_place else out
+    return saved
+
+
+def save(path: str, params: Any, state: Optional[Any] = None,
+         extra: Optional[dict] = None) -> None:
+    """Save params (+ optional streaming state, + an ``extra`` dict of
+    plain values, e.g. the stream's frame position) to the file ``path``
+    with ``torch.save``: a stream resumes mid-video from it."""
+    ckpt = {"params": _plain(params)}
+    if state is not None:
+        ckpt["state"] = _plain(state)
+    if extra is not None:
+        ckpt["extra"] = extra
+    torch.save(ckpt, path)
+
+
+def restore(path: str, like: Optional[dict] = None,
+            in_place: bool = False) -> dict:
+    """Restore a checkpoint dict ({'params', 'state'?, 'extra'?}) written
+    by ``save``, through ``torch.load(weights_only=True)``.
+
+    Without ``like`` the caches come back as plain dicts of tensors on the
+    CPU (a checkpoint saved on the card loads anywhere). Pass ``like``
+    (e.g. {'params': params, 'state': net.init_state()}) to get its
+    structure back (``CBLayerState`` caches) on its tensors' devices and
+    dtypes; shapes must match. ``in_place=True`` copies into ``like``'s
+    tensors instead of making new ones, so a ``FrameStepper``'s captured
+    graphs stay valid (``like={'state': stepper.state}``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if like is None:
+        return ckpt
+    out = dict(ckpt)
+    for k, v in like.items():
+        if k not in ckpt:
+            raise KeyError(f"{path}: no {k!r} in the checkpoint")
+        out[k] = _like(ckpt[k], v, in_place)
+    return out
+
+
+def save_thresholds(path: str, thresholds, metadata: Optional[dict] = None):
+    """Persist a tuner result's tau vector as plain JSON (the JAX
+    package's format, byte for byte)."""
+    with open(path, "w") as f:
+        json.dump({"thresholds": [float(t) for t in thresholds],
+                   "metadata": metadata or {}}, f, indent=2)
+
+
+def load_thresholds(path: str):
+    with open(path) as f:
+        d = json.load(f)
+    return d["thresholds"]

@@ -369,14 +369,19 @@ def _conv_prep(params, x, spec: ConvSpec, cfg: PipelineConfig):
 
 def _store_output(state: CBLayerState, y: torch.Tensor,
                   g: TileGeometry) -> None:
-    """A full-map output into the out cache: adopted as the cache when it
-    already has the cache's shape and dtype (no copy), else copied into the
-    logical region (the pad rows/cols are never read by a consumer)."""
-    if y.shape == state.out_cache.shape and y.dtype == state.out_cache.dtype \
-            and y.is_contiguous():
-        state.out_cache = y
-    else:
-        state.out_cache[:g.out_h, :g.out_w].copy_(y)
+    """A full-map output copied into the out cache's logical region (the
+    pad rows/cols are never read by a consumer). The cache is never
+    rebound: a state tensor keeps its storage for the life of the state,
+    which a captured CUDA graph of the frame loop relies on."""
+    state.out_cache[:g.out_h, :g.out_w].copy_(y)
+
+
+def _out_region(state: CBLayerState, g: TileGeometry, dtype):
+    """The out cache's logical region when a matmul can write it directly
+    (contiguous, in the compute dtype), else None."""
+    region = state.out_cache[:g.out_h, :g.out_w]
+    return region if region.is_contiguous() and region.dtype == dtype \
+        else None
 
 
 def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
@@ -412,11 +417,16 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
             xp = storage[g.store_lo_h - g.pad_lo_h:
                          g.store_lo_h + g.in_h + g.pad_hi_h,
                          g.dx0:g.store_lo_w + g.in_w + g.pad_hi_w]
-            y = network.im2col_conv(xp, w, b, spec, compute_dtype)
+            # the matmul writes straight into the cache where it can,
+            # sparing a full-map copy every frame
+            region = _out_region(state, g, compute_dtype)
+            y = network.im2col_conv(xp, w, b, spec, compute_dtype,
+                                    out=region)
+            if region is None:
+                _store_output(state, y, g)
         else:
-            y = network.dense_conv(storage_interior(storage, g), w, b, spec,
-                                   compute_dtype)
-        _store_output(state, y, g)
+            _store_output(state, network.dense_conv(
+                storage_interior(storage, g), w, b, spec, compute_dtype), g)
         stats = {
             "changed_tiles": mask.sum(dtype=torch.int32),
             "computed_tiles": g.n_tiles,

@@ -115,9 +115,12 @@ def pointwise_dot_conv(x: torch.Tensor, w: torch.Tensor,
                      spec).reshape(H, W, cout)
 
 
-def _matmul_bias(a, w, b, dtype):
-    """a @ w (+ b, added in the product's float32 epilogue)."""
-    return torch.matmul(a, w) if b is None else torch.addmm(b.to(dtype), a, w)
+def _matmul_bias(a, w, b, dtype, out=None):
+    """a @ w (+ b, added in the product's float32 epilogue), into ``out``
+    when given."""
+    if b is None:
+        return torch.matmul(a, w, out=out)
+    return torch.addmm(b.to(dtype), a, w, out=out)
 
 
 def use_im2col(spec: ConvSpec, cin: int) -> bool:
@@ -129,10 +132,12 @@ def use_im2col(spec: ConvSpec, cin: int) -> bool:
 
 
 def im2col_conv(xp: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                spec: ConvSpec, compute_dtype=torch.float32) -> torch.Tensor:
+                spec: ConvSpec, compute_dtype=torch.float32,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stride-1 conv of an ALREADY zero-padded HWC input ``xp``
     ((H + kh - 1, W + kw - 1, cin), a view is fine) as one
-    (H*W, kh*kw*cin) @ (kh*kw*cin, cout) matmul."""
+    (H*W, kh*kw*cin) @ (kh*kw*cin, cout) matmul, written into ``out`` (a
+    contiguous (H, W, cout) tensor in the compute dtype) when given."""
     dtype = torch_dtype(compute_dtype)
     kh, kw = spec.kernel
     cin, cout = w.shape[2], w.shape[3]
@@ -141,7 +146,8 @@ def im2col_conv(xp: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     patches = torch.cat([xp[dy:dy + H, dx:dx + W] for dy in range(kh)
                          for dx in range(kw)], dim=-1)
     y = _matmul_bias(patches.reshape(H * W, kh * kw * cin),
-                     w.to(dtype).reshape(kh * kw * cin, cout), b, dtype)
+                     w.to(dtype).reshape(kh * kw * cin, cout), b, dtype,
+                     out=None if out is None else out.view(H * W, cout))
     return _activate(y, spec).reshape(H, W, cout)
 
 

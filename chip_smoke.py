@@ -55,6 +55,17 @@ Phases, each printing one JSON line:
               whose stem conv and delta pool calls the check phase holds
   pose_fwd    equality with pose run at tau = -1 on the three forwarded
               layers; launches; ms/frame
+  graph_<path>  after each path's timed run (flagship, dense_stem,
+              hintless, pose, pose_unfused, pose_fwd): from two copies of
+              its steady state, five chunks (refresh prologs R S S R S)
+              eagerly and through runner.scan_video_jit's CUDA graphs,
+              outputs, stats and caches bit for bit, every graph's
+              captured launches PER_FRAME x its steady frames; then
+              GRAPH_PAIRS alternating replayed-chunk / dense-chunk timed
+              pairs (graph_fps, graph_ms_per_frame, graph_vs_baseline with
+              its spread, host CPU, the graphs' peak memory); on flagship
+              and pose, FrameStepper at K = 1 from a cold start, equal to
+              the eager loop, per-frame median and p90 wall ms
   check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -95,6 +106,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 POSE_CHUNKS = 3       # timed pose chunks (a refresh prolog every 2nd)
 POSE_TIMED_SEED = 1   # of the pose phases' timed clip (accuracy: seed 0)
 POSE_FWD = {15: "forward_hint", 16: "forward_hint", 20: "forward_hint"}
+GRAPH_PAIRS = 4       # timed (CUDA-graph chunk, dense chunk) pairs per path
+# refresh prologs of the graphed identity run's chunks: the refresh and the
+# steady graph are each captured after an eager first call, then replayed
+GRAPH_PATTERN = (True, False, False, True, False)
+LATENCY_FRAMES = 64   # timed FrameStepper K=1 frames (flagship, pose)
 RESULTS = {}
 # kernels launched per steady (non-refresh) frame of each path; the pose
 # paths' numbers are derived from their converted specs (per_frame_launches)
@@ -154,6 +170,9 @@ def main():
     phase("small", small_parity, torch, np)
     ctx = phase("setup", make_context, torch, np)
     calls = phase("main", main_path, torch, np, ctx)
+    phase("graph_flagship", graph_path, torch, "flagship", ctx.wl.net,
+          ctx.wl.params, ctx.wl.taus, ctx.state, ctx.chunks, ctx.out_u8,
+          ctx.dense_chunk, True)
     phase("main_dense_stem", dense_stem_path, torch, ctx)
     calls += phase("hintless", hintless_path, torch, np, ctx)
     del ctx
@@ -534,6 +553,8 @@ def dense_stem_path(torch, ctx):
          cb_fps={k: 1e3 * len(v) / sum(v) for k, v in series.items()},
          launches=counts["dense_stem"], launches_flagship=counts["flagship"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    graph_path(torch, "dense_stem", nets["dense_stem"], wl.params, wl.taus,
+               states["dense_stem"], ctx.chunks, ctx.out_u8, ctx.dense_chunk)
     ctx.state = None
     del states
     torch.cuda.empty_cache()
@@ -569,6 +590,8 @@ def hintless_path(torch, np, ctx):
     if ys.shape != (T, H // 4, W // 4) or ys.dtype != torch.uint8:
         raise AssertionError(f"CB output {tuple(ys.shape)} {ys.dtype}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    graph_path(torch, "hintless", net, wl.params, taus, state, ctx.chunks,
+               ctx.out_u8, ctx.dense_chunk)
     del state
     # as many chunks as the flagship's pass, so that the one refresh frame
     # weighs the same in both FLOP reductions
@@ -584,6 +607,130 @@ def hintless_path(torch, np, ctx):
          miou_vs_dense=miou["agree"], peak_mem_gib=peak_gib, taus=taus)
     return capture_frame(torch, ctx, "hintless", net, taus, acc_state, av)
 
+
+
+# ------------------------------- CUDA graphs ---------------------------------
+
+
+def _clone_state(state):
+    from cbinfer_tpu_torch.layers import CBLayerState
+    return [None if s is None else CBLayerState(s.in_cache.clone(),
+                                                s.out_cache.clone())
+            for s in state]
+
+
+def _graph_launches(path, info, want_frames):
+    """Each live graph's captured launches are PER_FRAME[path] times its
+    steady frames (a refresh graph's frame 0 launches none)."""
+    for g in info:
+        steady = g["frames"] - (1 if g["refresh_start"] else 0)
+        want = {k: v * steady for k, v in PER_FRAME[path].items()
+                if v * steady}
+        if g["launches"] != want:
+            raise AssertionError(f"{path}: a graph of {g} captured "
+                                 f"{g['launches']}, not {want}")
+    got = sorted((g["frames"], g["refresh_start"]) for g in info)
+    if got != sorted(want_frames):
+        raise AssertionError(f"{path}: graphs {got}, not {want_frames}")
+
+
+def graph_path(torch, path, net, params, taus, state, chunks, out_map,
+               dense_chunk, latency=False):
+    """The path through its CUDA-graph forms, from a steady state:
+    (1) identity: the GRAPH_PATTERN chunks from two clones of the state,
+    eagerly (scan_video) and through scan_video_jit, outputs, stats and
+    final caches bit for bit, the replays under the host-sync check, and
+    the graphs' captured launches PER_FRAME x their steady frames;
+    (2) GRAPH_PAIRS timed pairs of a replayed steady chunk and a dense
+    chunk (G D D G ...), CUDA events, the medians and spread; (3) with
+    ``latency``, FrameStepper.__call__ at K=1 from a cold start: equal to
+    the eager loop on the same frames, then per-frame wall ms (synchronised)
+    over LATENCY_FRAMES frames."""
+    import numpy as np
+    from cbinfer_tpu_torch.runner import (FrameStepper, scan_video,
+                                          scan_video_jit)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    s_eager, s_graph = _clone_state(state), _clone_state(state)
+    run = scan_video_jit(net)
+    for i, refresh in enumerate(GRAPH_PATTERN):
+        ch = chunks[i % len(chunks)]
+        eager = scan_video(net, params, ch, s_eager, collect_stats=True,
+                           thresholds=taus, refresh_start=refresh)
+        graphed = no_sync(torch, lambda: run(
+            params, ch, s_graph, thresholds=taus, refresh_start=refresh,
+            collect_stats=True))
+        _same_run(torch, eager, graphed, f"{path}: graph vs eager, chunk {i}")
+    info = run.graphs.info()
+    replays = sum(g["replays"] for g in info)
+    if replays != len(GRAPH_PATTERN) - 2:
+        raise AssertionError(f"{path}: {replays} replays: {info}")
+    _graph_launches(path, info, [(T, True), (T, False)])
+    del eager, graphed, s_eager
+
+    # timed: replayed steady chunks (no stats, the deployment out_map)
+    # against the dense path, in turns
+    def graph_chunk(ch):
+        return run(params, ch, s_graph, thresholds=taus, collect_stats=False,
+                   out_map=out_map)[0]
+    graph_chunk(chunks[0])
+    graph_chunk(chunks[1])
+    _graph_launches(path, run.graphs.info(),
+                    [(T, True), (T, False), (T, False)])
+    order = ["graph", "dense", "dense", "graph"] * (GRAPH_PAIRS // 2)
+    series = {"graph": [], "dense": []}
+    host = {"graph": [], "dense": []}
+    for i, kind in enumerate(order):
+        ch = chunks[(i // 2) % len(chunks)]
+        fn = (lambda: no_sync(torch, lambda: graph_chunk(ch))) \
+            if kind == "graph" else (lambda: dense_chunk(ch))
+        _, ms, host_ms = timed(torch, fn)
+        series[kind].append(ms / T)
+        host[kind].append(host_ms / T)
+    ratio = [d / g for g, d in zip(series["graph"], series["dense"])]
+    g_ms = float(np.median(series["graph"]))
+    out = dict(path=path, identical_to_eager=True, pattern=GRAPH_PATTERN,
+               replays_checked=replays, graphs=run.graphs.info(),
+               graph_ms_per_frame=g_ms, graph_fps=1e3 / g_ms,
+               graph_host_cpu_ms_per_frame=float(np.median(host["graph"])),
+               dense_ms_per_frame=float(np.median(series["dense"])),
+               dense_fps=1e3 / float(np.median(series["dense"])),
+               graph_vs_baseline=float(np.median(ratio)),
+               graph_vs_baseline_spread=[min(ratio), max(ratio)],
+               order=order, ms_per_frame=series, host_cpu_ms_per_frame=host,
+               peak_mem_above_held_gib=(torch.cuda.max_memory_allocated()
+                                        - held) / 2**30,
+               reserved_gib=torch.cuda.memory_reserved() / 2**30)
+    del run, s_graph
+    if latency:
+        frames = torch.cat([chunks[0][:8]] + list(chunks[1:]))[
+            :8 + LATENCY_FRAMES]
+        ref = scan_video(net, params, frames, net.init_state(),
+                         collect_stats=False, thresholds=taus,
+                         refresh_start=True, out_map=out_map)[0]
+        stepper = FrameStepper(net, params, thresholds=taus, out_map=out_map)
+        ys, wall = [], []
+        for t, f in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys.append(no_sync(torch, lambda: stepper(f)[0]) if t > 2
+                      else stepper(f)[0])
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(torch.stack(ys), ref):
+            raise AssertionError(f"{path}: FrameStepper differs from the "
+                                 "eager loop")
+        info = stepper.graphs.info()
+        _graph_launches(path, info, [(1, True), (1, False)])
+        wall = wall[8:]
+        out["stepper_k1"] = dict(
+            frames=len(wall), median_ms=float(np.median(wall)),
+            p90_ms=float(np.percentile(wall, 90)), min_ms=min(wall),
+            identical_to_eager=True, graphs=info)
+        del stepper
+    emit(f"graph_{path}", **out)
+    torch.cuda.empty_cache()
 
 
 # ------------------------------ the pose paths -------------------------------
@@ -694,7 +841,8 @@ def make_pose_context(torch, np):
 
 def pose_path(torch, np, ctx):
     """zoo.load("pose") exactly: timed CB and dense, launches, accuracy."""
-    from cbinfer_tpu_torch.metrics import effective_flops, pck_gt_from_argmax
+    from cbinfer_tpu_torch.metrics import (effective_flops, heat_argmax,
+                                           pck_gt_from_argmax)
     from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
     wl, net, taus = ctx.wl, ctx.wl.net, ctx.wl.taus
     PER_FRAME["pose"] = per_frame_launches(net)
@@ -813,6 +961,9 @@ def pose_path(torch, np, ctx):
     if not stem_tiles["computed"] < stem_tiles["n_tiles"]:
         raise AssertionError(f"the sparse stem computed every tile: "
                              f"{stem_tiles}")
+    graph_path(torch, "pose", net, wl.params, taus, state, ctx.chunks,
+               heat_argmax, ctx.dense_chunk, latency=True)
+    del state
     return capture_frame(torch, ctx, "pose", net, taus, acc_state, av,
                          ctx.out_shape)
 
@@ -838,6 +989,7 @@ def pose_unfused_path(torch, ctx):
     """The A/B partner of pose: every consumer detects for itself. Bit-
     identical outputs, stats and caches; then both sides timed in turns."""
     from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.metrics import heat_argmax
     from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
     wl = ctx.wl
     wu = zoo.load("pose", (H, W, 3), apply_policy=False)
@@ -886,6 +1038,9 @@ def pose_unfused_path(torch, ctx):
          launches=counts["pose_unfused"], launches_pose=counts["pose"],
          per_frame=PER_FRAME["pose_unfused"],
          kernel_launches_per_frame=per_frame)
+    graph_path(torch, "pose_unfused", wu.net, wl.params, wl.taus,
+               states["pose_unfused"], ctx.chunks, heat_argmax,
+               ctx.dense_chunk)
     # the next frame's calls of B5 and B8 (the unfused net's stem and pool
     # are pose's; its 18 detects and 17 convs are not held here again)
     calls = capture_frame(torch, ctx, "pose_unfused", wu.net, wl.taus,
@@ -897,6 +1052,7 @@ def pose_unfused_path(torch, ctx):
 def pose_fwd_path(torch, ctx):
     """Layers 15, 16 and 20 forward their producer's hint (the tile copy
     kernel): equal to the same net re-detecting there at tau = -1."""
+    from cbinfer_tpu_torch.metrics import heat_argmax
     from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
     wl = ctx.wl
     net = build_net("pose_fwd", wl.specs, (H, W, 3), wl.net.cfg)
@@ -947,6 +1103,8 @@ def pose_fwd_path(torch, ctx):
          ms_per_frame=series, host_cpu_ms_per_frame=host,
          cb_fps=1e3 * len(series) / sum(series), launches=counts,
          per_frame=want)
+    graph_path(torch, "pose_fwd", net, wl.params, wl.taus, state, ctx.chunks,
+               heat_argmax, ctx.dense_chunk)
     return capture_frame(torch, ctx, "pose_fwd", net, wl.taus, state, None,
                          ctx.out_shape, frame=ctx.chunks[3][0])
 

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile_scene.py [flagship|dense_stem|hintless|
                                             pose|pose_unfused|pose_fwd]
-                                           [--frames 32]
+                                           [--frames 32] [--graph]
 
 Builds one of chip_smoke.py's paths, trained weights and tuned taus through
 zoo.load, bf16. Of the scene network (w128): ``flagship`` (the sparse
@@ -19,7 +19,10 @@ the same frames through the dense path. Prints one JSON line per path: wall ms p
 the host thread's CPU ms per frame while enqueuing,
 device-busy ms per frame (union of kernel intervals), the device's idle
 share, the top kernels by device time per frame, and the device time and
-launches per frame of each of the port's own kernels. Needs a CUDA GPU.
+launches per frame of each of the port's own kernels. ``--graph`` runs
+the CB frames through ``runner.scan_video_jit`` instead: the profiled chunk
+is one replay of a captured CUDA graph of the same frame loop (warmed by the
+key's eager first call and one replay). Needs a CUDA GPU.
 """
 
 import argparse
@@ -106,6 +109,8 @@ def main():
                              "pose_unfused", "pose_fwd"))
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--graph", action="store_true",
+                    help="CB frames as CUDA graph replays (scan_video_jit)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -145,16 +150,27 @@ def main():
             return heat_argmax(y)
         return y.argmax(-1).to(torch.uint8)
 
+    run = scan_video
+    if args.graph:
+        # imported here: a source tree from before the graph runner still
+        # profiles its eager loop with this script
+        from cbinfer_tpu_torch.runner import scan_video_jit
+        jit = scan_video_jit(net)
+
+        def run(net_, params_, ch, state, **kw):
+            return jit(params_, ch, state, **kw)
+
     def cb(ch, state, refresh=False):
-        return scan_video(net, params, ch, state, collect_stats=False,
-                          thresholds=taus, refresh_start=refresh,
-                          out_map=out_u8)[1]
+        return run(net, params, ch, state, collect_stats=False,
+                   thresholds=taus, refresh_start=refresh,
+                   out_map=out_u8)[1]
 
     def dense(ch):
         return torch.stack([out_u8(net.apply_dense(params, f)) for f in ch])
 
     state = cb(warm, net.init_state(), refresh=True)
     state = cb(warm, state)
+    state = cb(warm, state)  # with --graph: the steady graph's first replay
     dense(warm)
     torch.cuda.synchronize()
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
@@ -179,6 +195,8 @@ def main():
             torch.cuda.synchronize()
         wall = e0.elapsed_time(e1) / args.frames
         busy, n_kern, top, own = kernel_table(prof, args.frames, args.top)
+        if name == "cb" and args.graph:
+            name = "cb_graph"
         print(json.dumps({"path": name, "net": args.path, "seed": SEED,
                           "card": smi,
                           "frames": args.frames,

@@ -778,3 +778,174 @@ def test_stem_detect_shapes_on_card(cuda, dtype, C, H, W, shift):
         else:
             assert 0 < int(nk) < H * W
     assert launches()["stem_detect"] == 3
+
+
+# ------------------------- the runner's CUDA graphs --------------------------
+
+
+def _graph_net(cuda, kind, path=None):
+    """A small net of the scene flagship (w16) or the fused pose path (w8)
+    at 64x128 on the card, float32, with a steady state and a clip."""
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import num_cb_layers
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.network import init_params
+    from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
+    h, w = 64, 128
+    pose = kind == "pose"
+    specs = get_model("pose", width=8) if pose else \
+        get_model("scene", num_classes=8, width=16)
+    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device="cuda")
+    net = chip_smoke.build_net(path or ("pose" if pose else "flagship"),
+                               specs, (h, w, 3), cfg)
+    params = init_params(specs, (h, w, 3), seed=3, device="cuda")
+    taus = [0.05] * num_cb_layers(net.specs)
+    clip = torch.from_numpy(SpriteVideo(SpriteVideoConfig(
+        height=h, width=w, n_sprites=2, sprite_size=12, seed=3,
+        distinct_classes=pose)).clip(24)).to(cuda)
+    state = scan_video(net, params, clip[:4], collect_stats=False,
+                       thresholds=taus, refresh_start=True)[1]
+    return net, params, taus, clip, state
+
+
+def _chunks(clip, k=4):
+    return [clip[i:i + k] for i in range(4, clip.shape[0], k)]
+
+
+@pytest.mark.parametrize("kind", ["scene", "pose"])
+def test_graph_replay_equals_eager_loop(cuda, kind):
+    """scan_video_jit's replays give the eager loop's outputs, stats and
+    caches bit for bit, on refresh and steady chunks, and each graph's
+    captured launches are the path's per-frame kernels times its steady
+    frames."""
+    from cbinfer_tpu_torch.runner import scan_video, scan_video_jit
+    net, params, taus, clip, state = _graph_net(cuda, kind)
+    s_e, s_g = chip_smoke._clone_state(state), chip_smoke._clone_state(state)
+    run = scan_video_jit(net)
+    for ch, refresh in zip(_chunks(clip), (True, False, False, True, False)):
+        eager = scan_video(net, params, ch, s_e, thresholds=taus,
+                           refresh_start=refresh)
+        graphed = run(params, ch, s_g, thresholds=taus,
+                      refresh_start=refresh)
+        chip_smoke._same_run(torch, eager, graphed, f"{kind} {refresh}")
+    info = run.graphs.info()
+    assert sorted(g["replays"] for g in info) == [1, 2]
+    per_frame = chip_smoke.per_frame_launches(net)
+    for g in info:
+        steady = 4 - g["refresh_start"]
+        assert g["launches"] == {k: v * steady for k, v in per_frame.items()
+                                 if v}
+
+
+def test_graph_new_state_recaptures(cuda):
+    """Another state object (other addresses) gets its own graph, and
+    replays on it give what replays on the first gave."""
+    from cbinfer_tpu_torch.runner import scan_video_jit
+    net, params, taus, clip, state = _graph_net(cuda, "scene")
+    run = scan_video_jit(net)
+    a, b = chip_smoke._clone_state(state), chip_smoke._clone_state(state)
+    outs = {}
+    for name, st in (("a", a), ("b", b)):
+        outs[name] = [run(params, ch, st, thresholds=taus)
+                      for ch in _chunks(clip)[:3]]
+    assert len(run.graphs.info()) == 2
+    assert all(g["replays"] == 2 for g in run.graphs.info())
+    for x, y in zip(outs["a"], outs["b"]):
+        chip_smoke._same_run(torch, x, y, "state a vs state b")
+
+
+def test_graph_stepper_reset_equals_fresh_stepper(cuda):
+    """After reset() a stepper's replays give a fresh stepper's results:
+    reset writes into the captured graphs' tensors."""
+    from cbinfer_tpu_torch.runner import FrameStepper
+    net, params, taus, clip, _ = _graph_net(cuda, "pose")
+    used = FrameStepper(net, params, thresholds=taus, refresh_every=6,
+                        collect_stats="packed")
+    for f in clip[:9]:
+        used(f)
+    used.step_chunk(clip[9:13])
+    used.reset()
+    fresh = FrameStepper(net, params, thresholds=taus, refresh_every=6,
+                         collect_stats="packed")
+    for f in clip[:9]:
+        (ya, sa), (yb, sb) = used(f), fresh(f)
+        assert torch.equal(ya, yb) and torch.equal(sa, sb)
+    (ya, sa), (yb, sb) = used.step_chunk(clip[9:13]), \
+        fresh.step_chunk(clip[9:13])
+    assert torch.equal(ya, yb)
+    for x, y in zip(sa, sb):
+        assert all(torch.equal(x[k], y[k]) for k in x)
+    for x, y in zip(used.state, fresh.state):
+        if x is not None:
+            assert torch.equal(x.in_cache, y.in_cache)
+            assert torch.equal(x.out_cache, y.out_cache)
+
+
+def test_graph_thresholds_select_another_graph(cuda):
+    """The kernels take tau by value, so a graph bakes its thresholds in:
+    other thresholds capture another graph, equal to the eager loop."""
+    from cbinfer_tpu_torch.runner import scan_video, scan_video_jit
+    net, params, taus, clip, state = _graph_net(cuda, "scene")
+    run = scan_video_jit(net)
+    s_e, s_g = chip_smoke._clone_state(state), chip_smoke._clone_state(state)
+    for i, ch in enumerate(_chunks(clip)):
+        t = taus if i % 2 == 0 else [0.2] * len(taus)
+        eager = scan_video(net, params, ch, s_e, thresholds=t)
+        graphed = run(params, ch, s_g, thresholds=t)
+        chip_smoke._same_run(torch, eager, graphed, f"chunk {i}")
+    info = run.graphs.info()
+    assert len(info) == 2 and sorted(g["replays"] for g in info) == [1, 2]
+
+
+def test_graph_capture_with_host_sync_raises(cuda):
+    """A frame function that reads a device value on the host cannot be
+    captured: the call raises, nothing runs it eagerly instead."""
+    from cbinfer_tpu_torch.runner import _Graphs
+    graphs = _Graphs(1)
+    frames = torch.ones(2, 8, 8, 3, device=cuda)
+
+    def fn(fs):
+        return fs * float(fs.sum())  # a host sync
+    with pytest.raises(RuntimeError):
+        graphs.run(("k",), fn, frames)
+    assert graphs.info() == []
+    with pytest.raises(RuntimeError):
+        graphs.run(("k",), fn, frames)
+
+
+def test_graph_kernel_nodes_match_per_frame_launches(cuda, monkeypatch,
+                                                     tmp_path):
+    """The steady graph's dump (CUDAGraph debug mode) holds each of the
+    path's kernels as often as the path's steady frames launch it: the
+    replay runs them, not just the capture's counters."""
+    import re
+    from cbinfer_tpu_torch.ops.kernels import KERNELS
+    from cbinfer_tpu_torch.runner import scan_video_jit
+
+    class DebugGraph(torch.cuda.CUDAGraph):
+        def __init__(self, keep_graph=False):
+            super().__init__(True)  # keep the cudaGraph_t for the dump
+            self.enable_debug_mode()
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", DebugGraph)
+    net, params, taus, clip, state = _graph_net(cuda, "pose", "pose_fwd")
+    run = scan_video_jit(net)
+    for ch in _chunks(clip)[:2]:
+        run(params, ch, state, thresholds=taus)
+    (entry,) = run.graphs._graphs.values()
+    dump = tmp_path / "graph.dot"
+    entry.graph.debug_dump(str(dump))
+    # a kernel function is <source stem>[_variant]_kernel (in an anonymous
+    # namespace, so mangled names carry a length prefix); one node a line
+    stems = {os.path.splitext(os.path.basename(k.source))[0]: k.name
+             for k in KERNELS}
+    pattern = re.compile("(?<![a-z_])(?:\\d+)?(" + "|".join(
+        sorted(stems, key=len, reverse=True)) + ")(?:_[a-z0-9]+)*_kernel")
+    nodes = {}
+    for line in dump.read_text().splitlines():
+        m = pattern.search(line)
+        if m is not None:
+            name = stems[m.group(1)]
+            nodes[name] = nodes.get(name, 0) + 1
+    per_frame = chip_smoke.per_frame_launches(net)
+    assert nodes == {k: 4 * v for k, v in per_frame.items() if v}
