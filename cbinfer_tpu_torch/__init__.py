@@ -6,13 +6,15 @@ cbinfer_tpu. Entry points run on the card unless the caller passes
 ``device="cpu"``, where every kernel wrapper takes its plain PyTorch
 version. Layout:
 
-  config, models      layer-spec IR, the scene and pose model families
+  config, models      layer-spec IR, the scene, seg and pose model families
   network, checkpoint dense baseline path, weights, mid-video state
   ops/                detect, compact, delta-conv/pool helpers, geometry,
                       the small-cin stem's gate and plain detect (flat4)
   ops/kernels/        the hand-written CUDA kernels' wrappers, plain
                       versions and launch counters; sources in csrc/
   layers, convert     change-based layers and the network converter
+  graph, netview      DAG networks (concat, name-keyed state) and their
+                      converter; one layer table over both net types
   runner              the streaming frame loop; scan_video_jit and
                       FrameStepper replay it as CUDA graphs on the card
   profiling           torch.profiler trace, stage timer, stats table

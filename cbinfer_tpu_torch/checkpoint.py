@@ -1,6 +1,7 @@
 """Weights and state for the port: the ``w{i}``/``b{i}`` npz format of the
-JAX package's ``checkpoint.load_npz_params``, the carry-across from numpy
-HWIO parameters (what ``cbinfer_tpu`` holds, as numpy arrays) to the port's
+JAX package's ``checkpoint.load_npz_params`` and the ``w:{node}``/
+``b:{node}`` one of its DAG nets, the carry-across from numpy HWIO
+parameters (what ``cbinfer_tpu`` holds, as numpy arrays) to the port's
 tensors, a mid-video checkpoint of params plus the per-layer caches
 (``save`` / ``restore``, so a stream resumes without a cold start), and the
 tuner's threshold files in the JAX package's JSON format."""
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +18,15 @@ import torch
 from .config import ConvSpec
 from .layers import CBLayerState
 from .network import resolve_device, torch_dtype
+
+
+def _tensor_pair(w, b, dev, dtype):
+    """numpy ``(w, b)`` -> ``w`` in ``dtype``, ``b`` float32, on ``dev``."""
+    w = torch.from_numpy(np.asarray(w, np.float32).copy())
+    bt = None
+    if b is not None:
+        bt = torch.from_numpy(np.asarray(b, np.float32).copy()).to(dev)
+    return w.to(dev, dtype), bt
 
 
 def params_from_numpy(specs: Sequence, params_np: Sequence, device="cuda",
@@ -34,13 +44,35 @@ def params_from_numpy(specs: Sequence, params_np: Sequence, device="cuda",
             out.append(None)
             continue
         w, b = p
-        w = torch.from_numpy(np.asarray(w, np.float32).copy())
-        if w.shape[:2] != tuple(spec.kernel) or w.shape[3] != spec.features:
-            raise ValueError(f"weight {tuple(w.shape)} does not match {spec}")
-        bt = None
-        if b is not None:
-            bt = torch.from_numpy(np.asarray(b, np.float32).copy()).to(dev)
-        out.append((w.to(dev, dtype), bt))
+        shape = np.shape(w)
+        if shape[:2] != tuple(spec.kernel) or shape[3] != spec.features:
+            raise ValueError(f"weight {shape} does not match {spec}")
+        out.append(_tensor_pair(w, b, dev, dtype))
+    return out
+
+
+def graph_params_from_numpy(nodes: Sequence, params_np: Dict[str, Any],
+                            device="cuda", dtype=torch.float32
+                            ) -> Dict[str, Any]:
+    """The DAG twin of ``params_from_numpy``: numpy HWIO ``(w, b)`` by conv
+    node name (what ``cbinfer_tpu.graph.init_graph_params`` returns, as
+    numpy arrays) -> the port's params dict, ``w`` in ``dtype`` and ``b``
+    float32 on ``device``. Raises on a missing conv node or a weight that
+    does not fit its node's spec."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    out: Dict[str, Any] = {}
+    for n in nodes:
+        if not isinstance(n.spec, ConvSpec):
+            continue
+        if n.name not in params_np:
+            raise ValueError(f"no params for conv node {n.name!r}")
+        w, b = params_np[n.name]
+        shape = np.shape(w)
+        if shape[:2] != tuple(n.spec.kernel) or shape[3] != n.spec.features:
+            raise ValueError(f"weight {shape} of node {n.name!r} does not "
+                             f"match {n.spec}")
+        out[n.name] = _tensor_pair(w, b, dev, dtype)
     return out
 
 
@@ -79,6 +111,54 @@ def load_npz_params(path: str, params_like: Sequence, specs: Sequence
     if device is None:
         return list(params_like)
     return params_from_numpy(specs, params_np, device, dtype)
+
+
+def save_npz_graph_params(path: str, params: Dict[str, Any]) -> None:
+    """Flat npz of a DAG's params dict, keys ``w:{node}`` / ``b:{node}``
+    (the JAX package's format; float32 numpy arrays)."""
+    flat = {}
+    for name, (w, b) in params.items():
+        flat[f"w:{name}"] = w.detach().float().cpu().numpy()
+        if b is not None:
+            flat[f"b:{name}"] = b.detach().float().cpu().numpy()
+    np.savez(path, **flat)
+
+
+def load_npz_graph_params(path: str, params_like: Dict[str, Any]
+                          ) -> Dict[str, Any]:
+    """Load a ``w:{node}``/``b:{node}`` npz into a params dict shaped like
+    ``params_like`` (the port's graph params; their device and weight dtype
+    are kept). Raises, naming the file, on a missing node, a missing or
+    extra bias, and a shape mismatch, like the JAX package's loader."""
+    flat = np.load(path)
+    out: Dict[str, Any] = {}
+    for name, p in params_like.items():
+        if p is None:
+            out[name] = None
+            continue
+        if f"w:{name}" not in flat:
+            raise ValueError(f"{path}: missing w:{name} (checkpoint from "
+                             "a different topology?)")
+        w = flat[f"w:{name}"]
+        if tuple(w.shape) != tuple(p[0].shape):
+            raise ValueError(
+                f"{path}: w:{name} shape {w.shape} != model shape "
+                f"{tuple(p[0].shape)} (checkpoint trained at a different "
+                "width?)")
+        b = None
+        if f"b:{name}" in flat:
+            if p[1] is None:
+                raise ValueError(f"{path}: b:{name} present for a "
+                                 "bias-free node")
+            b = flat[f"b:{name}"]
+            if tuple(b.shape) != tuple(p[1].shape):
+                raise ValueError(f"{path}: b:{name} shape {b.shape} != "
+                                 f"model shape {tuple(p[1].shape)}")
+        elif p[1] is not None:
+            raise ValueError(f"{path}: missing b:{name} for a node with "
+                             "bias")
+        out[name] = _tensor_pair(w, b, p[0].device, p[0].dtype)
+    return out
 
 
 def _plain(tree):

@@ -17,15 +17,18 @@ import torch
 from . import layers as L
 from . import network
 from .config import ConvSpec, PipelineConfig, PoolSpec, UpsampleSpec
+from .netview import NetView, hint_reaches
 from .ops import flat4 as flat4_ops
+
 
 def dense_conv_on_feature(x, p, spec: ConvSpec, compute_dtype):
     """Dense conv of a layer output that may be a padded Feature. A
     pointwise conv runs straight on the padded storage and crops its small
-    output (cropping commutes with a 1x1 window); everything else crops
-    first."""
+    output (cropping commutes with a 1x1 window) unless the storage has
+    pad channels; everything else crops first."""
     w, b = p
-    if (isinstance(x, L.Feature) and spec.kernel == (1, 1)
+    if (isinstance(x, L.Feature) and x.data.shape[-1] == x.c
+            and spec.kernel == (1, 1)
             and spec.stride == (1, 1) and spec.dilation == (1, 1)):
         y = network.pointwise_dot_conv(x.data, w, b, spec, compute_dtype)
         return y[:x.h, :x.w]
@@ -226,16 +229,6 @@ def flagship_layers(specs: Sequence,
     return overrides, dense
 
 
-def _hint_reaches(specs: Sequence, i: int) -> bool:
-    """Sequential form of the JAX package's ``netview.hint_reaches``: the
-    producer of layer i always hands it a dirty hint iff it is a CB layer
-    (the network input carries none)."""
-    if i == 0:
-        return False
-    p = specs[i - 1]
-    return isinstance(p, (ConvSpec, PoolSpec)) and p.use_cb
-
-
 def convert_flagship(specs: Sequence, in_shape: Tuple[int, int, int],
                      cfg: Optional[PipelineConfig] = None,
                      thresholds: Optional[Sequence[float]] = None,
@@ -269,13 +262,14 @@ def convert_flagship(specs: Sequence, in_shape: Tuple[int, int, int],
     net = convert(specs, in_shape, cfg, dense_layers=dense,
                   backend_overrides=overrides)
     shapes = [tuple(in_shape)] + network.out_shapes(net.specs, in_shape)
+    view = NetView.from_specs(net.specs, in_shape, cfg)
     new_specs = []
     for i, s in enumerate(net.specs):
         if isinstance(s, PoolSpec) and s.use_cb and s.window == s.stride:
             s = dataclasses.replace(s, forward_hint=True)
             lcfg = L._layer_cfg(s, cfg)
             g = L._geometry(s, shapes[i], lcfg)
-            if L.fused_pool_gate(s, g, lcfg) and _hint_reaches(net.specs, i):
+            if L.fused_pool_gate(s, g, lcfg) and hint_reaches(view, i):
                 s = dataclasses.replace(s, elide_in_cache=True)
         new_specs.append(s)
     for i in range(len(new_specs) - 1 if fuse_detect else 0):

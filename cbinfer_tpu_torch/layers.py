@@ -31,7 +31,11 @@ ran this layer's detect, which rides in on ``DirtyHint.predetect``).
 
 Lane padding: the JAX package pads every channel dim to 128 on its
 ``"pallas"`` backend; the port stores logical widths (the delta conv
-kernels take any cin that is a multiple of 8 in bf16, 4 in float32).
+kernels take any cin that is a multiple of 8 in bf16, 4 in float32). The
+one exception is the out cache of a ``"cuda"`` conv whose cout is off that
+grid (``stored_features``): the kernels store whole output vectors, so the
+cache keeps zero channels up to the grid, computed on zero weight columns
+and a zero bias, and the layer's ``Feature`` crops them.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from .ops.delta_conv import make_storage, storage_interior
 from .ops.delta_pool import dense_pool
 from .ops.geometry import TileGeometry, cdiv, conv_tile_geometry
 from .ops.kernels.accept import accept_tiles
-from .ops.kernels.delta_conv import delta_conv
+from .ops.kernels.delta_conv import channel_quantum, delta_conv
 from .ops.kernels.delta_conv_detect import delta_conv_detect, fuse_gate
 from .ops.kernels.delta_pool import delta_pool
 from .ops.kernels.detect_full import detect_full
@@ -115,6 +119,8 @@ class Feature:
 
 def _unwrap(x):
     if isinstance(x, Feature):
+        if x.data.shape[-1] != x.c:  # a padded out cache: its logical part
+            return x.crop().contiguous(), x.h, x.w, x.c
         return x.data, x.h, x.w, x.c
     return x, x.shape[0], x.shape[1], x.shape[2]
 
@@ -141,13 +147,45 @@ def _geometry(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
                               spec.padding, th, tw)
 
 
+def stored_features(spec: ConvSpec, cfg: PipelineConfig) -> int:
+    """Channels of a conv layer's out cache: ``spec.features``, rounded up
+    to the tile-conv kernels' ``channel_quantum`` on the ``"cuda"``
+    backend (on every device, so that the card and the CPU keep one
+    layout)."""
+    cfg = _layer_cfg(spec, cfg)
+    if cfg.backend != "cuda":
+        return spec.features
+    q = channel_quantum(network.torch_dtype(cfg.cache_dtype))
+    return -(-spec.features // q) * q
+
+
+def _padded_params(w: torch.Tensor, b: Optional[torch.Tensor], cout: int):
+    """``(w, b)`` with zero output channels up to ``cout``: made at the
+    first use and kept on ``w`` (anew if ``w`` or ``b`` was written in place
+    since), so every frame hands the kernel the same tensors."""
+    if w.shape[3] == cout:
+        return w, b
+    key = (w._version, None if b is None else (b.data_ptr(), b._version))
+    got = getattr(w, "_cb_padded", None)
+    if got is None or got[0] != key:
+        wp = w.new_zeros(tuple(w.shape[:3]) + (cout,))
+        wp[..., :w.shape[3]] = w
+        bp = None
+        if b is not None:
+            bp = b.new_zeros((cout,))
+            bp[:b.shape[0]] = b
+        got = w._cb_padded = (key, wp, bp)
+    return got[1], got[2]
+
+
 def cb_layer_init(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
                   ) -> CBLayerState:
     """Allocate a layer's caches on ``cfg.device``."""
+    cout = (stored_features(spec, cfg) if isinstance(spec, ConvSpec)
+            else in_shape[2])
     cfg = _layer_cfg(spec, cfg)
     dev = network.resolve_device(cfg.device)
     dtype = network.torch_dtype(cfg.cache_dtype)
-    cout = spec.features if isinstance(spec, ConvSpec) else in_shape[2]
     g = _geometry(spec, in_shape, cfg)
     out_cache = torch.zeros((g.out_h_pad, g.out_w_pad, cout), dtype=dtype,
                             device=dev)
@@ -352,6 +390,10 @@ def fuse_next_gate(spec, spec2, in_shape: Tuple[int, int, int],
     backends = [spec.backend or cfg.backend, spec2.backend or cfg.backend]
     if backends != ["cuda", "cuda"]:
         return False
+    if stored_features(spec, cfg) != spec.features:
+        # the fused kernel detects on the out tile it computes, at the
+        # consumer's input width: a padded tile has other channels
+        return False
     g = _geometry(spec, in_shape, _layer_cfg(spec, cfg))
     g2 = _geometry(spec2, (g.out_h, g.out_w, spec.features),
                    _layer_cfg(spec2, cfg))
@@ -372,8 +414,9 @@ def _store_output(state: CBLayerState, y: torch.Tensor,
     """A full-map output copied into the out cache's logical region (the
     pad rows/cols are never read by a consumer). The cache is never
     rebound: a state tensor keeps its storage for the life of the state,
-    which a captured CUDA graph of the frame loop relies on."""
-    state.out_cache[:g.out_h, :g.out_w].copy_(y)
+    which a captured CUDA graph of the frame loop relies on. A padded
+    cache's zero channels are left as they are."""
+    state.out_cache[:g.out_h, :g.out_w, :y.shape[-1]].copy_(y)
 
 
 def _out_region(state: CBLayerState, g: TileGeometry, dtype):
@@ -437,6 +480,8 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
         }
         return (Feature(state.out_cache, g.out_h, g.out_w, spec.features),
                 state, stats, _out_hint(mask, g))
+
+    w, b = _padded_params(w, b, state.out_cache.shape[-1])
 
     def tile_fn(storage, idx, count, out_cache):
         delta_conv(storage, idx, w, b, out_cache, g, spec.activation,

@@ -2,7 +2,8 @@
 ``cbinfer_tpu.metrics`` the scene and pose paths report): per-class
 intersection / union counts of class maps and their merge into mIoU, PCK of
 heatmap argmaxes against ground-truth keypoints, and the effective-FLOP
-reduction from the per-layer computed-tile counters."""
+reduction from the per-layer computed-tile counters, of sequential and DAG
+nets alike."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from .config import ConvSpec
-from .network import out_shapes
+from .netview import NetView
 
 
 def iu_counts(pred_ids: torch.Tensor, ref_ids: torch.Tensor,
@@ -84,20 +85,22 @@ def _np(v) -> np.ndarray:
     return np.asarray(v)
 
 
-def effective_flops(stats: List[Dict], specs: Sequence, in_shape,
-                    tile_h: int, tile_w: int) -> Dict[str, float]:
+def effective_flops_view(view, stats, tile_h: int, tile_w: int
+                         ) -> Dict[str, float]:
     """Dense FLOPs per frame, the mean effective FLOPs (computed tiles x
-    FLOPs per tile) and their ratio, the ``flop_reduction`` pillar. Takes
-    per-frame stacks or means of the counters."""
+    FLOPs per tile) and their ratio, the ``flop_reduction`` pillar, over a
+    ``netview.NetView`` of a CBNet or a CBGraphNet (stats a list or a
+    name-keyed dict). Takes per-frame stacks or means of the counters."""
     dense_total = 0
     eff_total = 0.0
     frames = None
-    shapes = [tuple(in_shape)] + out_shapes(specs, in_shape)
-    for i, (spec, s) in enumerate(zip(specs, stats)):
-        if not s or not isinstance(spec, ConvSpec):
+    for row in view.rows:
+        s = view.stats_of(stats, row)
+        if not s or not isinstance(row.spec, ConvSpec):
             continue
-        kh, kw = spec.kernel
-        ft = 2 * tile_h * tile_w * kh * kw * shapes[i][2] * spec.features
+        kh, kw = row.spec.kernel
+        ft = 2 * tile_h * tile_w * kh * kw * row.in_shape[2] \
+            * row.spec.features
         computed = _np(s["computed_tiles"]).astype(np.float64)
         n_tiles = float(np.max(_np(s["n_tiles"])))
         frames = computed.shape[0] if computed.ndim else 1
@@ -109,3 +112,10 @@ def effective_flops(stats: List[Dict], specs: Sequence, in_shape,
         "flop_reduction": float(dense_total / max(eff_total, 1.0)),
         "frames": frames,
     }
+
+
+def effective_flops(stats: List[Dict], specs: Sequence, in_shape,
+                    tile_h: int, tile_w: int) -> Dict[str, float]:
+    """The sequential-specs wrapper of ``effective_flops_view``."""
+    return effective_flops_view(NetView.from_specs(specs, in_shape), stats,
+                                tile_h, tile_w)

@@ -1,5 +1,6 @@
-"""Model registry of the port (the scene and the sequential pose families
-of ``cbinfer_tpu.models``)."""
+"""Model registry of the port (the scene, seg and pose families of
+``cbinfer_tpu.models``; the DAG ``models.pose.pose_graph`` is built by a
+call of its own, not through the registry)."""
 
 from typing import Callable, Dict, List
 
@@ -20,4 +21,4 @@ def get_model(name: str, **kwargs) -> List:
     return _REGISTRY[name](**kwargs)
 
 
-from . import pose, scene  # noqa: E402,F401
+from . import pose, scene, seg  # noqa: E402,F401

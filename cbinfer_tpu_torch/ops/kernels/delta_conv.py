@@ -27,6 +27,13 @@ KERNEL = Kernel(name="delta_conv", route="cuda",
                 replaces="cbinfer_tpu/ops/pallas/delta_conv.py:133")
 
 
+def channel_quantum(dtype) -> int:
+    """The channel grid of the tile-conv kernels (B2, B6): 16-byte staging
+    of the input channels, and n-tiles of 8 outputs in bf16 or 4-wide
+    output vectors in float32. cin and cout must be multiples of it."""
+    return 8 if dtype == torch.bfloat16 else 4
+
+
 def delta_conv_plain(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor], out_cache: torch.Tensor,
                      g: TileGeometry, activation: Optional[str],
@@ -70,15 +77,13 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     tensors = [xp, idx, w, out_cache, count] + ([b] if b is not None else [])
     if not all(t.is_cuda for t in tensors):
         raise ValueError("delta_conv: tensors must all be on the card")
-    # bf16: 16-byte staging (8 input channels; a cin off the MMA's
-    # 16-channel k-step ends in a half step) and n-tiles of 8 outputs;
-    # float32: 16-byte staging and 4-wide output vectors
-    cin_q, cout_q = (8, 8) if dtype == torch.bfloat16 else (4, 4)
+    # a cin off the MMA's 16-channel k-step ends in a half step
+    q = channel_quantum(dtype)
     if (dtype not in DTYPE_CODE or w.dtype != dtype
             or out_cache.dtype != dtype or dtype != compute_dtype
             or tuple(xp.shape) != g.store_shape or cin != g.cin
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, cout)
-            or cin % cin_q or cout % cout_q or xp.data_ptr() % 16
+            or cin % q or cout % q or xp.data_ptr() % 16
             or g.th * g.tw > 64
             or (b is not None and (b.dtype != torch.float32
                                    or b.shape != (cout,)))

@@ -21,7 +21,7 @@ from ..conv_plan import conv_plan, packed_weights
 from ..geometry import TileGeometry
 from . import DTYPE_CODE, Kernel
 from .build import check, library
-from .delta_conv import delta_conv_plain
+from .delta_conv import channel_quantum, delta_conv_plain
 from .detect_sparse import detect_sparse_plain
 
 HINT = 8
@@ -107,16 +107,14 @@ def delta_conv_detect(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         + ([b] if b is not None else [])
     if not all(t.is_cuda for t in tensors):
         raise ValueError("delta_conv_detect: tensors must all be on the card")
-    # bf16: 16-byte staging (8 input channels) and n-tiles of 8 outputs;
-    # float32: 16-byte staging and 4-wide output vectors
-    cin_q, cout_q = (8, 8) if dtype == torch.bfloat16 else (4, 4)
+    q = channel_quantum(dtype)
     if (dtype not in DTYPE_CODE or w.dtype != dtype
             or out_cache.dtype != dtype or next_cache.dtype != dtype
             or dtype != compute_dtype
             or tuple(xp.shape) != g.store_shape or cin != g.cin
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, cout)
             or tuple(next_cache.shape) != g2.store_shape
-            or cin % cin_q or cout % cout_q or xp.data_ptr() % 16
+            or cin % q or cout % q or xp.data_ptr() % 16
             or (b is not None and (b.dtype != torch.float32
                                    or b.shape != (cout,)))
             or idx.dtype != torch.int32 or count.dtype != torch.int32

@@ -14,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 import torch
@@ -49,24 +49,37 @@ def _np(v) -> np.ndarray:
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def summarize_stats(stats: List[Dict], specs=None) -> str:
+def summarize_stats(stats, specs=None) -> str:
     """Human-readable per-layer table from a scan's stats channel (stacked
-    or mean form; the same string as the JAX package's for the same
-    counters)."""
-    lines = ["layer | kind      | mean computed | max | overflow% | "
+    or mean form). For a CBNet's list of stats, ``specs`` is its specs and
+    the string is the JAX package's for the same counters; for a
+    CBGraphNet's name-keyed stats, ``specs`` is its nodes and each row is
+    labelled by node name, in the stats' (topological) order."""
+    if isinstance(stats, dict):
+        items = list(stats.items())
+        kinds = {n.name: n.spec for n in specs} if specs else {}
+        width = max([5] + [len(k) for k in stats])
+        head = f"{'node':<{width}}"
+    else:
+        items = list(enumerate(stats))
+        kinds = dict(enumerate(specs)) if specs else {}
+        width, head = 5, "layer"
+    lines = [f"{head} | kind      | mean computed | max | overflow% | "
              "mean detect"]
-    for i, s in enumerate(stats):
+    for key, s in items:
+        label = f"{key:>{width}}" if isinstance(key, int) \
+            else f"{key:<{width}}"
         if not s:
-            kind = type(specs[i]).__name__ if specs else "dense"
-            lines.append(f"{i:5d} | {kind:<9} |      --       |  -- |"
+            kind = type(kinds[key]).__name__ if kinds else "dense"
+            lines.append(f"{label} | {kind:<9} |      --       |  -- |"
                          "    --     |    --")
             continue
         computed = _np(s["computed_tiles"]).astype(np.float64)
         n = float(np.max(_np(s["n_tiles"])))
         ov = float(np.mean(_np(s["overflow"]))) * 100
         det = float(np.mean(_np(s["detect_tiles"])))
-        kind = type(specs[i]).__name__ if specs else "cb"
+        kind = type(kinds[key]).__name__ if kinds else "cb"
         lines.append(
-            f"{i:5d} | {kind:<9} | {np.mean(computed)/n:12.1%} |"
+            f"{label} | {kind:<9} | {np.mean(computed)/n:12.1%} |"
             f" {np.max(computed)/n:3.0%} | {ov:8.1f}% | {det:8.1f}")
     return "\n".join(lines)

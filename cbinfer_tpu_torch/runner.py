@@ -18,14 +18,15 @@ both forms run the eager loop.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import ConvSpec
-from .convert import CBNet
-from .network import out_shapes, torch_dtype
+from .netview import NetView
+from .network import torch_dtype
 from .ops.kernels import launches
 
 STAT_KEYS = ("changed_pixels", "changed_tiles", "computed_tiles",
@@ -65,65 +66,89 @@ def _is_bool(v) -> bool:
             else isinstance(v, bool))
 
 
-def _frame_counters(stats: List[Dict[str, Any]], device):
-    """One frame's per-layer stats -> (layout, vector): ``layout`` names
-    each layer's keys in dict order, with whether the counter is boolean;
-    the vector holds the integer counters, then the boolean ones, each
-    block in layer order (one stack per frame instead of a device op per
-    counter)."""
-    layout = tuple(tuple((k, _is_bool(v)) for k, v in s.items())
-                   for s in stats)
-    ints = [v for s in stats for k, v in s.items() if not _is_bool(v)]
-    bools = [v for s in stats for k, v in s.items() if _is_bool(v)]
+def _items(stats) -> List[Tuple[Any, Dict[str, Any]]]:
+    """(key, counters) pairs of one frame's stats: a CBNet's list by layer
+    index, or a CBGraphNet's dict by node name in topological order."""
+    return list(stats.items()) if isinstance(stats, dict) \
+        else list(enumerate(stats))
+
+
+def _frame_counters(stats, device):
+    """One frame's per-layer stats -> (layout, vector): ``layout`` says
+    whether the stats are name-keyed and names each layer's keys in dict
+    order, with whether the counter is boolean; the vector holds the
+    integer counters, then the boolean ones, each block in layer order
+    (one stack per frame instead of a device op per counter)."""
+    items = _items(stats)
+    layout = (isinstance(stats, dict),
+              tuple((key, tuple((k, _is_bool(v)) for k, v in s.items()))
+                    for key, s in items))
+    ints = [v for _, s in items for v in s.values() if not _is_bool(v)]
+    bools = [v for _, s in items for v in s.values() if _is_bool(v)]
     if not ints and not bools:
         return layout, None
     return layout, _stack_counters(ints + bools, device)
 
 
-def _layer_dicts(layout, ints: Sequence, bools: Sequence
-                 ) -> List[Dict[str, Any]]:
+def _layer_dicts(layout, ints: Sequence, bools: Sequence):
     """Inverse of ``_frame_counters``' order: per-layer dicts of ``ints``
-    (the integer counters' values) and ``bools`` (the boolean ones')."""
+    (the integer counters' values) and ``bools`` (the boolean ones'), in
+    a list or a name-keyed dict as the layout says."""
+    named, rows = layout
     it_i, it_b = iter(ints), iter(bools)
-    return [{k: next(it_b) if b else next(it_i) for k, b in keys}
-            for keys in layout]
+    dicts = [(key, {k: next(it_b) if b else next(it_i) for k, b in keys})
+             for key, keys in rows]
+    return dict(dicts) if named else [d for _, d in dicts]
 
 
-def _empty_stats(net: CBNet, device) -> List[Dict[str, Any]]:
+def _empty_stats(net, device):
     """``collect_stats=True``'s stats of an empty clip: ``(0,)`` stacks."""
-    return [{k: torch.empty(0, device=device, dtype=torch.bool
-                            if k == "overflow" else torch.int32)
-             for k in STAT_KEYS}
-            if s.kind in ("conv", "pool") and s.use_cb else {}
-            for s in net.specs]
+    dicts = [(r.key, {k: torch.empty(0, device=device, dtype=torch.bool
+                                     if k == "overflow" else torch.int32)
+                      for k in STAT_KEYS} if r.is_cb else {})
+             for r in NetView.of(net).rows]
+    return dict(dicts) if hasattr(net, "nodes") else [d for _, d in dicts]
 
 
-def _output_like(net: CBNet, out_map, device) -> torch.Tensor:
-    """A frame output's shape and dtype without running a frame: the last
-    layer's, on the meta device, through ``out_map``."""
-    cfg = net.cfg
-    dtype = None
-    for spec in reversed(net.specs):
-        if spec.kind in ("conv", "pool") and spec.use_cb:
-            dtype = torch_dtype(cfg.cache_dtype)
-        elif isinstance(spec, ConvSpec):
-            dtype = torch_dtype(cfg.compute_dtype)
-        if dtype is not None:
-            break
-    shape = out_shapes(net.specs, net.in_shape)[-1] if net.specs \
-        else net.in_shape
+def _row_dtype(view: NetView, i: int, cfg) -> Optional[torch.dtype]:
+    """The dtype of row i's output: a CB layer's cache dtype, a dense
+    conv's compute dtype; any other row passes its producers' on (None:
+    the frame's own)."""
+    row = view.rows[i]
+    if row.is_cb:
+        return torch_dtype(cfg.cache_dtype)
+    if isinstance(row.spec, ConvSpec):
+        return torch_dtype(cfg.compute_dtype)
+    dtypes = [d for d in (_row_dtype(view, p, cfg) for p in row.producers)
+              if d is not None]
+    return functools.reduce(torch.promote_types, dtypes) if dtypes else None
+
+
+def _output_like(net, out_map, device) -> torch.Tensor:
+    """A frame output's shape and dtype without running a frame: the
+    output layer's, on the meta device, through ``out_map``."""
+    view = NetView.of(net)
+    shape, dtype = net.in_shape, None
+    if view.rows:
+        out = len(view.rows) - 1
+        if hasattr(net, "nodes"):
+            out = next(i for i, r in enumerate(view.rows)
+                       if r.key == net.output)
+        shape = view.rows[out].out_shape
+        dtype = _row_dtype(view, out, net.cfg)
     y = torch.empty(shape, dtype=dtype or torch.float32, device="meta")
     y = out_map(y) if out_map is not None else y
     return torch.empty((0,) + tuple(y.shape), dtype=y.dtype, device=device)
 
 
-def scan_video(net: CBNet, params, frames: torch.Tensor,
-               state: Optional[List] = None, collect_stats=True,
+def scan_video(net, params, frames: torch.Tensor,
+               state: Optional[Any] = None, collect_stats=True,
                thresholds: Optional[Sequence[float]] = None,
                refresh_every: Optional[int] = None, frame_offset: int = 0,
                refresh_start: bool = False,
                out_map: Optional[Callable] = None):
-    """Run a (T, H, W, C) clip through the CB net frame by frame.
+    """Run a (T, H, W, C) clip through the CB net (a ``CBNet`` or a
+    ``CBGraphNet``) frame by frame.
 
     Returns (outputs stacked over T, final_state, stats). ``state`` (default
     a fresh ``net.init_state()``) is updated in place. ``refresh_every=K``
@@ -138,9 +163,10 @@ def scan_video(net: CBNet, params, frames: torch.Tensor,
     stacking (e.g. an argmax to uint8 class maps). ``collect_stats``:
     ``True`` stacks each per-layer counter over T (int32, bool for
     ``overflow``), ``"mean"`` returns its float32 mean over the clip
-    (0-dim tensors), ``False`` drops stats (``[]``). The counters of a
-    frame travel as one stacked vector, so stats cost a few device ops a
-    frame, not one per counter.
+    (0-dim tensors), ``False`` drops stats (``[]``); the stats are a list
+    by layer (``CBNet``) or a dict by node name in topological order
+    (``CBGraphNet``). The counters of a frame travel as one stacked
+    vector, so stats cost a few device ops a frame, not one per counter.
 
     An empty clip returns ``(0, ...)`` outputs of the frame output's (or
     ``out_map``'s) shape and dtype, ``(0,)`` stacks (``[]`` without stats)
@@ -182,12 +208,12 @@ def scan_video(net: CBNet, params, frames: torch.Tensor,
             elif lay != layout:
                 raise ValueError("the stats' layout changed within a clip")
             vectors.append(vec)
-    out_stats: List[Dict[str, Any]] = []
+    out_stats: Any = []
     if collect_stats and vectors[0] is None:
-        out_stats = [{} for _ in layout]
+        out_stats = _layer_dicts(layout, (), ())
     elif collect_stats:
         table = torch.stack(vectors, 1)  # (counters, T)
-        n_int = sum(1 for keys in layout for _, b in keys if not b)
+        n_int = sum(1 for _, keys in layout[1] for _, b in keys if not b)
         if collect_stats == "mean":
             # an exact integer sum, then one rounding to float32
             means = table.sum(1).float().div_(n).unbind(0)
@@ -380,7 +406,7 @@ class _Graphs:
                  "replays": g.replays} for g in self._graphs.values()]
 
 
-def scan_video_jit(net: CBNet):
+def scan_video_jit(net):
     """``scan_video`` in one dispatch per call: returns
     ``fn(params, frames, state, *, thresholds=None, refresh_start=False,
     collect_stats=True, out_map=None) -> (ys, state, stats)``, the state
@@ -436,7 +462,7 @@ def _make_state_packer(state, threshold_bytes: int):
     any graph is captured: it rebinds the packed tensors once."""
     align = 256
     owners = []
-    for s in state:
+    for s in (state.values() if isinstance(state, dict) else state):
         if s is None:
             continue
         for f in s.__dataclass_fields__:
@@ -519,7 +545,7 @@ class FrameStepper:
         self.graphs = _Graphs(8)
 
     @property
-    def state(self) -> List:
+    def state(self):
         """The live state (updated in place; ``checkpoint.restore(...,
         like=..., in_place=True)`` writes a saved one into it)."""
         return self._state

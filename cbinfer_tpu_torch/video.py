@@ -282,10 +282,10 @@ class SpriteVideo:
 
 
 # Which distribution each workload is trained, tuned and evaluated on, so a
-# tau vector calibrated on one is never run on video from another. Pose
-# runs the graded dynamics on the DEFAULT palette (keypoint-channel identity
-# is keyed by class colour, which the hard palette's contrast cannot carry
-# under the illumination drift). The seg profile waits for that workload.
+# tau vector calibrated on one is never run on video from another. Seg runs
+# the graded dynamics on the hard palette; pose and pose_graph on the
+# DEFAULT palette (keypoint-channel identity is keyed by class colour, which
+# the hard palette's contrast cannot carry under the illumination drift).
 GRADED_DYNAMICS = dict(light_drift=0.10, light_period=192.0,
                        noise_smooth_std=0.012, noise_smooth_scale=48,
                        color_drift=0.05, color_period=96.0)
@@ -293,7 +293,9 @@ GRADED_DYNAMICS = dict(light_drift=0.10, light_period=192.0,
 _WORKLOAD_PROFILES = {
     "scene": {},
     "scene_hard": {"palette": "hard"},
+    "seg": {**GRADED_DYNAMICS, "palette": "hard"},
     "pose": dict(GRADED_DYNAMICS),
+    "pose_graph": dict(GRADED_DYNAMICS),
 }
 
 

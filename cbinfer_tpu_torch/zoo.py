@@ -1,5 +1,6 @@
 """Workload zoo: one-call loading of the shipped model families (port of
-``cbinfer_tpu.zoo`` for the sequential ``scene`` and ``pose`` workloads).
+``cbinfer_tpu.zoo``: the sequential ``scene``, ``seg`` and ``pose``
+workloads and the DAG ``pose_graph``).
 
 A registry maps each workload name to its architecture, trained checkpoint,
 tuned threshold vector and measured per-layer backend policy, so user code
@@ -10,8 +11,6 @@ builds a ready-to-stream network in one call:
 
 Missing artifacts degrade loudly but gracefully (random weights, default
 taus, no policy), with the provenance recorded on the returned Workload.
-``seg`` and ``pose_graph`` are registered and raise NotImplementedError
-naming what they wait for.
 """
 
 from __future__ import annotations
@@ -48,7 +47,6 @@ class _Entry:
     tau_json: str
     policy_json: str
     model_kwargs: Dict[str, Any]
-    waits_for: Optional[str] = None  # what an unported workload needs
 
 
 REGISTRY: Dict[str, _Entry] = {
@@ -64,17 +62,14 @@ REGISTRY: Dict[str, _Entry] = {
     "seg": _Entry("sequential", 64, "miou",
                   f"{_CK}/seg_w64.npz", f"{_CK}/seg_w64_tau.json",
                   f"{_REPO}/POLICY_seg.json",
-                  {"num_classes": 8},
-                  waits_for="the seg model, the dilated delta conv and "
-                            "UpsampleSpec checks"),
+                  {"num_classes": 8}),
     "pose": _Entry("sequential", 64, "pck",
                    f"{_CK}/pose_w64.npz", f"{_CK}/pose_w64_tau.json",
                    f"{_REPO}/POLICY_pose.json", {}),
     "pose_graph": _Entry("graph", 64, "pck",
                          f"{_CK}/pose_graph_w64.npz",
                          f"{_CK}/pose_graph_w64_tau.json",
-                         f"{_REPO}/POLICY_pose_graph.json", {},
-                         waits_for="DAG networks (graph.py)"),
+                         f"{_REPO}/POLICY_pose_graph.json", {}),
 }
 
 
@@ -82,8 +77,8 @@ REGISTRY: Dict[str, _Entry] = {
 class Workload:
     name: str
     kind: str                      # "sequential" | "graph"
-    net: Any                       # CBNet (flagship policy)
-    specs: Any                     # layer specs
+    net: Any                       # CBNet | CBGraphNet (flagship policy)
+    specs: Any                     # layer specs (sequential) | nodes (graph)
     params: Any
     taus: List[float]
     refresh_every: Optional[int]
@@ -148,19 +143,23 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
     ``tau`` overrides the tuned vector with a flat value. With
     ``strip_trailing_upsample`` (default), a trailing nearest
     ``UpsampleSpec`` is removed and recorded as ``upsample_scale`` (it is
-    argmax-transparent: callers upsample the class map instead)."""
-    from .checkpoint import load_npz_params
+    argmax-transparent: callers upsample the class map instead, the argmax
+    then a nearest ``upsample_scale`` of the uint8 map). A ``"graph"``
+    workload builds ``models.pose.pose_graph`` through
+    ``graph.convert_graph_flagship``; its policy overrides are keyed by
+    node name."""
+    from .checkpoint import load_npz_graph_params, load_npz_params
     from .convert import convert_flagship, num_cb_layers
+    from .graph import convert_graph_flagship, init_graph_params
     from .models import get_model
+    from .models.pose import pose_graph
     from .network import init_params, torch_dtype
 
     if name not in REGISTRY:
         raise KeyError(f"unknown workload {name!r} (have: {names()})")
     e = REGISTRY[name]
-    if e.waits_for is not None:
-        raise NotImplementedError(
-            f"workload {name!r} is not ported: it waits for {e.waits_for}")
     cfg = cfg or default_pipeline_config()
+    dtype = torch_dtype(cfg.compute_dtype)
     warnings: List[str] = []
     policy_src, extra, fuse = "none", None, False
     if apply_policy and os.path.exists(e.policy_json):
@@ -172,36 +171,57 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
         fuse = bool(pj.get("fuse_detect", False))
         if pol or fuse:
             policy_src = e.policy_json
-            extra = {int(k): v for k, v in pol.items()} if pol else None
+            # layer indexes of a sequential net, node names of a graph
+            extra = (None if not pol
+                     else {int(k): v for k, v in pol.items()}
+                     if e.kind == "sequential" else dict(pol))
 
-    base = name[:-5] if name.endswith("_hard") else name
-    specs = get_model(base, width=e.width, **e.model_kwargs)
-    up_scale = None
-    if strip_trailing_upsample and isinstance(specs[-1], UpsampleSpec):
-        up_scale = specs[-1].scale
-        specs = specs[:-1]
-    try:
-        net = convert_flagship(specs, in_shape, cfg, extra_overrides=extra,
-                               fuse_detect=fuse)
-    except ValueError as exc:
-        # a stale policy file (layer indexes of an older architecture)
-        # degrades to a no-policy build with a warning. The fuse_detect
-        # decision comes from the same file, so it is dropped with the
-        # overrides: provenance "none" means no part of it was applied
-        if extra is None:
-            raise
-        warnings.append(f"backend policy NOT applied ({exc})")
-        policy_src, fuse = "none", False
-        net = convert_flagship(specs, in_shape, cfg)
-    params = init_params(specs, in_shape, seed, cfg.device,
-                         torch_dtype(cfg.compute_dtype))
+    def with_policy_fallback(build):
+        """A stale policy file (layer indexes or node names of an older
+        architecture) degrades to a no-policy build with a warning. The
+        fuse_detect decision comes from the same file, so it is dropped
+        with the overrides: provenance "none" means no part of it was
+        applied."""
+        nonlocal policy_src, extra, fuse
+        try:
+            return build(extra, fuse)
+        except ValueError as exc:
+            if extra is None:
+                raise
+            warnings.append(f"backend policy NOT applied ({exc})")
+            policy_src, extra, fuse = "none", None, False
+            return build(None, False)
+
     weights = f"random(numpy seed {seed})"
-    try:
-        params = load_npz_params(e.npz, params, specs)
-        weights = "trained(npz)"
-    except Exception as exc:
-        warnings.append(f"no trained weights ({exc})")
-    n_cb = num_cb_layers(net.specs)
+    up_scale = None
+    if e.kind == "graph":
+        nodes, out_name = pose_graph(width=e.width, **e.model_kwargs)
+        net = with_policy_fallback(lambda x, fz: convert_graph_flagship(
+            nodes, in_shape, cfg, output=out_name, extra_overrides=x,
+            fuse_detect=fz))
+        params = init_graph_params(nodes, in_shape, seed, cfg.device, dtype)
+        try:
+            params = load_npz_graph_params(e.npz, params)
+            weights = "trained(npz)"
+        except Exception as exc:
+            warnings.append(f"no trained weights ({exc})")
+        specs = nodes
+        n_cb = net.num_cb_layers()
+    else:
+        base = name[:-5] if name.endswith("_hard") else name
+        specs = get_model(base, width=e.width, **e.model_kwargs)
+        if strip_trailing_upsample and isinstance(specs[-1], UpsampleSpec):
+            up_scale = specs[-1].scale
+            specs = specs[:-1]
+        net = with_policy_fallback(lambda x, fz: convert_flagship(
+            specs, in_shape, cfg, extra_overrides=x, fuse_detect=fz))
+        params = init_params(specs, in_shape, seed, cfg.device, dtype)
+        try:
+            params = load_npz_params(e.npz, params, specs)
+            weights = "trained(npz)"
+        except Exception as exc:
+            warnings.append(f"no trained weights ({exc})")
+        n_cb = num_cb_layers(net.specs)
 
     refresh = None
     if tau is not None:

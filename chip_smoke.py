@@ -25,12 +25,23 @@ graded-dynamics video of the pose profile) on three paths:
                 "forward_hint"}, fuse_detect=True): three 1x1 convs forward
                 their producer's hint through the tile copy kernel
 
+Then two more workloads through zoo.load, each on its own path:
+  seg           zoo.load("seg"): w64, 9 CB layers (the dilated 3x3 at
+                180x320x256 among them), patch_stem stem, forward-hint
+                pools; the trailing nearest x4 upsample stripped and run as
+                argmax, then x4 of the uint8 class map
+  pose_graph    zoo.load("pose_graph"): the OpenPose DAG (graph.py), 28 CB
+                nodes, the stage-2 concat (cin 312) read by both branches,
+                17 fused producers; the stage-1 heads (cout 38 and 18) keep
+                out caches padded to the tile conv's channel grid
+
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
   build       nvcc builds the kernels from cbinfer_tpu_torch/csrc/ (sm_90a)
-  small       each path at 64x128 (scene w16, pose w8, float32) on the card
-              against the same run on the CPU's plain versions: identical
-              per-layer stats and argmax maps, outputs within 1e-3
+  small       each path at 64x128 (scene w16, pose, seg and pose_graph w8,
+              float32) on the card against the same run on the CPU's plain
+              versions: identical per-layer stats and argmax maps, outputs
+              within 1e-3
   main        flagship: 8 timed chunks with the REFRESH_scene.json cadence,
               CB and dense fps by CUDA events, argmax-u8 on both paths; the
               launch counters over the timed CB run, which runs under
@@ -55,8 +66,20 @@ Phases, each printing one JSON line:
               whose stem conv and delta pool calls the check phase holds
   pose_fwd    equality with pose run at tau = -1 on the three forwarded
               layers; launches; ms/frame
+  seg, pose_graph  the workload's provenance (trained npz, tuned taus, the
+              policy, the refresh cadence's source); 3 timed chunks of a
+              fixed clip (POSE_TIMED_SEED), CB and dense with the
+              deployment out_map in both loops (seg: the full-resolution
+              class map; pose_graph: the 18 heat argmaxes), launches
+              asserted against PER_FRAME, which per_frame_launches
+              derives from the converted net; an untimed seed-0 pass for
+              GT-mIoU at full resolution (seg) or GT-PCK at alpha 0.05 and
+              0.02 (pose_graph), dense and CB, recorded, not gated; the
+              FLOP reduction (> 1) and the stem's computed tiles (below
+              n_tiles)
   graph_<path>  after each path's timed run (flagship, dense_stem,
-              hintless, pose, pose_unfused, pose_fwd): from two copies of
+              hintless, pose, pose_unfused, pose_fwd, seg, pose_graph):
+              from two copies of
               its steady state, five chunks (refresh prologs R S S R S)
               eagerly and through runner.scan_video_jit's CUDA graphs,
               outputs, stats and caches bit for bit, every graph's
@@ -113,7 +136,8 @@ GRAPH_PATTERN = (True, False, False, True, False)
 LATENCY_FRAMES = 64   # timed FrameStepper K=1 frames (flagship, pose)
 RESULTS = {}
 # kernels launched per steady (non-refresh) frame of each path; the pose
-# paths' numbers are derived from their converted specs (per_frame_launches)
+# paths' numbers are derived from their converted specs (per_frame_launches),
+# seg's and pose_graph's are both written here and derived, and must agree
 PER_FRAME = {
     "flagship": {"stem_detect": 1, "stem_conv": 1, "detect_pool_fused": 2,
                  "detect_sparse": 3, "delta_conv": 3},
@@ -121,6 +145,18 @@ PER_FRAME = {
                    "delta_conv": 3},
     "hintless": {"detect_full": 1, "delta_pool": 2, "detect_sparse": 4,
                  "delta_conv": 3},
+    "seg": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 6,
+            "delta_conv": 6, "detect_pool_fused": 2},
+    "pose_graph": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 8,
+                   "delta_conv": 7, "delta_conv_detect": 17,
+                   "detect_pool_fused": 2, "delta_pool": 1},
+}
+# what zoo.load must give the two workloads of the last phases: CB layers,
+# the fused consumer detect, the policy file it came from (None: "none")
+WORKLOADS = {
+    "seg": dict(n_taus=9, fuse_detect=False, policy=None),
+    "pose_graph": dict(n_taus=28, fuse_detect=True,
+                       policy="POLICY_pose_graph.json"),
 }
 
 
@@ -183,6 +219,11 @@ def main():
     calls += phase("pose_fwd", pose_fwd_path, torch, pctx)
     del pctx
     torch.cuda.empty_cache()
+    for name in WORKLOADS:
+        wctx = phase(f"{name}_setup", make_workload_context, torch, np, name)
+        calls += phase(name, workload_path, torch, np, wctx)
+        del wctx
+        torch.cuda.empty_cache()
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
     seconds["total"] = round(time.perf_counter() - t0, 1)
@@ -204,7 +245,7 @@ def build_net(path, specs, in_shape, cfg, thresholds=None):
             specs, in_shape, cfg, thresholds=thresholds,
             extra_overrides=POSE_FWD if path == "pose_fwd" else None,
             fuse_detect=path != "pose_unfused")
-    if path == "flagship":
+    if path in ("flagship", "seg"):
         return convert_flagship(specs, in_shape, cfg, thresholds=thresholds)
     if path == "dense_stem":
         return convert_flagship(specs, in_shape, cfg, thresholds=thresholds,
@@ -213,17 +254,28 @@ def build_net(path, specs, in_shape, cfg, thresholds=None):
                    dense_layers=(0, len(specs) - 1))
 
 
+def _layers(tree):
+    """(key, entry) pairs of a per-layer list or a name-keyed dict."""
+    return list(tree.items()) if isinstance(tree, dict) \
+        else list(enumerate(tree))
+
+
 def small_parity(torch, np):
     """The 64x128 slices of tests/test_torch_scene_slice.py, card vs CPU."""
     from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
-    from cbinfer_tpu_torch.convert import num_cb_layers
+    from cbinfer_tpu_torch.graph import (convert_graph_flagship,
+                                         init_graph_params)
     from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.models.pose import pose_graph
+    from cbinfer_tpu_torch.netview import NetView
     from cbinfer_tpu_torch.network import init_params
     from cbinfer_tpu_torch.runner import scan_video
     from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
     h, w, n = 64, 128, 6
     scene = get_model("scene", num_classes=NUM_CLASSES, width=16)
     pose = get_model("pose", width=8)
+    seg = get_model("seg", num_classes=NUM_CLASSES, width=8)[:-1]
+    nodes, out_name = pose_graph(width=8)
     scene_clip = SpriteVideo(SpriteVideoConfig(
         height=h, width=w, n_sprites=2, sprite_size=12, seed=3)).clip(n)
     # noise-free, as the CPU tests' clip: a float32 rounding difference
@@ -232,20 +284,30 @@ def small_parity(torch, np):
         height=h, width=w, n_sprites=2, sprite_size=12, seed=3,
         distinct_classes=True)).clip(n)
     report = {}
-    for path in list(PER_FRAME) + ["pose", "pose_unfused", "pose_fwd"]:
+    for path in ("flagship", "dense_stem", "hintless", "pose",
+                 "pose_unfused", "pose_fwd", "seg", "pose_graph"):
         specs, clip = ((pose, pose_clip) if path.startswith("pose")
-                       else (scene, scene_clip))
+                       else (seg if path == "seg" else scene, scene_clip))
         out = {}
         for dev in ("cpu", "cuda"):
             cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device=dev)
-            net = build_net(path, specs, (h, w, 3), cfg)
-            taus = [0.05] * num_cb_layers(net.specs)
-            params = init_params(specs, (h, w, 3), seed=3, device=dev)
+            if path == "pose_graph":
+                # f32: the stage-1 heads' caches are padded 38 -> 40, 18 -> 20
+                net = convert_graph_flagship(nodes, (h, w, 3), cfg,
+                                             output=out_name,
+                                             fuse_detect=True)
+                params = init_graph_params(nodes, (h, w, 3), seed=3,
+                                           device=dev)
+            else:
+                net = build_net(path, specs, (h, w, 3), cfg)
+                params = init_params(specs, (h, w, 3), seed=3, device=dev)
+            taus = [0.05] * len(NetView.of(net).cb_rows())
             ys, _, stats = scan_video(net, params,
                                       torch.from_numpy(clip).to(dev),
                                       thresholds=taus, refresh_start=True)
-            out[dev] = (ys.cpu(), [{k: torch.as_tensor(v).cpu().tolist()
-                                    for k, v in s.items()} for s in stats])
+            out[dev] = (ys.cpu(), [(key, {k: torch.as_tensor(v).cpu()
+                                          .tolist() for k, v in s.items()})
+                                   for key, s in _layers(stats)])
         err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
         # class maps of the scene net; the pose net's 56 regression
         # channels have no argmax to speak of
@@ -614,9 +676,10 @@ def hintless_path(torch, np, ctx):
 
 def _clone_state(state):
     from cbinfer_tpu_torch.layers import CBLayerState
-    return [None if s is None else CBLayerState(s.in_cache.clone(),
-                                                s.out_cache.clone())
-            for s in state]
+    out = [(k, None if s is None else CBLayerState(s.in_cache.clone(),
+                                                   s.out_cache.clone()))
+           for k, s in _layers(state)]
+    return dict(out) if isinstance(state, dict) else [s for _, s in out]
 
 
 def _graph_launches(path, info, want_frames):
@@ -701,7 +764,8 @@ def graph_path(torch, path, net, params, taus, state, chunks, out_map,
                order=order, ms_per_frame=series, host_cpu_ms_per_frame=host,
                peak_mem_above_held_gib=(torch.cuda.max_memory_allocated()
                                         - held) / 2**30,
-               reserved_gib=torch.cuda.memory_reserved() / 2**30)
+               reserved_gib=torch.cuda.memory_reserved() / 2**30,
+               smi=nvidia_smi("name,power.limit"))
     del run, s_graph
     if latency:
         frames = torch.cat([chunks[0][:8]] + list(chunks[1:]))[
@@ -738,24 +802,37 @@ def graph_path(torch, path, net, params, taus, state, chunks, out_map,
 
 def per_frame_launches(net):
     """Kernel launches of one steady (non-refresh) frame, read off the
-    converted specs: which layer detects for itself, which is pre-detected
-    by its producer's fused kernel, which forwards its producer's hint."""
+    converted net (a CBNet or a CBGraphNet): which layer detects for
+    itself, which is pre-detected by its producer's fused kernel (on a DAG
+    only the consumer ``fused_consumer_map`` names), which forwards its
+    producer's hint. A hint reaches a layer from a CB producer, or from a
+    concat whose inputs all carry one."""
     from cbinfer_tpu_torch import layers as L
-    from cbinfer_tpu_torch.network import out_shapes
-    shapes = [net.in_shape] + out_shapes(net.specs, net.in_shape)
+    from cbinfer_tpu_torch.netview import NetView
+    view = NetView.of(net)
+    if hasattr(net, "nodes"):
+        row_of = {r.key: i for i, r in enumerate(view.rows)}
+        consumer = {row_of[p]: row_of[c]
+                    for p, c in net.fused_consumer_map().items()}
+    else:
+        consumer = {i: i + 1 for i in range(len(view.rows) - 1)}
     want = {}
 
     def add(name):
         want[name] = want.get(name, 0) + 1
 
-    hint = predetected = False
-    for i, (spec, shape) in enumerate(zip(net.specs, shapes)):
+    hinted, predetected = [], set()
+    for i, row in enumerate(view.rows):
+        spec = row.spec
+        hint = bool(row.producers) and all(hinted[p] for p in row.producers)
+        if spec.kind == "concat":
+            hinted.append(hint)
+            continue
         if spec.kind not in ("conv", "pool") or not spec.use_cb:
-            hint = predetected = False
+            hinted.append(False)
             continue
         cfg = L._layer_cfg(spec, net.cfg)
-        g = L._geometry(spec, shape, cfg)
-        pre, predetected = predetected, False
+        g = L._geometry(spec, row.in_shape, cfg)
         if cfg.backend == "patch_stem":
             add("stem_detect")
             add("stem_conv")
@@ -767,18 +844,19 @@ def per_frame_launches(net):
         else:
             if spec.kind == "conv" and spec.forward_hint and hint:
                 add("accept_tiles")
-            elif not pre:
+            elif i not in predetected:
                 add("detect_sparse" if hint else "detect_full")
-            nxt = net.specs[i + 1] if i + 1 < len(net.specs) else None
+            j = consumer.get(i)
             if spec.kind == "pool":
                 add("delta_pool")
-            elif (spec.fuse_next_detect and nxt is not None
-                  and L.fuse_next_gate(spec, nxt, shape, net.cfg)):
+            elif (spec.fuse_next_detect and j is not None
+                  and L.fuse_next_gate(spec, view.rows[j].spec,
+                                       row.in_shape, net.cfg)):
                 add("delta_conv_detect")
-                predetected = True
+                predetected.add(j)
             else:
                 add("delta_conv")
-        hint = True
+        hinted.append(True)
     return want
 
 
@@ -803,12 +881,6 @@ def make_pose_context(torch, np):
     cadence, cadence_src = zoo.load_refresh_cadence("pose", T, H, W)
     if cadence != 2 or "no cadence validated" not in cadence_src:
         raise AssertionError(f"refresh cadence: {cadence} {cadence_src}")
-    for name in ("seg", "pose_graph"):
-        try:
-            zoo.load(name, (H, W, 3))
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"zoo.load({name!r}) did not raise")
 
     def video(seed):
         return SpriteVideo(SpriteVideoConfig(
@@ -974,12 +1046,16 @@ def _same_run(torch, a, b, what, stats=True):
     (ya, sa, ta), (yb, sb, tb) = a, b
     if not torch.equal(ya, yb):
         raise AssertionError(f"{what}: outputs differ")
-    for k, (x, y) in enumerate(zip(ta, tb) if stats else ()):
+    if stats and [k for k, _ in _layers(ta)] != [k for k, _ in _layers(tb)]:
+        raise AssertionError(f"{what}: the stats' layers differ")
+    for (k, x), (_, y) in zip(_layers(ta), _layers(tb)) if stats else ():
+        if set(x) != set(y):
+            raise AssertionError(f"{what}: layer {k} stats' keys differ")
         for key in x:
             if not torch.equal(torch.as_tensor(x[key]),
                                torch.as_tensor(y[key])):
                 raise AssertionError(f"{what}: layer {k} stat {key} differs")
-    for k, (x, y) in enumerate(zip(sa, sb)):
+    for (k, x), (_, y) in zip(_layers(sa), _layers(sb)):
         if x is not None and not (torch.equal(x.in_cache, y.in_cache)
                                   and torch.equal(x.out_cache, y.out_cache)):
             raise AssertionError(f"{what}: layer {k} caches differ")
@@ -1109,6 +1185,254 @@ def pose_fwd_path(torch, ctx):
                          ctx.out_shape, frame=ctx.chunks[3][0])
 
 
+# ------------------------- seg and pose_graph -------------------------------
+
+
+def make_workload_context(torch, np, name):
+    """What a seg or pose_graph phase needs: the workload through the zoo
+    with its provenance checked, its refresh cadence, a fixed timed clip of
+    its video profile, and the chunk runners with the deployment out_map
+    (seg: argmax, then the nearest upsample of the uint8 class map by the
+    stripped layer's scale; pose_graph: the 18 heat argmaxes)."""
+    from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.metrics import heat_argmax
+    from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    want = WORKLOADS[name]
+    wl = zoo.load(name, (H, W, 3))
+    policy_ok = (wl.policy_source == "none" if want["policy"] is None
+                 else wl.policy_source.endswith(want["policy"]))
+    if (wl.weights != "trained(npz)" or wl.tau_source != "tuned"
+            or wl.warnings or len(wl.taus) != want["n_taus"]
+            or wl.fuse_detect is not want["fuse_detect"] or not policy_ok):
+        raise AssertionError(
+            f"zoo.load({name!r}): {wl.weights} {wl.tau_source} "
+            f"{wl.policy_source} fuse_detect={wl.fuse_detect} "
+            f"{len(wl.taus)} taus {wl.warnings}")
+    cadence, cadence_src = zoo.load_refresh_cadence(name, T, H, W)
+    pose = wl.metric == "pck"
+    if pose:
+        out_map, out_shape = heat_argmax, (18,)
+    else:
+        sh, sw = wl.upsample_scale
+
+        def out_map(y):
+            ids = y.argmax(-1).to(torch.uint8)
+            return ids.repeat_interleave(sh, 0).repeat_interleave(sw, 1)
+        out_shape = (H, W)
+
+    def video(seed):
+        return SpriteVideo(SpriteVideoConfig(
+            height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+            noise_std=0.002, seed=seed, distinct_classes=pose,
+            **workload_video_kwargs(name)))
+
+    def cb_chunk(net, taus, ch, state, refresh, stats=False):
+        return scan_video(net, wl.params, ch, state, collect_stats=stats,
+                          thresholds=taus, refresh_start=refresh,
+                          out_map=out_map)
+
+    def dense_chunk(ch):
+        return torch.stack([out_map(wl.net.apply_dense(wl.params, f))
+                            for f in ch])
+
+    tv = video(POSE_TIMED_SEED)
+    warm = torch.from_numpy(tv.clip(T)).cuda()
+    chunks = [torch.from_numpy(tv.clip(T)).cuda() for _ in range(POSE_CHUNKS)]
+    return types.SimpleNamespace(
+        name=name, wl=wl, seed=POSE_TIMED_SEED, cadence=cadence,
+        cadence_src=cadence_src, video=video, out_map=out_map,
+        out_shape=out_shape, cb_chunk=cb_chunk, dense_chunk=dense_chunk,
+        warm=warm, chunks=chunks)
+
+
+def _stack_means(np, chunk_stats):
+    """Per-chunk mean stats (a list or a name-keyed dict of per-layer
+    dicts of floats each) -> the same container of per-counter arrays over
+    the chunks."""
+    first = chunk_stats[0]
+    out = [(k, {q: np.array([dict(_layers(c))[k][q] for c in chunk_stats])
+                for q in s}) for k, s in _layers(first)]
+    return dict(out) if isinstance(first, dict) else [s for _, s in out]
+
+
+def workload_accuracy(torch, np, ctx, net, taus):
+    """Untimed pass over the fixed seed-0 clip: 2 chunks, a refresh prolog
+    on the first, 8 cold-start frames skipped. seg: GT-mIoU of the CB and
+    the dense full-resolution class maps; pose_graph: GT-PCK at alpha 0.05
+    and 0.02. Returns (scores, per-chunk stats means, state, video)."""
+    from cbinfer_tpu_torch.metrics import (iu_counts, merge_iu,
+                                           pck_gt_from_argmax)
+    av = ctx.video(0)
+    state = net.init_state()
+    sums = {k: [0, 0] for k in ("cb", "dense", "agree")}
+    cb_arg, dn_arg, kps, valid, chunk_stats = [], [], [], [], []
+    for i in range(2):
+        if ctx.wl.metric == "pck":
+            ch, k, v = av.clip_with_keypoints(T)
+            kps.append(k)
+            valid.append(v)
+        else:
+            ch, lab = av.clip_with_labels(T)
+            lab = torch.from_numpy(lab).cuda()
+        ch = torch.from_numpy(ch).cuda()
+        cmap, state, st = ctx.cb_chunk(net, taus, ch, state, i == 0,
+                                       stats="mean")
+        dmap = ctx.dense_chunk(ch)
+        means = [(k, {q: float(x) for q, x in s.items()})
+                 for k, s in _layers(st)]
+        chunk_stats.append(dict(means) if isinstance(st, dict)
+                           else [m for _, m in means])
+        if ctx.wl.metric == "pck":
+            cb_arg.append(cmap.cpu())
+            dn_arg.append(dmap.cpu())
+            continue
+        skip = 8 if i == 0 else 0
+        for key, a, b in (("cb", cmap, lab), ("dense", dmap, lab),
+                          ("agree", cmap, dmap)):
+            it, un = iu_counts(a[skip:], b[skip:], NUM_CLASSES)
+            sums[key][0] += it.cpu().numpy()
+            sums[key][1] += un.cpu().numpy()
+    if ctx.wl.metric == "pck":
+        kps, valid = np.concatenate(kps), np.concatenate(valid)
+        cb_arg, dn_arg = torch.cat(cb_arg), torch.cat(dn_arg)
+        hw = (H // 8, W // 8)
+        scores = {f"{name}@{alpha}": pck_gt_from_argmax(
+            arg[8:], hw, kps[8:], valid[8:], 8, alpha)
+            for name, arg in (("cb", cb_arg), ("dense", dn_arg))
+            for alpha in (0.05, 0.02)}
+    else:
+        scores = {k: merge_iu(*v) for k, v in sums.items()}
+    return scores, chunk_stats, state, av
+
+
+def workload_path(torch, np, ctx):
+    """seg or pose_graph exactly as zoo.load builds it: launches derived
+    and asserted, timed CB and dense chunks, the untimed accuracy pass,
+    then the graphed forms and one recorded frame for the check phase."""
+    from cbinfer_tpu_torch.metrics import effective_flops_view
+    from cbinfer_tpu_torch.netview import NetView
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    name, wl, net, taus = ctx.name, ctx.wl, ctx.wl.net, ctx.wl.taus
+    derived = per_frame_launches(net)
+    if derived != PER_FRAME[name]:
+        raise AssertionError(f"{name}: the converted net gives {derived}, "
+                             f"not {PER_FRAME[name]}")
+    view = NetView.of(net)
+    stem = view.rows[0]
+    if stem.spec.backend != "patch_stem":
+        raise AssertionError(f"{name}: stem {stem.spec}")
+    chunks = ctx.chunks
+    n_chunks = len(chunks)
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    state = net.init_state()
+    state = ctx.cb_chunk(net, taus, ctx.warm, state, True)[1]
+    state = ctx.cb_chunk(net, taus, ctx.warm, state, False)[1]
+    ctx.dense_chunk(ctx.warm)
+    torch.cuda.synchronize()
+    marks = {k: [torch.cuda.Event(enable_timing=True)
+                 for _ in range(n_chunks + 1)] for k in ("cb", "dense")}
+
+    def cb_run():
+        nonlocal state
+        ys = None
+        marks["cb"][0].record()
+        for i, ch in enumerate(chunks):
+            ys, state, _ = ctx.cb_chunk(net, taus, ch, state,
+                                        i % ctx.cadence == 0)
+            marks["cb"][i + 1].record()
+        return ys
+
+    def dense_run():
+        marks["dense"][0].record()
+        for i, ch in enumerate(chunks):
+            dn = ctx.dense_chunk(ch)
+            marks["dense"][i + 1].record()
+        return dn
+
+    def chunk_ms(key):
+        m = marks[key]
+        return [m[i].elapsed_time(m[i + 1]) / T for i in range(n_chunks)]
+
+    reset_launches()
+    ys, cb_ms, cb_host_ms = timed(torch, lambda: no_sync(torch, cb_run))
+    counts = launches()
+    n_refresh = sum(1 for i in range(n_chunks) if i % ctx.cadence == 0)
+    frames = n_chunks * T
+    expect_launches(name, counts, frames - n_refresh)
+    want_dtype = torch.int64 if wl.metric == "pck" else torch.uint8
+    if tuple(ys.shape) != (T,) + ctx.out_shape or ys.dtype != want_dtype:
+        raise AssertionError(f"{name}: CB output {tuple(ys.shape)} "
+                             f"{ys.dtype}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    dn, dense_ms, dense_host_ms = timed(torch, dense_run)
+    if tuple(dn.shape) != tuple(ys.shape) or dn.dtype != ys.dtype:
+        raise AssertionError(f"{name}: dense output {tuple(dn.shape)}")
+    cb_fps, dense_fps = frames / (cb_ms / 1e3), frames / (dense_ms / 1e3)
+    scores, chunk_stats, acc_state, av = workload_accuracy(torch, np, ctx,
+                                                           net, taus)
+    stats = _stack_means(np, chunk_stats)
+    ef = effective_flops_view(view, stats, 8, 8)
+    stem_stats = view.stats_of(stats, stem)
+    steady = view.stats_of(chunk_stats[1], stem)  # no refresh frame
+    stem_tiles = {"computed": float(np.mean(stem_stats["computed_tiles"])),
+                  "n_tiles": float(np.max(stem_stats["n_tiles"])),
+                  "steady_chunk_density": steady["computed_tiles"]
+                  / steady["n_tiles"],
+                  "overflow_share": float(np.mean(stem_stats["overflow"]))}
+    density = {str(r.key): round(float(
+        np.mean(view.stats_of(stats, r)["computed_tiles"])
+        / np.max(view.stats_of(stats, r)["n_tiles"])), 4)
+        for r in view.cb_rows()}
+    if wl.metric == "pck":
+        accuracy = dict(
+            pck_gt=scores,
+            pck_degradation={a: scores[f"dense@{a}"] - scores[f"cb@{a}"]
+                             for a in (0.05, 0.02)})
+    else:
+        accuracy = dict(miou_gt_cb=scores["cb"],
+                        miou_gt_dense=scores["dense"],
+                        miou_degradation=scores["dense"] - scores["cb"],
+                        miou_vs_dense=scores["agree"],
+                        miou_at="full resolution (argmax, then x"
+                                f"{wl.upsample_scale[0]} of the class map)")
+    emit(name, path=name, timed_clip_seed=ctx.seed, cb_fps=cb_fps,
+         dense_fps=dense_fps, vs_baseline=cb_fps / dense_fps,
+         cb_ms_per_frame=cb_ms / frames, dense_ms_per_frame=dense_ms / frames,
+         frames_timed=frames, steady_frames=frames - n_refresh,
+         cb_host_cpu_ms_per_frame=cb_host_ms / frames,
+         dense_host_cpu_ms_per_frame=dense_host_ms / frames,
+         cb_chunk_ms_per_frame=chunk_ms("cb"),
+         dense_chunk_ms_per_frame=chunk_ms("dense"),
+         refresh_every_chunks=ctx.cadence, refresh_source=ctx.cadence_src,
+         launches=counts, per_frame=PER_FRAME[name], **accuracy,
+         accuracy_budget_not_gated=0.005,
+         flop_reduction=ef["flop_reduction"],
+         dense_gflop_per_frame=ef["dense_flops_per_frame"] / 1e9,
+         stem_tiles=stem_tiles, computed_share_per_layer=density,
+         peak_mem_gib=peak_gib, peak_mem_above_held_gib=peak_gib - held_gib,
+         smi_after_cb=clocks, smi=nvidia_smi("name,power.limit"),
+         weights=wl.weights, tau_source=wl.tau_source,
+         policy_source=wl.policy_source, fuse_detect=wl.fuse_detect,
+         taus=taus)
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"{name}: accuracy not finite: {scores}")
+    if not stem_tiles["computed"] < stem_tiles["n_tiles"]:
+        raise AssertionError(f"{name}: the sparse stem computed every tile: "
+                             f"{stem_tiles}")
+    if not ef["flop_reduction"] > 1.0:
+        raise AssertionError(f"{name}: no FLOP reduction: {ef}")
+    graph_path(torch, name, net, wl.params, taus, state, chunks, ctx.out_map,
+               ctx.dense_chunk)
+    del state
+    logits = ((H // 8, W // 8, 56) if wl.metric == "pck"
+              else (H // 4, W // 4, NUM_CLASSES))
+    return capture_frame(torch, ctx, name, net, taus, acc_state, av, logits)
+
+
 # ------------------------------ kernel checks --------------------------------
 
 
@@ -1186,8 +1510,8 @@ def _window_cover_bytes(np, idx, c, g, store_shape, cin, es):
 # gate holds), run by the check phase and by tests/test_torch_gpu.py:
 # name -> (H, W, cin, cout, kernel, dilation, stride, (th, tw), the
 # consumer's kernel). cout 512 is an 8-block cluster, 576 one whose first
-# block takes two slices, 264 a ragged last slice; 90 and 180 rows are the pose maps' ragged heights (529 tiles: a
-# launch of many clusters).
+# block takes two slices, 264 a ragged last slice; 90 and 180 rows are the
+# pose maps' ragged heights (529 tiles: a launch of many clusters).
 TILE_CONV_CASES = {
     "cout512_cluster8": (24, 48, 64, 512, 3, 1, 1, (8, 8), 3),
     "cout576_two_slices_a_block": (20, 48, 32, 576, 3, 1, 1, (8, 8), 1),
@@ -1201,6 +1525,10 @@ TILE_CONV_CASES = {
     "ragged180": (180, 32, 128, 128, 3, 1, 1, (8, 8), 1),
     "ragged180_529_tiles": (180, 184, 64, 128, 3, 1, 1, (8, 8), 3),
     "pointwise_cout56": (90, 48, 128, 56, 1, 1, 1, (8, 8), 3),
+    # pose_graph's concat readers: cin 312 is off the 16-channel k-step
+    "cin312_ragged90": (90, 64, 312, 256, 3, 1, 1, (8, 8), 3),
+    # seg's dilated context conv at its widths, on a 180-row map
+    "dilation2_cin256": (180, 64, 256, 256, 3, 2, 1, (8, 8), 1),
 }
 
 
@@ -1505,8 +1833,10 @@ def check_kernels(torch, np, calls):
             op_ = KSC.stem_conv_plain(st, idx, count, w, b, out0.clone(), g,
                                       act, cd, capacity=cap)
             ulp = _ulps(torch, ok_, op_)
-            touched = torch.zeros(g.n_tiles, dtype=torch.bool, device="cuda")
-            touched[idx[:c].long()] = True
+            # past the capacity the kernel recomputes every tile
+            touched = torch.full((g.n_tiles,), c > cap, dtype=torch.bool,
+                                 device="cuda")
+            touched[idx[:min(c, cap)].long()] = True
             keep = ~touched.view(g.tiles_h, 1, g.tiles_w, 1, 1)
 
             def tiled(t):
@@ -1550,9 +1880,14 @@ def check_kernels(torch, np, calls):
                                             act, cd, capacity=cap),
                 out_k, out_p, out0)
             es = st.element_size()
-            flops = 2 * g.th * g.tw * 9 * g.cin * cout * c
-            nbytes = (_window_cover_bytes(np, idx, c, g, st.shape, g.cin, es)
-                      + c * g.th * g.tw * cout * es + w.numel() * es
+            # the tiles the call computes: every tile past the capacity
+            work = g.n_tiles if c > cap else c
+            work_idx = (torch.arange(work, dtype=torch.int32)
+                        if c > cap else idx)
+            flops = 2 * g.th * g.tw * 9 * g.cin * cout * work
+            nbytes = (_window_cover_bytes(np, work_idx, work, g, st.shape,
+                                          g.cin, es)
+                      + work * g.th * g.tw * cout * es + w.numel() * es
                       + cout * 4 + c * 4 + 4)
             err = float((ok_.float() - op_.float()).abs().max())
             acc(path, name, ms, pms, *_bound_ms(flops, nbytes), err)
@@ -1829,7 +2164,9 @@ def emit_kernels():
                 "hintless": RESULTS["hintless"]["launches"],
                 "pose": RESULTS["pose"]["launches"],
                 "pose_unfused": RESULTS["pose_unfused"]["launches"],
-                "pose_fwd": RESULTS["pose_fwd"]["launches"]}
+                "pose_fwd": RESULTS["pose_fwd"]["launches"],
+                "seg": RESULTS["seg"]["launches"],
+                "pose_graph": RESULTS["pose_graph"]["launches"]}
     rows = []
     for k in KERNELS:
         paths = {}

@@ -2,7 +2,8 @@
 """Where the time goes: torch.profiler over the port's 720p paths.
 
     python3 scripts/torch_profile_scene.py [flagship|dense_stem|hintless|
-                                            pose|pose_unfused|pose_fwd]
+                                            pose|pose_unfused|pose_fwd|
+                                            seg|pose_graph]
                                            [--frames 32] [--graph]
 
 Builds one of chip_smoke.py's paths, trained weights and tuned taus through
@@ -13,7 +14,11 @@ the pose network (w64, on the pose profile's graded-dynamics video, the
 18 heat-channel argmaxes as output): ``pose`` (zoo.load("pose"), 13 conv
 pairs on the fused conv + consumer detect), ``pose_unfused`` (the same
 without the fusion) or ``pose_fwd`` (layers 15, 16 and 20 forwarding their
-producer's hint). The clip is seeded with the constant SEED, so two source
+producer's hint). ``seg`` (zoo.load("seg"), w64, on the seg profile's
+video, the full-resolution uint8 class map as output: argmax, then the
+nearest x4 of the stripped upsample) and ``pose_graph`` (zoo.load(
+"pose_graph"), the OpenPose DAG, the 18 heat argmaxes) are the two other
+workloads. The clip is seeded with the constant SEED, so two source
 trees are profiled on the same frames. It warms up, then profiles one chunk of CB frames (no refresh frame) and
 the same frames through the dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
 the host thread's CPU ms per frame while enqueuing,
@@ -106,7 +111,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default="flagship",
                     choices=("flagship", "dense_stem", "hintless", "pose",
-                             "pose_unfused", "pose_fwd"))
+                             "pose_unfused", "pose_fwd", "seg",
+                             "pose_graph"))
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--graph", action="store_true",
@@ -116,7 +122,9 @@ def main():
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
     is_pose = args.path.startswith("pose")
-    wl = zoo.load("pose" if is_pose else "scene", (H, W, 3),
+    workload = (args.path if args.path in ("seg", "pose_graph")
+                else "pose" if is_pose else "scene")
+    wl = zoo.load(workload, (H, W, 3),
                   apply_policy=args.path != "pose_unfused")
     if wl.weights != "trained(npz)" or wl.tau_source != "tuned" \
             or wl.warnings:
@@ -141,14 +149,18 @@ def main():
         height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
         noise_std=0.002, seed=SEED,
         distinct_classes=is_pose,
-        **workload_video_kwargs("pose" if is_pose else "scene")))
+        **workload_video_kwargs(workload)))
     warm, clip_t, clip_p = (torch.from_numpy(video.clip(args.frames)).cuda()
                             for _ in range(3))
 
     def out_u8(y):
         if is_pose:
             return heat_argmax(y)
-        return y.argmax(-1).to(torch.uint8)
+        ids = y.argmax(-1).to(torch.uint8)
+        if wl.upsample_scale is None:
+            return ids
+        sh, sw = wl.upsample_scale
+        return ids.repeat_interleave(sh, 0).repeat_interleave(sw, 1)
 
     run = scan_video
     if args.graph:

@@ -13,28 +13,10 @@ from cbinfer_tpu_torch.ops import conv_plan as P
 from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
 
 
-def _seg_specs():
-    """The JAX package's seg net (w64; the port has no seg model yet, and
-    its dilated 3x3 is a conv B2 must take): its convs and pools carried
-    across as the port's specs."""
-    from cbinfer_tpu.models import get_model as ref_model
-    from cbinfer_tpu_torch.config import PoolSpec
-    out = []
-    for s in ref_model("seg", width=64):
-        if type(s).__name__ == "ConvSpec":
-            out.append(ConvSpec(features=s.features, kernel=s.kernel,
-                                stride=s.stride, dilation=s.dilation,
-                                padding=s.padding))
-        elif type(s).__name__ == "PoolSpec":
-            out.append(PoolSpec(window=s.window, stride=s.stride,
-                                padding=s.padding))
-    return out
-
-
 CONFIGS = {
     "scene_w128": lambda: get_model("scene", num_classes=8, width=128),
     "pose_w64": lambda: get_model("pose", width=64),
-    "seg_w64": _seg_specs,
+    "seg_w64": lambda: get_model("seg", width=64),
 }
 
 

@@ -783,28 +783,42 @@ def test_stem_detect_shapes_on_card(cuda, dtype, C, H, W, shift):
 # ------------------------- the runner's CUDA graphs --------------------------
 
 
-def _graph_net(cuda, kind, path=None):
-    """A small net of the scene flagship (w16) or the fused pose path (w8)
-    at 64x128 on the card, float32, with a steady state and a clip."""
+def _graph_net(cuda, kind, path=None, device="cuda"):
+    """A small net of the scene flagship (w16), the fused pose path, seg or
+    the fused pose_graph (w8) at 64x128 on the card (or ``device``),
+    float32, with a steady state and a clip."""
     from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
-    from cbinfer_tpu_torch.convert import num_cb_layers
+    from cbinfer_tpu_torch.graph import (convert_graph_flagship,
+                                         init_graph_params)
     from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.models.pose import pose_graph
+    from cbinfer_tpu_torch.netview import NetView
     from cbinfer_tpu_torch.network import init_params
     from cbinfer_tpu_torch.runner import scan_video
     from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
     h, w = 64, 128
-    pose = kind == "pose"
-    specs = get_model("pose", width=8) if pose else \
-        get_model("scene", num_classes=8, width=16)
-    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device="cuda")
-    net = chip_smoke.build_net(path or ("pose" if pose else "flagship"),
-                               specs, (h, w, 3), cfg)
-    params = init_params(specs, (h, w, 3), seed=3, device="cuda")
-    taus = [0.05] * num_cb_layers(net.specs)
+    pose = kind.startswith("pose")
+    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device=device)
+    if kind == "pose_graph":
+        nodes, out = pose_graph(width=8)
+        net = convert_graph_flagship(nodes, (h, w, 3), cfg, output=out,
+                                     fuse_detect=True)
+        params = init_graph_params(nodes, (h, w, 3), seed=3, device=device)
+    else:
+        specs = {"pose": lambda: get_model("pose", width=8),
+                 "seg": lambda: get_model("seg", num_classes=8,
+                                          width=8)[:-1],
+                 "scene": lambda: get_model("scene", num_classes=8,
+                                            width=16)}[kind]()
+        net = chip_smoke.build_net(
+            path or {"pose": "pose", "seg": "seg"}.get(kind, "flagship"),
+            specs, (h, w, 3), cfg)
+        params = init_params(specs, (h, w, 3), seed=3, device=device)
+    taus = [0.05] * len(NetView.of(net).cb_rows())
     clip = torch.from_numpy(SpriteVideo(SpriteVideoConfig(
         height=h, width=w, n_sprites=2, sprite_size=12, seed=3,
         distinct_classes=pose)).clip(24)).to(cuda)
-    state = scan_video(net, params, clip[:4], collect_stats=False,
+    state = scan_video(net, params, clip[:4].to(device), collect_stats=False,
                        thresholds=taus, refresh_start=True)[1]
     return net, params, taus, clip, state
 
@@ -813,7 +827,7 @@ def _chunks(clip, k=4):
     return [clip[i:i + k] for i in range(4, clip.shape[0], k)]
 
 
-@pytest.mark.parametrize("kind", ["scene", "pose"])
+@pytest.mark.parametrize("kind", ["scene", "pose", "seg", "pose_graph"])
 def test_graph_replay_equals_eager_loop(cuda, kind):
     """scan_video_jit's replays give the eager loop's outputs, stats and
     caches bit for bit, on refresh and steady chunks, and each graph's
@@ -836,6 +850,105 @@ def test_graph_replay_equals_eager_loop(cuda, kind):
         steady = 4 - g["refresh_start"]
         assert g["launches"] == {k: v * steady for k, v in per_frame.items()
                                  if v}
+
+
+@pytest.mark.parametrize("kind", ["seg", "pose_graph"])
+def test_small_net_on_card_equals_cpu(cuda, kind):
+    """seg and the fused pose_graph (its f32 stage-1 heads padded 38 -> 40
+    and 18 -> 20) on the card against the same run of the CPU's plain
+    versions: every counter exact, outputs within 1e-3, and the card ran
+    every kernel of the path's steady frames."""
+    from cbinfer_tpu_torch.runner import scan_video
+    net, params, taus, clip, state = _graph_net(cuda, kind)
+    cnet, cparams, _, _, cstate = _graph_net(cuda, kind, device="cpu")
+    reset_launches()
+    yg, _, sg = scan_video(net, params, clip[4:12], state, thresholds=taus)
+    counts = launches()
+    yc, _, sc = scan_video(cnet, cparams, clip[4:12].cpu(), cstate,
+                           thresholds=taus)
+    torch.testing.assert_close(yg.cpu(), yc, rtol=0, atol=1e-3)
+    for (k, a), (_, b) in zip(chip_smoke._layers(sg),
+                              chip_smoke._layers(sc)):
+        for key in a:
+            assert a[key].cpu().tolist() == b[key].tolist(), (k, key)
+    per_frame = chip_smoke.per_frame_launches(net)
+    assert {k: v for k, v in counts.items() if v} == {
+        k: 8 * v for k, v in per_frame.items() if v}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [38, 18])
+def test_padded_cout_tile_convs_on_card(cuda, dtype, cout):
+    """pose_graph's stage-1 heads: B2 and B6 refuse a cout off their
+    channel grid, and the layer's padding (zero weight columns and bias,
+    a padded out cache, and for B6 a consumer cache of the padded width)
+    gives the plain version's results at the logical width, the pad
+    channels zero."""
+    from cbinfer_tpu_torch import layers as L
+    from cbinfer_tpu_torch.config import ConvSpec, PipelineConfig
+    from cbinfer_tpu_torch.ops.kernels import delta_conv_detect as KF
+    dt = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = PipelineConfig(compute_dtype=dt, cache_dtype=dt)
+    cpad = L.stored_features(ConvSpec(features=cout), cfg)
+    assert cpad > cout and cpad % KC.channel_quantum(dtype) == 0
+    rng = np.random.default_rng(cout)
+    H, W, cin = 90, 64, 128
+    g = conv_tile_geometry((H, W, cin), (1, 1), (1, 1), (1, 1), "SAME", 8, 8)
+
+    def geo2(c):
+        return conv_tile_geometry((H, W, c), (3, 3), (1, 1), (1, 1), "SAME",
+                                  8, 8)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda, dtype)
+    xp = t(rng.standard_normal(g.store_shape))
+    w = t(rng.standard_normal((1, 1, cin, cout)) * 0.1)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(
+        cuda)
+    wp, bp = L._padded_params(w, b, cpad)
+    assert L._padded_params(w, b, cpad)[0] is wp  # made once
+    out0 = t(rng.standard_normal((g.out_h_pad, g.out_w_pad, cout)))
+    out0p = torch.zeros((g.out_h_pad, g.out_w_pad, cpad), dtype=dtype,
+                        device=cuda)
+    out0p[..., :cout] = out0
+    g2, g2p = geo2(cout), geo2(cpad)
+    nc0 = t(rng.standard_normal(g2.store_shape) * 0.05)
+    nc0p = torch.zeros(g2p.store_shape, dtype=dtype, device=cuda)
+    nc0p[..., :cout] = nc0
+    idx, count = _ids(rng.uniform(size=(g.tiles_h, g.tiles_w)) < 0.4, cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        KC.delta_conv(xp, idx, w, b, out0.clone(), g, None, dtype,
+                      count=count)
+    with pytest.raises(ValueError, match="unsupported"):
+        KF.delta_conv_detect(xp, idx, w, b, out0.clone(), g, "relu", dtype,
+                             nc0.clone(), 0.05, g2, count=count)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    ok = KC.delta_conv(xp, idx, wp, bp, out0p.clone(), g, None, dtype,
+                       count=count)
+    op = KC.delta_conv_plain(xp, idx, w, b, out0.clone(), g, None, dtype,
+                             count=count)
+    torch.testing.assert_close(ok[..., :cout].float(), op.float(), rtol=tol,
+                               atol=tol)
+    assert not ok[..., cout:].any()
+    for tau2 in (0.05, -1.0):
+        of, nf = out0p.clone(), nc0p.clone()
+        _, _, mf, pf = KF.delta_conv_detect(xp, idx, wp, bp, of, g, "relu",
+                                            dtype, nf, tau2, g2p, count=count)
+        opl, npl = out0.clone(), nc0.clone()
+        _, _, mp, pp = KF.delta_conv_detect_plain(
+            xp, idx, w, b, opl, g, "relu", dtype, npl, tau2, g2, count=count)
+        torch.testing.assert_close(of[..., :cout].float(), opl.float(),
+                                   rtol=tol, atol=tol)
+        assert not of[..., cout:].any() and not nf[..., cout:].any()
+        if dtype == torch.float32:
+            # the plain detect on the kernel's own out tile: exact
+            nd = nc0.clone()
+            _, md, pd = KD.detect_sparse_plain(of[..., :cout].contiguous(),
+                                               nd, tau2, idx, count, g2)
+            assert torch.equal(nf[..., :cout], nd)
+            assert torch.equal(mf, md) and torch.equal(pf, pd)
+        if tau2 < 0:  # every listed tile's pixels: no rounding decides
+            assert torch.equal(mf, mp) and torch.equal(pf, pp)
 
 
 def test_graph_new_state_recaptures(cuda):
@@ -914,8 +1027,10 @@ def test_graph_capture_with_host_sync_raises(cuda):
         graphs.run(("k",), fn, frames)
 
 
+@pytest.mark.parametrize("kind,path", [("pose", "pose_fwd"),
+                                       ("pose_graph", None)])
 def test_graph_kernel_nodes_match_per_frame_launches(cuda, monkeypatch,
-                                                     tmp_path):
+                                                     tmp_path, kind, path):
     """The steady graph's dump (CUDAGraph debug mode) holds each of the
     path's kernels as often as the path's steady frames launch it: the
     replay runs them, not just the capture's counters."""
@@ -928,7 +1043,7 @@ def test_graph_kernel_nodes_match_per_frame_launches(cuda, monkeypatch,
             super().__init__(True)  # keep the cudaGraph_t for the dump
             self.enable_debug_mode()
     monkeypatch.setattr(torch.cuda, "CUDAGraph", DebugGraph)
-    net, params, taus, clip, state = _graph_net(cuda, "pose", "pose_fwd")
+    net, params, taus, clip, state = _graph_net(cuda, kind, path)
     run = scan_video_jit(net)
     for ch in _chunks(clip)[:2]:
         run(params, ch, state, thresholds=taus)

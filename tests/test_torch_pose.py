@@ -157,12 +157,6 @@ def test_zoo_policy_fallback_drops_fuse_detect(tmp_path, monkeypatch):
                    for s in wl.net.specs)
 
 
-@pytest.mark.parametrize("name", ["seg", "pose_graph"])
-def test_unported_workloads_still_raise(name):
-    with pytest.raises(NotImplementedError, match="waits for"):
-        zoo.load(name, (H, W, 3), TCFG)
-
-
 @pytest.mark.parametrize("t,h,w", [(32, 720, 1280), (12, 720, 1280)])
 def test_pose_refresh_cadence_matches_reference(t, h, w):
     got = zoo.load_refresh_cadence("pose", t, h, w)
@@ -200,8 +194,10 @@ def test_pose_video_is_byte_identical(cfg):
 
 
 def test_video_profiles_and_distinct_classes_checks():
+    assert tvideo.workload_video_kwargs("seg") \
+        == jvideo.workload_video_kwargs("seg")
     with pytest.raises(KeyError):
-        tvideo.workload_video_kwargs("seg")
+        tvideo.workload_video_kwargs("nope")
     with pytest.raises(ValueError, match="distinct_classes"):
         tvideo.SpriteVideo(tvideo.SpriteVideoConfig(n_sprites=7,
                                                     distinct_classes=True))

@@ -1,8 +1,9 @@
 """The port's workload zoo against the JAX package's: ``zoo.load`` of the
 sequential scene workloads gives the same specs ("pallas" read as "cuda"),
-taus, refresh cadence, provenance and weights; the unported workloads
-raise; the ``"hard"`` palette clip is byte-identical. The pose workload is
-held in ``test_torch_pose.py``."""
+taus, refresh cadence, provenance and weights; every workload's video
+profile and clip, the ``"hard"`` palette's too, is byte-identical. The pose,
+seg and pose_graph workloads are held in ``test_torch_pose.py``,
+``test_torch_seg.py`` and ``test_torch_graph.py``."""
 
 import dataclasses
 
@@ -67,13 +68,6 @@ def test_load_flat_tau_and_registry():
                 te.policy_json, te.model_kwargs) == (
             je.kind, je.width, je.metric, je.npz, je.tau_json,
             je.policy_json, je.model_kwargs)
-
-
-@pytest.mark.parametrize("name,needs", [("seg", "dilated"),
-                                        ("pose_graph", "graph")])
-def test_unported_workloads_raise(name, needs):
-    with pytest.raises(NotImplementedError, match=needs):
-        zoo.load(name, SHAPE, PipelineConfig(device="cpu"))
     with pytest.raises(KeyError):
         zoo.load("nope")
 
@@ -103,18 +97,24 @@ def test_load_refresh_cadence_matches_reference(name, t, h, w):
         == jzoo.load_refresh_cadence(name, t, h, w, default=5)
 
 
-@pytest.mark.parametrize("name", ["scene", "scene_hard", "pose_hard"])
+@pytest.mark.parametrize("name", ["scene", "scene_hard", "pose_hard", "seg",
+                                  "seg_hard", "pose_graph"])
 def test_workload_clip_is_byte_identical(name):
-    """"pose_hard" has no entry of its own: the "<base>_hard" rule gives the
-    pose profile's graded dynamics on the hard palette, in both packages."""
+    """"pose_hard" and "seg_hard" have no entry of their own: the
+    "<base>_hard" rule gives the base profile on the hard palette, in both
+    packages (seg's is on it already)."""
     kw = tvideo.workload_video_kwargs(name)
     assert kw == jvideo.workload_video_kwargs(name)
-    if name == "pose_hard":
-        assert kw == {**tvideo.workload_video_kwargs("pose"),
+    if name in ("pose_hard", "seg_hard"):
+        assert kw == {**tvideo.workload_video_kwargs(name[:-5]),
                       "palette": "hard"}
+    if name.startswith("seg"):
+        assert kw == {**tvideo.GRADED_DYNAMICS, "palette": "hard"}
+    if name == "pose_graph":
+        assert kw == tvideo.GRADED_DYNAMICS
     cfg = dict(height=48, width=64, n_sprites=3, sprite_size=10, speed=3.0,
-               noise_std=0.002, seed=4, distinct_classes=name == "pose_hard",
-               **kw)
+               noise_std=0.002, seed=4,
+               distinct_classes=name.startswith("pose"), **kw)
     want = jvideo.SpriteVideo(jvideo.SpriteVideoConfig(**cfg))
     got = tvideo.SpriteVideo(tvideo.SpriteVideoConfig(**cfg))
     wf, wl = want.clip_with_labels(4)
@@ -122,12 +122,11 @@ def test_workload_clip_is_byte_identical(name):
     assert gf.tobytes() == wf.tobytes() and gl.tobytes() == wl.tobytes()
     np.testing.assert_array_equal(tvideo.CLASS_PALETTE_HARD,
                                   jvideo.CLASS_PALETTE_HARD)
+    # every workload of the zoo has a profile, as in the reference
+    for n in zoo.names():
+        assert tvideo.workload_video_kwargs(n) \
+            == jvideo.workload_video_kwargs(n)
     with pytest.raises(KeyError):
-        tvideo.workload_video_kwargs("seg")
-    # the port has no seg profile until the seg workload is ported, so
-    # "seg_hard" raises here too; the reference has one and returns it
-    with pytest.raises(KeyError):
-        tvideo.workload_video_kwargs("seg_hard")
-    assert jvideo.workload_video_kwargs("seg_hard")["palette"] == "hard"
+        tvideo.workload_video_kwargs("nope")
     with pytest.raises(ValueError, match="palette"):
         tvideo.SpriteVideo(tvideo.SpriteVideoConfig(palette="soft"))
