@@ -280,3 +280,194 @@ def convert_flagship(specs: Sequence, in_shape: Tuple[int, int, int],
     if thresholds is not None:
         net = convert(net.specs, in_shape, cfg, thresholds=thresholds)
     return net
+
+
+# ------------------------- torch module auto-walker -------------------------
+
+
+def specs_from_torch(module: torch.nn.Module, fuse_relu: bool = True,
+                     device="cuda", dtype=torch.float32):
+    """Walk a sequentially executing ``nn.Module`` tree and return (specs,
+    params): the CBinfer converter's own workflow (walk a pretrained
+    ``nn.Sequential`` and swap its modules), with no hand-written specs.
+
+    Supported leaves: ``Conv2d`` (groups=1; zero padding -> VALID,
+    symmetric half padding of an odd stride-1 kernel -> SAME, anything else
+    explicit ``(ph, pw)``), ``ReLU`` (fused into the preceding conv),
+    ``BatchNorm2d`` (folded into the preceding conv at inference
+    semantics: w' = w * g / sqrt(var + eps), b' = (b - mean) * g /
+    sqrt(var + eps) + beta, in float64), ``MaxPool2d`` (padding 0,
+    dilation 1), ``Upsample`` (nearest or bilinear, integer scale) and
+    no-ops (``Identity``, ``Dropout*``, a ``Flatten`` at the tail).
+    Containers are recursed in child order, which is right exactly when
+    the module runs its children in sequence. Anything else raises with
+    its qualified name.
+
+    ``params`` is in the port's layout (``import_torch_state_dict``): HWIO
+    weights in ``dtype`` and float32 biases, on ``device``."""
+    import numpy as np
+    import torch.nn as nn
+
+    def pair(v):
+        return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+    specs: List = []
+    prefixes: List[str] = []
+    bn_folds: List = []  # (spec index, bn qualified name, eps)
+    flatten_at: List[str] = []  # a Flatten is only a no-op at the TAIL
+
+    def leaf(name: str, m):
+        if flatten_at and not isinstance(
+                m, (nn.Identity, nn.Dropout, nn.Dropout2d, nn.Flatten)):
+            raise TypeError(
+                f"{name}: spatial module after Flatten "
+                f"({flatten_at[0]}) — Flatten is only supported as a "
+                "trailing no-op (the layer IR is spatial throughout)")
+        if isinstance(m, nn.Conv2d):
+            if m.groups != 1:
+                raise ValueError(f"{name}: grouped conv unsupported")
+            kh, kw = pair(m.kernel_size)
+            dh, dw = pair(m.dilation)
+            sh, sw = pair(m.stride)
+            if m.padding == "same":
+                padding = "SAME"
+            elif m.padding == "valid":
+                padding = "VALID"
+            else:
+                ph, pw = pair(m.padding)
+                if (ph, pw) == (0, 0):
+                    padding = "VALID"
+                elif ((ph, pw) == (dh * (kh - 1) // 2, dw * (kw - 1) // 2)
+                      and kh % 2 and kw % 2 and (sh, sw) == (1, 1)):
+                    padding = "SAME"  # stride 1: symmetric == SAME
+                else:
+                    # torch's symmetric placement differs from SAME under
+                    # stride > 1: keep it explicit
+                    padding = (ph, pw)
+            specs.append(ConvSpec(
+                features=m.out_channels, kernel=(kh, kw), stride=(sh, sw),
+                dilation=(dh, dw), padding=padding, activation=None,
+                use_bias=m.bias is not None))
+            prefixes.append(name)
+        elif isinstance(m, nn.BatchNorm2d):
+            if not (specs and isinstance(specs[-1], ConvSpec)
+                    and specs[-1].activation is None):
+                raise ValueError(f"{name}: BatchNorm2d without a preceding "
+                                 "(activation-free) conv to fold into")
+            if m.running_mean is None or m.running_var is None:
+                raise ValueError(f"{name}: track_running_stats=False — no "
+                                 "stats to fold at inference")
+            # the folded bias (b - mean) * scale + beta is nonzero even for
+            # a bias-free conv, so the spec grows a bias
+            if not specs[-1].use_bias:
+                specs[-1] = dataclasses.replace(specs[-1], use_bias=True)
+            bn_folds.append((len(specs) - 1, name, float(m.eps)))
+        elif isinstance(m, nn.ReLU):
+            if (fuse_relu and specs and isinstance(specs[-1], ConvSpec)
+                    and specs[-1].activation is None):
+                specs[-1] = dataclasses.replace(specs[-1],
+                                                activation="relu")
+            else:
+                raise ValueError(f"{name}: standalone ReLU (no preceding "
+                                 "conv to fuse into)")
+        elif isinstance(m, nn.MaxPool2d):
+            if pair(m.padding) != (0, 0) or pair(m.dilation) != (1, 1) \
+                    or m.ceil_mode:
+                raise ValueError(f"{name}: only padding=0, dilation=1, "
+                                 "ceil_mode=False MaxPool2d supported")
+            window = pair(m.kernel_size)
+            specs.append(PoolSpec(
+                window=window,
+                stride=pair(m.stride) if m.stride is not None else window,
+                padding="VALID"))
+        elif isinstance(m, nn.Upsample):
+            if m.mode not in ("nearest", "bilinear"):
+                raise ValueError(f"{name}: Upsample mode {m.mode}")
+            if m.scale_factor is None:
+                raise ValueError(f"{name}: Upsample needs scale_factor")
+            sf = m.scale_factor
+            sh, sw = (sf, sf) if not isinstance(sf, (tuple, list)) else sf
+            if int(sh) != sh or int(sw) != sw:
+                raise ValueError(f"{name}: non-integer scale {sf}")
+            specs.append(UpsampleSpec(scale=(int(sh), int(sw)),
+                                      method=m.mode))
+        elif isinstance(m, nn.Flatten):
+            flatten_at.append(name)
+        elif isinstance(m, (nn.Identity, nn.Dropout, nn.Dropout2d)):
+            pass  # inference no-ops
+        else:
+            raise TypeError(f"{name}: unsupported module {type(m).__name__}")
+
+    def walk(prefix: str, m):
+        kids = list(m.named_children())
+        if not kids:
+            leaf(prefix or type(m).__name__, m)
+            return
+        for kname, k in kids:
+            walk(f"{prefix}.{kname}" if prefix else kname, k)
+
+    walk("", module)
+    sd = module.state_dict()
+    params_np = _state_dict_params(specs, sd, prefixes)
+    for si, bn, eps in bn_folds:
+        mean = _to_np(sd[f"{bn}.running_mean"]).astype(np.float64)
+        var = _to_np(sd[f"{bn}.running_var"]).astype(np.float64)
+        # affine=False stores no weight or bias: gamma 1, beta 0
+        g = (_to_np(sd[f"{bn}.weight"]).astype(np.float64)
+             if f"{bn}.weight" in sd else np.ones_like(mean))
+        beta = (_to_np(sd[f"{bn}.bias"]).astype(np.float64)
+                if f"{bn}.bias" in sd else np.zeros_like(mean))
+        scale = g / np.sqrt(var + eps)
+        w, b = params_np[si]
+        b0 = np.zeros_like(mean) if b is None else b.astype(np.float64)
+        params_np[si] = ((w.astype(np.float64) * scale).astype(w.dtype),
+                         ((b0 - mean) * scale + beta).astype(np.float32))
+    from .checkpoint import params_from_numpy
+    return specs, params_from_numpy(specs, params_np, device, dtype)
+
+
+def _to_np(t):
+    import numpy as np
+    return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach")
+                      else t)
+
+
+def _state_dict_params(specs: Sequence, state_dict: Dict[str, Any],
+                       conv_prefixes: Optional[Sequence[str]]) -> List:
+    """numpy HWIO ``(w, b)`` per conv of ``specs`` out of a torch
+    ``state_dict`` (OIHW weights), ``None`` elsewhere."""
+    if conv_prefixes is None:
+        conv_prefixes = [k[:-len(".weight")] for k in state_dict
+                         if k.endswith(".weight")
+                         and _to_np(state_dict[k]).ndim == 4]
+    params: List = []
+    it = iter(conv_prefixes)
+    for spec in specs:
+        if not isinstance(spec, ConvSpec):
+            params.append(None)
+            continue
+        prefix = next(it)
+        w = _to_np(state_dict[f"{prefix}.weight"])  # OIHW
+        if w.shape[2:] != tuple(spec.kernel) or w.shape[0] != spec.features:
+            raise ValueError(f"{prefix}: torch weight {w.shape} does not "
+                             f"match spec {spec}")
+        b_key = f"{prefix}.bias"
+        b = (_to_np(state_dict[b_key])
+             if spec.use_bias and b_key in state_dict else None)
+        params.append((w.transpose(2, 3, 1, 0), b))  # OIHW -> HWIO
+    return params
+
+
+def import_torch_state_dict(specs: Sequence, state_dict: Dict[str, Any],
+                            conv_prefixes: Optional[Sequence[str]] = None,
+                            device="cuda", dtype=torch.float32) -> List:
+    """Map a torch ``state_dict`` (OIHW conv weights) onto the spec chain.
+
+    Conv layers take weight/bias pairs in the order they appear in
+    ``state_dict``, or by ``conv_prefixes`` (e.g. ``["features.0",
+    "features.3"]``). Returns the port's params aligned with ``specs``:
+    HWIO weights in ``dtype``, float32 biases, on ``device``."""
+    from .checkpoint import params_from_numpy
+    return params_from_numpy(
+        specs, _state_dict_params(specs, state_dict, conv_prefixes),
+        device, dtype)

@@ -159,6 +159,19 @@ def stored_features(spec: ConvSpec, cfg: PipelineConfig) -> int:
     return -(-spec.features // q) * q
 
 
+def cache_channels(spec, in_c: int, cfg: PipelineConfig) -> Tuple[int, int]:
+    """Channels a CB layer stores: (input storage, out cache), for an input
+    of ``in_c`` logical channels. ``cb_layer_init`` sizes both caches by
+    it, and the cost model (``metrics.effective_cost_view``) prices the
+    detect traffic at the first, so the two cannot drift apart. The input
+    storage keeps the logical width (the JAX package pads it to 128 lanes
+    on its ``"pallas"`` backend); a conv's out cache has
+    ``stored_features``, a pool's the input's width."""
+    if isinstance(spec, ConvSpec):
+        return in_c, stored_features(spec, cfg)
+    return in_c, in_c
+
+
 def _padded_params(w: torch.Tensor, b: Optional[torch.Tensor], cout: int):
     """``(w, b)`` with zero output channels up to ``cout``: made at the
     first use and kept on ``w`` (anew if ``w`` or ``b`` was written in place
@@ -180,13 +193,13 @@ def _padded_params(w: torch.Tensor, b: Optional[torch.Tensor], cout: int):
 
 def cb_layer_init(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
                   ) -> CBLayerState:
-    """Allocate a layer's caches on ``cfg.device``."""
-    cout = (stored_features(spec, cfg) if isinstance(spec, ConvSpec)
-            else in_shape[2])
+    """Allocate a layer's caches on ``cfg.device``, of the widths
+    ``cache_channels`` gives."""
+    cin, cout = cache_channels(spec, in_shape[2], cfg)
     cfg = _layer_cfg(spec, cfg)
     dev = network.resolve_device(cfg.device)
     dtype = network.torch_dtype(cfg.cache_dtype)
-    g = _geometry(spec, in_shape, cfg)
+    g = _geometry(spec, (in_shape[0], in_shape[1], cin), cfg)
     out_cache = torch.zeros((g.out_h_pad, g.out_w_pad, cout), dtype=dtype,
                             device=dev)
     if isinstance(spec, PoolSpec) and spec.elide_in_cache:

@@ -4,8 +4,9 @@
 The two net types keep their stats in different containers (a list by
 layer index, a dict by node name) and propagate shapes by different rules;
 ``NetView`` flattens both into one ordered row table, so that the compute
-accounting (``metrics.effective_flops_view``) and the converters' hint
-analysis (``hint_reaches``) are written once against it.
+accounting (``metrics.effective_flops_view``, ``effective_cost_view``), the
+tuner's gain units and the converters' hint analysis (``hint_reaches``)
+are written once against it.
 
 Row order is execution order, which is also the order of the CB-threshold
 vector both net types consume, so ``view.cb_rows()`` lines up with a tau
@@ -105,6 +106,29 @@ class NetView:
                     seen.add(j)
                     stack.append(j)
         return sorted(seen)
+
+    def downstream_conv_flops(self, i: int) -> float:
+        """Dense FLOPs of every conv downstream of row i: the tuner's gain
+        unit for a ``dense_cached`` layer, whose tau sizes the hint that
+        gates all downstream recompute, not its own conv."""
+        return float(sum(self.rows[j].dense_flops
+                         for j in self.descendants(i)))
+
+    def next_conv_flops(self, i: int) -> float:
+        """Dense FLOPs of the nearest conv consumer(s) of row i: the
+        tuner's gain unit for a pool, whose tau gates the convs that read
+        its output. The walk stops at the first conv on each branch."""
+        total, stack, seen = 0.0, list(self.consumers(i)), set()
+        while stack:
+            j = stack.pop()
+            if j in seen:
+                continue
+            seen.add(j)
+            if isinstance(self.rows[j].spec, ConvSpec):
+                total += self.rows[j].dense_flops
+            else:
+                stack.extend(self.consumers(j))
+        return total
 
     def producer_row(self, i: int) -> Optional[LayerRow]:
         """The producer of row i's primary input, if any."""

@@ -250,8 +250,9 @@ def pack_stats(stats, device=None) -> torch.Tensor:
     """Per-layer stats dicts -> ONE (n_cb_layers, 6) int32 tensor, a row
     per CB layer in ``STAT_KEYS`` order (dense layers' empty dicts are
     skipped), on ``device`` (default: the stats' own device, the CPU when
-    every counter is known on the host). One output buffer for a graph to
-    write and a caller to copy, instead of six per layer."""
+    every counter is known on the host); a scan's stacked (T,) counters
+    give (n_cb_layers, 6, T). One output buffer for a graph to write and a
+    caller to copy, instead of six per layer."""
     dicts = _stat_dicts(stats)
     values = [d[k] for d in dicts for k in STAT_KEYS]
     if device is None:
@@ -259,13 +260,14 @@ def pack_stats(stats, device=None) -> torch.Tensor:
                        if isinstance(v, torch.Tensor)), torch.device("cpu"))
     if not dicts:
         return torch.zeros((0, 6), dtype=torch.int32, device=device)
-    return _stack_counters(values, device).to(torch.int32).view(
-        len(dicts), len(STAT_KEYS))
+    packed = _stack_counters(values, device).to(torch.int32)
+    return packed.view((len(dicts), len(STAT_KEYS))
+                       + tuple(packed.shape[1:]))
 
 
 def unpack_stats(packed) -> List[Dict[str, Any]]:
     """Inverse of pack_stats (host side): (L, 6) tensor -> list of dicts of
-    numpy scalars."""
+    numpy scalars ((L, 6, T) -> of (T,) arrays)."""
     arr = (packed.cpu().numpy() if isinstance(packed, torch.Tensor)
            else np.asarray(packed))
     return [{k: arr[i, j] for j, k in enumerate(STAT_KEYS)}

@@ -35,9 +35,15 @@ Then two more workloads through zoo.load, each on its own path:
                 17 fused producers; the stage-1 heads (cout 38 and 18) keep
                 out caches padded to the tile conv's channel grid
 
+Then CBinfer's own workflow: a user's torch module imported, the shipped
+workload's thresholds tuned at full width, and the command line.
+
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
   build       nvcc builds the kernels from cbinfer_tpu_torch/csrc/ (sm_90a)
+  balance     the achieved bf16 GEMM rate (torch.matmul, 8192^3) and device
+              copy rate (1 GiB), their ratio beside the data sheet's and
+              metrics.MACHINE_BALANCE, the cost model's constant
   small       each path at 64x128 (scene w16, pose, seg and pose_graph w8,
               float32) on the card against the same run on the CPU's plain
               versions: identical per-layer stats and argmax maps, outputs
@@ -89,6 +95,26 @@ Phases, each printing one JSON line:
               its spread, host CPU, the graphs' peak memory); on flagship
               and pose, FrameStepper at K = 1 from a cold start, equal to
               the eager loop, per-frame median and p90 wall ms
+  import      scene w128 written as an nn.Sequential (conv + BatchNorm with
+              random running stats + ReLU, pools, a 1x1 head) through
+              convert.specs_from_torch and convert_flagship: its bf16
+              dense output against module(x) in float32, one 32-frame CB
+              chunk's argmax against the dense argmax on the 31 steady
+              frames, the chunk's launches (the flagship's PER_FRAME)
+  tune        zoo.load("scene")'s thresholds re-tuned as
+              scripts/tune_model.py's scene branch does (seeds 7 and 11,
+              T = 96, GT-mIoU degradation on the device, its grid and
+              budgets, refresh every 32): evaluations, seconds, the
+              selected taus beside the shipped ones, the Pareto rows; then
+              stress_validate of {the card's vector, the shipped one, flat
+              0.04} on a fresh clip. Gates: the selected metric within the
+              budget, a Pareto flop_reduction that does not fall as the
+              budget rises, the device metric equal to the host one, the
+              dense reference (CB at tau = -1) equal to apply_dense, every
+              flagship kernel launched; each scan runs under the sync check
+  cli         cli.main in this process: synthetic 720p w128 bf16 with
+              --tune and --live 1, then a .y4m that fileio.write_y4m wrote;
+              the JSON keys, flop_reduction > 1, live ms/frame
   check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -150,6 +176,10 @@ PER_FRAME = {
     "pose_graph": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 8,
                    "delta_conv": 7, "delta_conv_detect": 17,
                    "detect_pool_fused": 2, "delta_pool": 1},
+    # the CLI's net: the plain converter with the flagship's stem, so both
+    # pools re-detect and the 1x1 head is a CB conv
+    "cli": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 6,
+            "delta_pool": 2, "delta_conv": 4},
 }
 # what zoo.load must give the two workloads of the last phases: CB layers,
 # the fused consumer detect, the policy file it came from (None: "none")
@@ -203,6 +233,7 @@ def main():
                     if "registers" in ln or "spill" in ln]
                 for k, v in info["ptxas"].items()})
 
+    phase("balance", balance_phase, torch)
     phase("small", small_parity, torch, np)
     ctx = phase("setup", make_context, torch, np)
     calls = phase("main", main_path, torch, np, ctx)
@@ -224,6 +255,10 @@ def main():
         calls += phase(name, workload_path, torch, np, wctx)
         del wctx
         torch.cuda.empty_cache()
+    phase("import", import_phase, torch, np)
+    phase("tune", tune_phase, torch, np)
+    torch.cuda.empty_cache()
+    calls += phase("cli", cli_phase, torch, np)
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
     seconds["total"] = round(time.perf_counter() - t0, 1)
@@ -2155,6 +2190,337 @@ def check_kernels(torch, np, calls):
     RESULTS["_context"] = context
 
 
+# ------------------------- the workflow of slice 10 --------------------------
+# import a torch module, tune its thresholds, run the command line: each
+# phase resets the launch counters just before it and reads them just after
+
+
+TUNE_T = 96           # frames of each calibration clip and the stress clip
+TUNE_SEEDS = (7, 11)  # calibration seeds (scripts/tune_model.py's)
+STRESS_SEED = 23      # the stress clip's: disjoint from both and the timed
+TUNE_GRID = (0.015, 0.02, 0.03, 0.045, 0.07, 0.1, 0.15)
+TUNE_BUDGETS = (0.001, 0.002, 0.005, 0.01, 0.02)
+TUNE_BUDGET = 0.005
+TUNE_REFRESH = 32
+TUNE_SKIP = 8
+IMPORT_TAU = 0.02     # flat tau of the imported (random-weight) net
+# bf16 dense against module(x) in float32: the largest |diff| over the
+# largest |module(x)|, and the share of argmax pixels that must agree
+IMPORT_DENSE_REL = 0.03
+IMPORT_DENSE_AGREE = 0.99
+# CB against dense argmax on the 31 steady frames of the imported net
+IMPORT_CB_AGREE = 0.98
+# the tuner's dense reference (CB at tau = -1, every tile recomputed)
+# against apply_dense: the same two bounds
+TAU_MINUS_ONE_REL = 0.03
+TAU_MINUS_ONE_AGREE = 0.999
+CLI_BUDGET = 0.05     # the cli phase's --budget (see cli_phase)
+
+
+def balance_phase(torch):
+    """The card's achieved dense bf16 GEMM rate (torch.matmul, 8192^3) and
+    device-to-device copy rate (1 GiB, read + write counted), their ratio,
+    beside the data sheet's and the constant the port's cost model ships."""
+    from cbinfer_tpu_torch import metrics
+    n = 8192
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    c = torch.empty(n, n, device="cuda", dtype=torch.bfloat16)
+    src = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+
+    def rate(fn, work, reps=20):
+        for _ in range(3):
+            fn()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return work * reps / (e0.elapsed_time(e1) / 1e3)
+
+    flops = rate(lambda: torch.matmul(a, b, out=c), 2.0 * n ** 3)
+    bw = rate(lambda: dst.copy_(src), 2.0 * src.numel())
+    del a, b, c, src, dst
+    torch.cuda.empty_cache()
+    emit("balance", gemm_bf16_tflops=flops / 1e12, copy_tb_per_s=bw / 1e12,
+         measured_flop_per_byte=flops / bw,
+         datasheet_flop_per_byte=PEAK_BF16_FLOPS / PEAK_BYTES,
+         shipped_machine_balance=metrics.MACHINE_BALANCE,
+         nvidia_smi=nvidia_smi("name,power.limit"))
+
+
+def scene_module(torch, width=128, classes=NUM_CLASSES, seed=0):
+    """scene w128 written as a torch nn.Sequential: conv + BatchNorm (random
+    non-trivial running stats) + ReLU, max pools, a 1x1 head."""
+    nn = torch.nn
+    gen = torch.Generator().manual_seed(seed)
+
+    def conv_bn(cin, cout):
+        conv = nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+        nn.init.kaiming_normal_(conv.weight, nonlinearity="relu",
+                                generator=gen)
+        bn = nn.BatchNorm2d(cout)
+        with torch.no_grad():
+            bn.running_mean.copy_(0.1 * torch.randn(cout, generator=gen))
+            bn.running_var.copy_(0.5 + torch.rand(cout, generator=gen))
+            bn.weight.copy_(0.5 + torch.rand(cout, generator=gen))
+            bn.bias.copy_(0.1 * torch.randn(cout, generator=gen))
+        return [conv, bn, nn.ReLU()]
+
+    w2 = 2 * width
+    head = nn.Conv2d(w2, classes, 1)
+    nn.init.kaiming_normal_(head.weight, generator=gen)
+    nn.init.zeros_(head.bias)
+    m = nn.Sequential(*conv_bn(3, width), nn.MaxPool2d(2),
+                      *conv_bn(width, w2), nn.MaxPool2d(2),
+                      *conv_bn(w2, w2), *conv_bn(w2, w2), head)
+    return m.eval()
+
+
+def import_phase(torch, np):
+    """A user's own torch module through the importer: specs_from_torch ->
+    convert_flagship on the card, its dense output against module(x), one
+    32-frame CB chunk against its dense argmax, and the chunk's launches,
+    which must be the flagship's."""
+    from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.convert import (convert_flagship, num_cb_layers,
+                                           specs_from_torch)
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    module = scene_module(torch).cuda()
+    cfg = zoo.default_pipeline_config()
+    specs, params = specs_from_torch(module, device="cuda",
+                                     dtype=torch.bfloat16)
+    net = convert_flagship(specs, (H, W, 3), cfg)
+    if (net.specs[0].backend != "patch_stem"
+            or per_frame_launches(net) != PER_FRAME["flagship"]):
+        raise AssertionError(f"the imported net is not the flagship's: "
+                             f"{per_frame_launches(net)}")
+    clip = torch.from_numpy(SpriteVideo(SpriteVideoConfig(
+        height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+        noise_std=0.002, seed=0, **workload_video_kwargs("scene")))
+        .clip(T)).cuda()
+    with torch.no_grad():
+        ref = module(clip[:4].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    dense4 = torch.stack([net.apply_dense(params, f) for f in clip[:4]])
+    rel = float((dense4.float() - ref).abs().max() / ref.abs().max())
+    agree_dense = float((dense4.argmax(-1) == ref.argmax(-1))
+                        .float().mean())
+    taus = [IMPORT_TAU] * num_cb_layers(net.specs)
+    dense = torch.stack([net.apply_dense(params, f).argmax(-1)
+                         for f in clip])
+    torch.cuda.synchronize()
+    reset_launches()
+    ys, _, _ = no_sync(torch, lambda: scan_video(
+        net, params, clip, thresholds=taus, collect_stats=False,
+        refresh_start=True, out_map=lambda y: y.argmax(-1)))
+    torch.cuda.synchronize()
+    counts = launches()
+    agree_cb = float((ys[1:] == dense[1:]).float().mean())
+    emit("import", module=[type(m).__name__ for m in module],
+         specs=[type(s).__name__ for s in net.specs],
+         backends=[getattr(s, "backend", None) for s in net.specs],
+         dense_vs_module_rel_err=rel, dense_vs_module_argmax=agree_dense,
+         cb_vs_dense_argmax_steady=agree_cb, tau=IMPORT_TAU,
+         launches=counts, steady_frames=T - 1,
+         tolerances=dict(dense_rel=IMPORT_DENSE_REL,
+                         dense_argmax=IMPORT_DENSE_AGREE,
+                         cb_argmax=IMPORT_CB_AGREE))
+    expect_launches("flagship", counts, T - 1)
+    if not (rel <= IMPORT_DENSE_REL and agree_dense >= IMPORT_DENSE_AGREE
+            and agree_cb >= IMPORT_CB_AGREE):
+        raise AssertionError(f"import: dense rel err {rel}, dense argmax "
+                             f"{agree_dense}, CB argmax {agree_cb}")
+
+
+def tune_phase(torch, np):
+    """The full-width tuning of the shipped workload as
+    scripts/tune_model.py's scene branch does it, then stress_validate of
+    the card's vector, the shipped one and a flat 0.04 on a fresh clip."""
+    from cbinfer_tpu_torch import tuner, zoo
+    from cbinfer_tpu_torch.metrics import _np, miou_labels, miou_labels_device
+    from cbinfer_tpu_torch.netview import NetView
+    from cbinfer_tpu_torch.network import out_shapes
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    wl = zoo.load("scene", (H, W, 3))
+    net, params = wl.net, wl.params
+    stride = H // out_shapes(net.specs, (H, W, 3))[-1][0]
+
+    def video(seed):
+        return SpriteVideo(SpriteVideoConfig(
+            height=H, width=W, n_sprites=4, sprite_size=max(24, H // 15),
+            speed=4.0, noise_std=0.002, seed=seed,
+            **workload_video_kwargs("scene")))
+
+    pairs = [video(s).clip_with_labels(TUNE_T) for s in TUNE_SEEDS]
+    calib = np.stack([f for f, _ in pairs])
+    labels = np.stack([lab[:, ::stride, ::stride] for _, lab in pairs])
+    del pairs
+
+    def gt_metric(cb, dn, lab):
+        return 1.0 - (miou_labels(dn, lab, NUM_CLASSES)
+                      - miou_labels(cb, lab, NUM_CLASSES))
+
+    def gt_metric_device(cb, dn, lab):
+        return 1.0 - (miou_labels_device(dn, lab, NUM_CLASSES)
+                      - miou_labels_device(cb, lab, NUM_CLASSES))
+
+    n = len(wl.taus)
+    # the dense reference the tuner uses (CB at tau = -1) against
+    # apply_dense, and the device metric against the host one, on the
+    # first calibration clip
+    run = tuner._make_runner(net, params, TUNE_REFRESH)
+    clip0 = torch.from_numpy(calib[0]).cuda()
+    lab0 = torch.from_numpy(labels[0]).cuda()
+    ref_cb = run(clip0, [-1.0] * n)[0]
+    ref_dense = torch.stack([net.apply_dense(params, f) for f in clip0])
+    m1_rel = float((ref_cb.float() - ref_dense.float()).abs().max()
+                   / ref_dense.float().abs().max())
+    m1_agree = float((ref_cb.argmax(-1) == ref_dense.argmax(-1))
+                     .float().mean())
+    ys = run(clip0, wl.taus)[0]
+    s = TUNE_SKIP
+    host = gt_metric(_np(ys)[s:], _np(ref_cb)[s:], labels[0][s:])
+    dev = float(gt_metric_device(ys[s:], ref_cb[s:], lab0[s:]))
+    del run, clip0, lab0, ref_cb, ref_dense, ys
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = tuner.tune(net, params, calib, gt_metric,
+                     device_metric_fn=gt_metric_device, labels=labels,
+                     tau_grid=TUNE_GRID, budgets=TUNE_BUDGETS,
+                     budget=TUNE_BUDGET, skip_frames=TUNE_SKIP,
+                     refresh_every=TUNE_REFRESH)
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    frames_evaluated = res.evaluations * len(TUNE_SEEDS) * TUNE_T
+    del calib, labels
+
+    sf, slab = video(STRESS_SEED).clip_with_labels(TUNE_T)
+    t1 = time.perf_counter()
+    stress = tuner.stress_validate(
+        net, params, {"card_tuned": res.thresholds, "shipped": wl.taus,
+                      "flat_0.04": [0.04] * n},
+        [sf], gt_metric, labels=[slab[:, ::stride, ::stride]],
+        budget=TUNE_BUDGET, skip_frames=TUNE_SKIP,
+        refresh_every=TUNE_REFRESH, device_metric_fn=gt_metric_device)
+    stress_seconds = time.perf_counter() - t1
+    view = NetView.of(net)
+    dead = [tuner._tau_is_dead(view, r)
+            for r, row in enumerate(view.rows) if row.is_cb]
+    emit("tune", T=TUNE_T, calib_seeds=list(TUNE_SEEDS),
+         stress_seed=STRESS_SEED, evaluations=res.evaluations,
+         seconds=seconds, ms_per_evaluated_frame=seconds * 1e3
+         / frames_evaluated, tau_dead=dead, selected_taus=res.thresholds,
+         shipped_taus=wl.taus, calib_metric=res.metric,
+         flop_reduction=res.flop_reduction,
+         cost_reduction=min(res.pareto, key=lambda p: abs(
+             p["budget"] - TUNE_BUDGET))["cost_reduction"],
+         pareto=res.pareto, stress_rows=stress.rows,
+         stress_source=stress.source, stress_passed=stress.passed,
+         stress_seconds=stress_seconds, launches=counts,
+         tau_minus_one_vs_dense_rel_err=m1_rel,
+         tau_minus_one_vs_dense_argmax=m1_agree,
+         device_metric=dev, host_metric=host)
+    if not (m1_rel <= TAU_MINUS_ONE_REL and m1_agree >= TAU_MINUS_ONE_AGREE):
+        raise AssertionError(f"tau = -1 against apply_dense: rel err "
+                             f"{m1_rel}, argmax {m1_agree}")
+    if abs(dev - host) > 1e-6:
+        raise AssertionError(f"device metric {dev} != host metric {host}")
+    if res.metric < 1.0 - TUNE_BUDGET - 1e-9:
+        raise AssertionError(f"selected metric {res.metric} below budget")
+    fr = [p["flop_reduction"] for p in sorted(res.pareto,
+                                              key=lambda p: p["budget"])]
+    if any(b < a for a, b in zip(fr, fr[1:])):
+        raise AssertionError(f"Pareto flop_reduction falls: {fr}")
+    missing = [k for k in PER_FRAME["flagship"] if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"tune: no launch of {missing}")
+
+
+def cli_phase(torch, np):
+    """cli.main in this process, twice: synthetic 720p w128 bf16 with the
+    tuner and the live stepper, then a .y4m file that fileio.write_y4m
+    wrote."""
+    import contextlib
+    import io
+    import tempfile
+    from cbinfer_tpu_torch import cli
+    from cbinfer_tpu_torch.fileio import write_y4m
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
+
+    def call(argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        out = json.loads(buf.getvalue().strip().splitlines()[0])
+        want = {"model", "backend", "miou_vs_dense", "flop_reduction",
+                "thresholds"}
+        if rc != 0 or not want <= set(out) or out["backend"] != "cuda" \
+                or not out["flop_reduction"] > 1:
+            raise AssertionError(f"cli {argv}: rc {rc}, {out}")
+        out["seconds"] = time.perf_counter() - t
+        return out
+
+    base = ["--model", "scene", "--width-mult", "128", "--bf16", "--json"]
+    reset_launches()
+    # the CLI's random-weight net scores agreement mIoU against its own
+    # dense output: at the default budget of 0.005 the smallest tau of the
+    # grid already costs more, and the tuner keeps tau = 0 (no reduction)
+    synthetic = call(base + ["--height", str(H), "--width", str(W),
+                             "--tune", "--budget", str(CLI_BUDGET),
+                             "--live", "1"])
+    if "live_ms_per_frame" not in synthetic:
+        raise AssertionError(f"cli --live: {synthetic}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.y4m")
+        write_y4m(path, SpriteVideo(SpriteVideoConfig(
+            height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+            noise_std=0.002, seed=3)).clip(16))
+        video = call(base + ["--video", path, "--frames", "16"])
+    torch.cuda.synchronize()
+    emit("cli", synthetic=synthetic, video=video, launches=launches())
+    return capture_cli_frame(torch, synthetic["thresholds"])
+
+
+def capture_cli_frame(torch, taus):
+    """The CLI's synthetic net rebuilt as cli.main builds it (same seed,
+    so the same random weights), streamed to a steady state, then one
+    frame with its kernel calls recorded for the check phase: the shapes
+    the CLI gives its kernels."""
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import convert, flagship_layers
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.network import init_params
+    from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
+    specs = get_model("scene", num_classes=NUM_CLASSES, width=128)
+    cfg = PipelineConfig(tile=TileConfig(8, 8), compute_dtype="bfloat16",
+                         cache_dtype="bfloat16", device="cuda")
+    net = convert(specs, (H, W, 3), cfg, backend_overrides=flagship_layers(
+        specs, (H, W, 3), cfg)[0])
+    params = init_params(specs, (H, W, 3), 0, "cuda", torch.bfloat16)
+    video = SpriteVideo(SpriteVideoConfig(
+        height=H, width=W, n_sprites=4, sprite_size=max(16, H // 15),
+        speed=4.0, noise_std=0.002, seed=0))
+    clip = torch.from_numpy(video.clip(9)).cuda()
+    _, state, _ = scan_video(net, params, clip[:8], thresholds=taus,
+                             collect_stats=False)
+    ctx = types.SimpleNamespace(wl=types.SimpleNamespace(params=params))
+    return capture_frame(torch, ctx, "cli", net, taus, state, None,
+                         frame=clip[8])
+
+
 def emit_kernels():
     from cbinfer_tpu_torch.ops.kernels import KERNELS
     per = RESULTS.pop("_per_kernel")
@@ -2166,14 +2532,17 @@ def emit_kernels():
                 "pose_unfused": RESULTS["pose_unfused"]["launches"],
                 "pose_fwd": RESULTS["pose_fwd"]["launches"],
                 "seg": RESULTS["seg"]["launches"],
-                "pose_graph": RESULTS["pose_graph"]["launches"]}
+                "pose_graph": RESULTS["pose_graph"]["launches"],
+                "import": RESULTS["import"]["launches"],
+                "tune": RESULTS["tune"]["launches"],
+                "cli": RESULTS["cli"]["launches"]}
     rows = []
     for k in KERNELS:
         paths = {}
-        for path in PER_FRAME:
+        for path in launches:
             p = per.get((path, k.name))
             if p is None:
-                if launches[path][k.name]:
+                if launches[path].get(k.name):
                     paths[path] = {"launches": launches[path][k.name]}
                 continue
             paths[path] = {

@@ -1064,3 +1064,82 @@ def test_graph_kernel_nodes_match_per_frame_launches(cuda, monkeypatch,
             nodes[name] = nodes.get(name, 0) + 1
     per_frame = chip_smoke.per_frame_launches(net)
     assert nodes == {k: 4 * v for k, v in per_frame.items() if v}
+
+
+# ---- the workflow of import, tune and command line on the card ----
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_workflow_device_metrics_equal_the_host_on_card(cuda, dtype):
+    from cbinfer_tpu_torch import metrics as M
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = (torch.randn((4, 45, 80, 8), device=cuda, generator=g) * 2).round() \
+        .to(dtype)  # few levels: argmax ties are common
+    b = (torch.randn((4, 45, 80, 8), device=cuda, generator=g) * 2).round() \
+        .to(dtype)
+    lab = torch.randint(0, 8, (4, 45, 80), device=cuda, generator=g,
+                        dtype=torch.uint8)
+    assert abs(float(M.miou_device(a, b, 8)) - M.miou(a, b, 8)) <= 1e-6
+    assert abs(float(M.miou_labels_device(a, lab, 8))
+               - M.miou_labels(a, lab, 8)) <= 1e-6
+    assert abs(float(M.pck_device(a, b)) - M.pck(a, b)) <= 1e-6
+    kps = torch.rand((4, 8, 2), device=cuda, generator=g) * 160
+    valid = torch.rand((4, 8), device=cuda, generator=g) > 0.3
+    packed = torch.cat([kps, valid[..., None].float()], -1)
+    got = M.pck_gt_device(a, packed, 4, num_keypoints=8)
+    want = M.pck_gt(a, kps.cpu().numpy(), valid.cpu().numpy(), 4,
+                    num_keypoints=8)
+    assert got.device.type == "cuda" and abs(float(got) - want) <= 1e-6
+
+
+def test_workflow_tune_on_card_selects_the_cpu_taus(cuda):
+    """A small float32 tune through the kernels selects what the plain
+    versions select on the CPU, each scan under the sync check."""
+    import functools
+    from cbinfer_tpu_torch import metrics as M
+    from cbinfer_tpu_torch import tuner
+    from cbinfer_tpu_torch.checkpoint import params_from_numpy
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import convert_flagship
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
+    specs = get_model("scene_tiny", num_classes=5, width=16)
+    rng = np.random.default_rng(1)
+    params_np, c = [], 3
+    for s in specs:
+        if hasattr(s, "features"):
+            kh, kw = s.kernel
+            params_np.append((rng.standard_normal((kh, kw, c, s.features))
+                              .astype(np.float32) * np.sqrt(2 / (kh * kw * c)),
+                              np.zeros(s.features, np.float32)))
+            c = s.features
+        else:
+            params_np.append(None)
+    clips = np.stack([SpriteVideo(SpriteVideoConfig(
+        height=64, width=128, n_sprites=2, sprite_size=12, speed=2.0,
+        noise_std=0.01, seed=s)).clip(8) for s in (7, 11)])
+    kw = dict(tau_grid=(0.05, 0.15, 0.4), budgets=(0.02, 0.1), budget=0.1,
+              skip_frames=2, refresh_every=4, base_tau=0.01)
+    res = {}
+    for device in ("cpu", "cuda"):
+        cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), device=device)
+        net = convert_flagship(specs, (64, 128, 3), cfg)
+        params = params_from_numpy(specs, params_np, device=device)
+        res[device] = tuner.tune(
+            net, params, clips, functools.partial(M.miou, num_classes=5),
+            device_metric_fn=functools.partial(M.miou_device,
+                                               num_classes=5), **kw)
+    assert res["cuda"].thresholds == res["cpu"].thresholds
+    assert [p["thresholds"] for p in res["cuda"].pareto] == \
+        [p["thresholds"] for p in res["cpu"].pareto]
+    assert res["cuda"].flop_frac == res["cpu"].flop_frac
+
+
+def test_workflow_cli_on_card(cuda, capsys):
+    import json
+    from cbinfer_tpu_torch import cli
+    cli.main(["--model", "scene", "--width-mult", "16", "--height", "64",
+              "--width", "128", "--frames", "8", "--live", "1", "--json"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[0])
+    assert out["backend"] == "cuda" and out["flop_reduction"] > 1.0
+    assert out["live_chunk"] == 1 and out["live_ms_per_frame"] > 0

@@ -41,9 +41,12 @@ def test_port_imports_without_jax_or_reference():
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.strip().splitlines()[-1])
-    expected = len(list(pkgutil.walk_packages(cbinfer_tpu_torch.__path__,
-                                              "cbinfer_tpu_torch.")))
-    assert n == expected >= 30
+    names = {m.name for m in pkgutil.walk_packages(cbinfer_tpu_torch.__path__,
+                                                   "cbinfer_tpu_torch.")}
+    assert n == len(names) >= 33
+    # the workflow modules: the tuner, the command line, the file readers
+    assert {"cbinfer_tpu_torch.tuner", "cbinfer_tpu_torch.cli",
+            "cbinfer_tpu_torch.fileio"} <= names
 
 
 def test_sources_never_name_jax():
