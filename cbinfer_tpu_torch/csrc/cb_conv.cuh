@@ -482,17 +482,40 @@ __device__ __forceinline__ void conv_tile_wg(
   }
 }
 
+// The opt-in above 48 KB of dynamic shared memory is an attribute of a
+// kernel on one device: a high-water mark per kernel and device, so that
+// streams spread over several cards opt in on each of them.
+constexpr int kCbMaxDevices = 64;
+constexpr int kCbDefaultSmem = 48 * 1024;
+struct SmemMarks {
+  int bytes[kCbMaxDevices] = {};
+};
+
+// Raise ``kernel``'s opt-in on the current device to ``smem`` bytes if
+// its mark there is lower; a launch it would still refuse is reported by
+// cudaGetLastError after the launch.
+template <typename K>
+int set_smem(K kernel, size_t smem, SmemMarks* marks) {
+  if ((int)smem <= kCbDefaultSmem) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kCbMaxDevices) return (int)cudaErrorInvalidDevice;
+  if ((int)smem <= marks->bytes[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  marks->bytes[dev] = (int)smem;
+  return 0;
+}
+
 // Launch a bf16 tile-conv kernel: ``tiles`` clusters of pl.csize blocks
 // (a plain grid when csize is 1), one launch.
 template <typename... P, typename... A>
 int launch_wg(void (*kernel)(P...), int tiles, const WgPlan& pl, int smem,
-              int* high_water, cudaStream_t s, A... args) {
-  if (smem > *high_water) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    *high_water = smem;
-  }
+              SmemMarks* marks, cudaStream_t s, A... args) {
+  int err = set_smem(kernel, (size_t)smem, marks);
+  if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * pl.csize);
   cfg.blockDim = dim3(kWgThreads);
@@ -595,19 +618,6 @@ __device__ __forceinline__ void conv_tile_f32(
       if (ytile) *reinterpret_cast<float4*>(ytile + p * ys + co) = v4;
     }
   }
-}
-
-// The opt-in above 48 KB of dynamic shared memory is a per-kernel
-// attribute: one high-water mark per kernel; a launch it would still refuse
-// is reported by cudaGetLastError after the launch.
-template <typename K>
-int set_smem(K kernel, size_t smem, int* high_water) {
-  if ((int)smem <= *high_water) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  *high_water = (int)smem;
-  return 0;
 }
 
 }  // namespace

@@ -172,7 +172,7 @@ extern "C" int cb_delta_conv_detect(
     int tiles_w2, int step_h2, int step_w2, int pad_lo_h2, int pad_lo_w2,
     int win_h2, int win_w2, int n_blk, int csize, int slices, int steps,
     int stages, int smem, void* stream) {
-  static int hw_f32 = 48 * 1024;
+  static SmemMarks hw_f32;
   ConvArgs a{cin, cout,  kh,    kw,  sh,      sw,
              dh,  dw,    8,     8,   win_h,   win_w,
              dx0, tiles_w, conv_pixel_stride(cin), s_row, out_row,
@@ -183,7 +183,7 @@ extern "C" int cb_delta_conv_detect(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_blocks <= 0) return 0;
   if (dtype == CB_BF16) {
-    static int hw[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+    static SmemMarks hw[3];
     const WgPlan pl{slices, csize, steps, stages};
     const auto* st = static_cast<const __nv_bfloat16*>(storage);
     const auto* wp = static_cast<const __nv_bfloat16*>(w);

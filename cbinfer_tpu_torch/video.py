@@ -7,13 +7,16 @@ byte-identical to the JAX package's ``SpriteVideo`` (same generator, same
 draw order), on the default and the ``"hard"`` palette, with or without the
 graded-change dynamics (slow illumination drift, spatially smooth sensor
 noise, sprite colour pulsation) of the pose profile, and with the sprites'
-keypoint ground truth. Camera pan and the pose training targets of the
-original are not copied.
+keypoint ground truth, and under a global camera pan (the background
+scrolls, wrapping, under the sprites). ``two_frame_pair`` is the fixture of
+the single change-gated conv. The pose training targets of the original are
+not copied.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 
@@ -68,6 +71,11 @@ class SpriteVideoConfig:
     noise_smooth_scale: int = 48
     color_drift: float = 0.0
     color_period: float = 96.0
+    # Global camera pan, (dy, dx) pixels/frame: the background scrolls
+    # (wrapping) under the sprites. The worst case of a change-based
+    # system: every tile is dirty every frame, and the stem's capacity
+    # overflow carries the frame (the change-rate sweep's pan points).
+    pan: Tuple[float, float] = (0.0, 0.0)
 
 
 # Pose supervision: parts per sprite are its centre and its top-left and
@@ -181,7 +189,13 @@ class SpriteVideo:
 
     def frame(self) -> np.ndarray:
         cfg = self.cfg
-        img = self.background.copy()
+        if tuple(cfg.pan) != (0.0, 0.0):
+            # wrapping scroll of the background (idempotent in t)
+            dy = int(round(self.frame_index * cfg.pan[0]))
+            dx = int(round(self.frame_index * cfg.pan[1]))
+            img = np.roll(self.background, (dy, dx), axis=(0, 1)).copy()
+        else:
+            img = self.background.copy()
         colors = self._sprite_colors_at(self.frame_index)
         for i in range(cfg.n_sprites):
             y, x = int(self.pos[i, 0]), int(self.pos[i, 1])
@@ -311,3 +325,17 @@ def workload_video_kwargs(name: str) -> dict:
         return {**_WORKLOAD_PROFILES[name[:-5]], "palette": "hard"}
     raise KeyError(f"no video profile for workload {name!r} "
                    f"(have {sorted(_WORKLOAD_PROFILES)})")
+
+
+def two_frame_pair(h: int = 24, w: int = 32, c: int = 3,
+                   moved_pixels: int = 64, seed: int = 0):
+    """Two frames that differ in one small square region: the fixture of
+    the single change-gated conv layer (BASELINE.json configs[0])."""
+    rng = np.random.default_rng(seed)
+    f0 = rng.uniform(0, 1, (h, w, c)).astype(np.float32)
+    f1 = f0.copy()
+    size = max(1, int(np.sqrt(moved_pixels)))
+    y = rng.integers(0, h - size)
+    x = rng.integers(0, w - size)
+    f1[y:y + size, x:x + size, :] = rng.uniform(0, 1, (size, size, c))
+    return f0, f1

@@ -36,7 +36,11 @@ Then two more workloads through zoo.load, each on its own path:
                 out caches padded to the tile conv's channel grid
 
 Then CBinfer's own workflow: a user's torch module imported, the shipped
-workload's thresholds tuned at full width, and the command line.
+workload's thresholds tuned at full width, and the command line. Then the
+flagship serving many 720p cameras at once (parallel.MultiStreamRunner,
+frames from the native generator, data.NativeSpriteVideo), live behind
+data.PrefetchingSource, over every change rate up to a panning camera,
+and the multi-stream dry run.
 
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
@@ -115,6 +119,34 @@ Phases, each printing one JSON line:
   cli         cli.main in this process: synthetic 720p w128 bf16 with
               --tune and --live 1, then a .y4m that fileio.write_y4m wrote;
               the JSON keys, flop_reduction > 1, live ms/frame
+  multistream the flagship (zoo.load("scene"), trained weights and taus,
+              argmax-u8, mean stats) serving S = 4 and 8 streams of distinct
+              NativeSpriteVideo seeds (frames made before timing), 4 chunks
+              of 32 frames each with the REFRESH_scene.json cadence, then 3
+              runner.step frames: every stream's outputs, mean stats and
+              caches bit-identical to that stream run alone through its own
+              scan_video_jit, every graph's captured launches PER_FRAME x
+              its steady frames; then runner.run_clip against the same
+              clips back to back in GRAPH_PAIRS alternating pairs, and the
+              alone graphs (a pool per stream) replayed each on a side CUDA
+              stream of its own, joined by events, bit-identical to in-order
+              replays, in pairs against in-order: frames/s per card, the
+              ratios, peak memory and graphs live per S
+  live        4 NativeSpriteVideo 720p sources behind PrefetchingSource feed
+              runner.step for 64 frames: frames/s, the share of next()
+              calls that found the queue empty, the generator's ms/frame
+              (recorded, not gated)
+  changerate  scripts/bench_changerate.py's seven points (sprites1 ...
+              sprites24, pan_slow, pan_fast; frames made in threads before
+              each point is timed), 4 chunks of 32: chunk 2's replay equal
+              to the eager loop bit for bit, graphed CB against graphed
+              dense in pairs on chunks 1-3; per point the stem's changed
+              share, overflow rate, both fps, their ratio, agreement mIoU
+              with dense (gated at 0.995) and the stem's computed tiles;
+              the break-even changed share, interpolated as the script does
+  dryrun      parallel.dryrun_multistream over the machine's cards: the
+              plain-stem flagship, the kernel path and the pose_graph DAG
+              through the runner, one stream per card
   check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -259,6 +291,13 @@ def main():
     phase("tune", tune_phase, torch, np)
     torch.cuda.empty_cache()
     calls += phase("cli", cli_phase, torch, np)
+    torch.cuda.empty_cache()
+    phase("multistream", multistream_phase, torch, np)
+    torch.cuda.empty_cache()
+    phase("live", live_phase, torch)
+    phase("changerate", changerate_phase, torch, np)
+    torch.cuda.empty_cache()
+    phase("dryrun", dryrun_phase, torch)
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
     seconds["total"] = round(time.perf_counter() - t0, 1)
@@ -360,29 +399,40 @@ def small_parity(torch, np):
 # ------------------------------ the 720p paths -------------------------------
 
 
-def make_context(torch, np):
-    """What the three 720p phases share: the workload (weights, taus and
-    refresh cadence through the zoo), frames, and the timing helpers."""
+def scene_workload():
+    """zoo.load("scene") at 720p with its provenance checked, and its
+    refresh cadence in chunks (REFRESH_scene.json)."""
     from cbinfer_tpu_torch import zoo
-    from cbinfer_tpu_torch.runner import scan_video
-    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
-                                         workload_video_kwargs)
     wl = zoo.load("scene", (H, W, 3))
     if wl.weights != "trained(npz)" or wl.tau_source != "tuned" \
             or wl.warnings:
         raise AssertionError(f"zoo.load: {wl.weights} {wl.tau_source} "
                              f"{wl.warnings}")
-    cadence, cadence_src = zoo.load_refresh_cadence("scene", T, H, W)
-    if not cadence_src.endswith("REFRESH_scene.json"):
-        raise AssertionError(f"refresh cadence: {cadence_src}")
+    cadence, src = zoo.load_refresh_cadence("scene", T, H, W)
+    if not src.endswith("REFRESH_scene.json"):
+        raise AssertionError(f"refresh cadence: {src}")
+    return wl, cadence
+
+
+def _u8_map(torch):
+    def out_u8(y):
+        return y.argmax(-1).to(torch.uint8)
+    return out_u8
+
+
+def make_context(torch, np):
+    """What the three 720p phases share: the workload (weights, taus and
+    refresh cadence through the zoo), frames, and the timing helpers."""
+    from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    wl, cadence = scene_workload()
+    out_u8 = _u8_map(torch)
 
     def video(seed):
         return SpriteVideo(SpriteVideoConfig(
             height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
             noise_std=0.002, seed=seed, **workload_video_kwargs("scene")))
-
-    def out_u8(y):
-        return y.argmax(-1).to(torch.uint8)
 
     def cb_chunk(net, taus, ch, state, refresh, stats=False):
         return scan_video(net, wl.params, ch, state, collect_stats=stats,
@@ -2521,6 +2571,445 @@ def capture_cli_frame(torch, taus):
                          frame=clip[8])
 
 
+# ---------------- many streams, the live source, the change rate -------------
+
+MS_STREAMS = (4, 8)   # streams per card in the multistream phase
+MS_CHUNKS = 4         # chunks of T frames per stream (their refresh: the
+                      # REFRESH_scene.json cadence)
+MS_STEPS = 3          # runner.step frames per stream after the clips
+LIVE_STREAMS = 4      # native 720p sources behind PrefetchingSource
+LIVE_WARM = 4         # untimed live steps (eager first call, capture)
+LIVE_FRAMES = 64      # timed live steps
+CR_CHUNKS = 4         # chunks of each change-rate point (chunk 0 refreshes)
+CR_PAIRS = 2          # timed (graphed CB, graphed dense) pairs per point
+CR_AGREEMENT = 0.995  # the repo's budget: CB's agreement mIoU with dense
+# scripts/bench_changerate.py's POINTS, unchanged: sprite-driven change
+# rates, then a global camera pan (the background scrolls every frame)
+CHANGERATE_POINTS = [
+    ("sprites1", dict(n_sprites=1, sprite_size=48, speed=4.0)),
+    ("sprites4", dict(n_sprites=4, sprite_size=48, speed=4.0)),
+    ("sprites8", dict(n_sprites=8, sprite_size=48, speed=6.0)),
+    ("sprites16", dict(n_sprites=16, sprite_size=64, speed=8.0)),
+    ("sprites24", dict(n_sprites=24, sprite_size=80, speed=10.0)),
+    ("pan_slow", dict(n_sprites=4, sprite_size=48, speed=4.0,
+                      pan=(1.0, 2.0))),
+    ("pan_fast", dict(n_sprites=4, sprite_size=48, speed=4.0,
+                      pan=(4.0, 8.0))),
+]
+
+
+def _stream_stats(stats, s, axis=0):
+    """Stream ``s``'s entry of runner stats ((S,) leaves, or (T, S) with
+    ``axis`` 1)."""
+    def pick(v):
+        return v[s] if axis == 0 else v[:, s]
+    return ({k: {c: pick(v) for c, v in d.items()} for k, d in stats.items()}
+            if isinstance(stats, dict)
+            else [{c: pick(v) for c, v in d.items()} for d in stats])
+
+
+def _first_cb_stats(stats):
+    return next(d for _, d in _layers(stats) if d)
+
+
+def _restore(dst_state, src_state):
+    """Write a saved state into the live tensors (graphs stay bound)."""
+    for (_, a), (_, b) in zip(_layers(dst_state), _layers(src_state)):
+        if a is not None:
+            a.in_cache.copy_(b.in_cache)
+            a.out_cache.copy_(b.out_cache)
+
+
+def side_stream_chunk(torch, scans, params, clips, states, side, **kw):
+    """Each stream's ``scan_video_jit`` (``scans[s]``, its graphs in a pool
+    of their own) on ``clips[s]``, replayed on a side CUDA stream of its
+    own, the side streams joined to the current one by events: not a
+    runner form, the evidence for one. Returns [(outputs, stats)]."""
+    main = torch.cuda.current_stream()
+    outs = []
+    for scan, clip, state, st in zip(scans, clips, states, side):
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            ys, _, stats = scan(params, clip, state, **kw)
+        outs.append((ys, stats))
+    for st in side:
+        main.wait_stream(st)
+    return outs
+
+
+def _pairs(torch, order, units, frames):
+    """Time the units in ``order`` (each a fn of its pair index), CUDA
+    events around each: per kind the ms per frame, and in each pair the
+    second kind's time over the first's (> 1: the first kind is faster)."""
+    a, b = order[0], order[1]
+    series = {a: [], b: []}
+    host = {a: [], b: []}
+    for i, kind in enumerate(order):
+        _, ms, host_ms = timed(torch, lambda: no_sync(
+            torch, lambda: units[kind](i // 2)))
+        series[kind].append(ms / frames)
+        host[kind].append(host_ms / frames)
+    ratio = [y / x for x, y in zip(series[a], series[b])]
+    return series, host, ratio
+
+
+def multistream_phase(torch, np):
+    """configs[4] on one card: the flagship scene net at 720p serving S
+    streams (MS_STREAMS) through parallel.MultiStreamRunner, against the
+    same S clips back to back through per-stream scan_video_jit."""
+    from cbinfer_tpu_torch.data import NativeSpriteVideo, native_available
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.video import SpriteVideoConfig
+    if not native_available():
+        raise AssertionError("the native frame generator did not build")
+    wl, cadence = scene_workload()
+    seed = int(time.time() * 1e3) % 100000
+    s_max = max(MS_STREAMS)
+    t0 = time.perf_counter()
+    chunks = [torch.empty((s_max, T, H, W, 3), device="cuda")
+              for _ in range(MS_CHUNKS)]
+    for s in range(s_max):
+        video = NativeSpriteVideo(SpriteVideoConfig(
+            height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+            noise_std=0.002, seed=seed + s))
+        for ch in chunks:
+            ch[s].copy_(torch.from_numpy(video.clip(T)))
+    torch.cuda.synchronize()
+    frames_s = time.perf_counter() - t0
+    reset_launches()
+    rows = [_multistream_run(torch, np, wl, chunks, S, cadence)
+            for S in MS_STREAMS]
+    counts = launches()
+    missing = [k for k in PER_FRAME["flagship"] if not counts.get(k)]
+    emit("multistream", clip_seeds=[seed, seed + s_max - 1],
+         frame_source="NativeSpriteVideo", frames_seconds=frames_s,
+         chunks=MS_CHUNKS, T=T, refresh_every_chunks=cadence, rows=rows,
+         launches=counts, smi=nvidia_smi("name,power.limit"))
+    if missing:
+        raise AssertionError(f"multistream: no launch of {missing}")
+
+
+def _multistream_run(torch, np, wl, chunks, S, cadence):
+    from cbinfer_tpu_torch.parallel import MultiStreamRunner, make_stream_mesh
+    from cbinfer_tpu_torch.runner import scan_video_jit
+    net, params, taus = wl.net, wl.params, wl.taus
+    out_u8 = _u8_map(torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    runner = MultiStreamRunner(net, params, n_streams=S,
+                               mesh=make_stream_mesh(1), thresholds=taus,
+                               out_map=out_u8, collect_stats="mean")
+    alone = [scan_video_jit(net) for _ in range(S)]
+    states = [net.init_state() for _ in range(S)]
+
+    def one(s, clip, refresh=False, stats="mean"):
+        return alone[s](params, clip, states[s], thresholds=taus,
+                        refresh_start=refresh, collect_stats=stats,
+                        out_map=out_u8)
+
+    # identity: each stream of the runner against that stream alone, over
+    # every chunk (eager first calls, captures, then replays) and steps
+    for i, ch in enumerate(chunks):
+        refresh = i % cadence == 0
+        ys, st = runner.run_clip(ch[:S], refresh_start=refresh)
+        for s in range(S):
+            _same_run(torch, (ys[s], runner.states[s], _stream_stats(st, s)),
+                      one(s, ch[s], refresh),
+                      f"multistream S={S}: stream {s}, chunk {i}")
+    for k in range(MS_STEPS):
+        f = chunks[0][:S, k]
+        ys, st = runner.step(f)
+        for s in range(S):
+            ya, _, sa = one(s, f[s][None], stats=True)
+            _same_run(torch, (ys[s], runner.states[s], _stream_stats(st, s)),
+                      (ya[0], states[s], _stream_stats(sa, 0)),
+                      f"multistream S={S}: stream {s}, step {k}")
+    want = [(T, True), (T, False), (1, False)]
+    for s in range(S):
+        _graph_launches("flagship", runner.scans[s].graphs.info(), want)
+        _graph_launches("flagship", alone[s].graphs.info(), want)
+
+    # side streams: the alone graphs (a pool per stream), each stream's
+    # replay on a CUDA stream of its own, bit-identical to in-order replays
+    # from the same states
+    side = [torch.cuda.Stream() for _ in range(S)]
+    snap = [_clone_state(st) for st in states]
+    ref = [one(s, chunks[1][s]) for s in range(S)]
+    ref_states = [_clone_state(st) for st in states]
+    for st, sn in zip(states, snap):
+        _restore(st, sn)
+    got = side_stream_chunk(torch, alone, params,
+                            [chunks[1][s] for s in range(S)], states, side,
+                            thresholds=taus, collect_stats="mean",
+                            out_map=out_u8)
+    torch.cuda.synchronize()
+    for s in range(S):
+        _same_run(torch, (got[s][0], states[s], got[s][1]),
+                  (ref[s][0], ref_states[s], ref[s][2]),
+                  f"multistream S={S}: stream {s}, side stream")
+    del snap, ref, ref_states, got
+
+    def chunk(i):
+        return chunks[1 + i % (MS_CHUNKS - 1)]
+
+    def b2b(i):
+        return [one(s, chunk(i)[s])[0] for s in range(S)]
+
+    units = {"runner": lambda i: runner.run_clip(chunk(i)[:S])[0],
+             "back_to_back": b2b,
+             "in_order": b2b,
+             "side_streams": lambda i: side_stream_chunk(
+                 torch, alone, params, [chunk(i)[s] for s in range(S)],
+                 states, side, thresholds=taus, collect_stats="mean",
+                 out_map=out_u8)}
+    frames = S * T
+    rs, rh, r_ratio = _pairs(
+        torch, ["runner", "back_to_back", "back_to_back", "runner"]
+        * (GRAPH_PAIRS // 2), units, frames)
+    ss, sh, s_ratio = _pairs(
+        torch, ["side_streams", "in_order", "in_order", "side_streams"]
+        * (GRAPH_PAIRS // 2), units, frames)
+    med = {k: float(np.median(v)) for k, v in {**rs, **ss}.items()}
+    row = dict(
+        streams=S, identical_to_alone=True, side_identical=True,
+        fps_per_card={k: 1e3 / v for k, v in med.items()},
+        ms_per_frame=med,
+        # throughput ratios in pairs: back-to-back ms over the runner's,
+        # in-order ms over the side streams'
+        runner_vs_back_to_back=float(np.median(r_ratio)),
+        runner_vs_back_to_back_spread=[min(r_ratio), max(r_ratio)],
+        side_vs_in_order=float(np.median(s_ratio)),
+        side_vs_in_order_spread=[min(s_ratio), max(s_ratio)],
+        series={**rs, **ss}, host_cpu_ms_per_frame={**rh, **sh},
+        graphs_live=sum(len(r) for r in runner.graphs())
+        + sum(len(a.graphs.info()) for a in alone),
+        held_gib=held / 2**30,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_above_held_gib=(torch.cuda.max_memory_allocated() - held)
+        / 2**30,
+        reserved_gib=torch.cuda.memory_reserved() / 2**30)
+    del runner, alone, states, units
+    torch.cuda.empty_cache()
+    return row
+
+
+def live_phase(torch):
+    """LIVE_STREAMS native 720p sources, each behind a PrefetchingSource,
+    feed MultiStreamRunner.step (the deployment form: argmax-u8 maps, no
+    stats): frames/s, and the share of next() calls that found the queue
+    empty (the host source set the pace). Recorded, not gated."""
+    from cbinfer_tpu_torch.data import (NativeSpriteVideo, PrefetchingSource,
+                                        native_available)
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.parallel import MultiStreamRunner, make_stream_mesh
+    from cbinfer_tpu_torch.video import SpriteVideoConfig
+    if not native_available():
+        raise AssertionError("the native frame generator did not build")
+    wl, _ = scene_workload()
+    seed = int(time.time() * 1e3) % 100000
+
+    def cfg(s):
+        return SpriteVideoConfig(height=H, width=W, n_sprites=4,
+                                 sprite_size=48, speed=4.0, noise_std=0.002,
+                                 seed=seed + s)
+
+    video = NativeSpriteVideo(cfg(0))
+    t0 = time.perf_counter()
+    for _ in range(16):
+        video.frame()
+    gen_ms = (time.perf_counter() - t0) * 1e3 / 16
+    runner = MultiStreamRunner(wl.net, wl.params, n_streams=LIVE_STREAMS,
+                               mesh=make_stream_mesh(1), thresholds=wl.taus,
+                               out_map=_u8_map(torch), collect_stats=False)
+    reset_launches()
+    sources = [PrefetchingSource(NativeSpriteVideo(cfg(s)), depth=4)
+               for s in range(LIVE_STREAMS)]
+    try:
+        for _ in range(LIVE_WARM):
+            ys, _ = runner.step([next(src) for src in sources])
+        torch.cuda.synchronize()
+        for src in sources:
+            src.waited = src.served = 0
+        t0 = time.perf_counter()
+        for _ in range(LIVE_FRAMES):
+            ys, _ = runner.step([next(src) for src in sources])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for src in sources:
+            src.close()
+    counts = launches()
+    if tuple(ys.shape) != (LIVE_STREAMS, H // 4, W // 4) \
+            or ys.dtype != torch.uint8:
+        raise AssertionError(f"live: outputs {tuple(ys.shape)} {ys.dtype}")
+    missing = [k for k in PER_FRAME["flagship"] if not counts.get(k)]
+    emit("live", streams=LIVE_STREAMS, steps=LIVE_FRAMES,
+         frames_per_s=LIVE_STREAMS * LIVE_FRAMES / wall,
+         ms_per_step=wall * 1e3 / LIVE_FRAMES,
+         waited_share=sum(s.waited for s in sources)
+         / sum(s.served for s in sources),
+         generator_ms_per_frame=gen_ms, clip_seed=seed,
+         graphs_live=sum(len(r) for r in runner.graphs()), launches=counts)
+    if missing:
+        raise AssertionError(f"live: no launch of {missing}")
+
+
+def changerate_phase(torch, np):
+    """scripts/bench_changerate.py on the card: the flagship at 720p over
+    the seven CHANGERATE_POINTS, graphed CB against graphed dense in
+    alternating pairs on frames made before timing; per point the stem's
+    changed-tile share, the overflow rate, both fps, their ratio and CB's
+    agreement mIoU with dense (gated at CR_AGREEMENT), then the
+    interpolated break-even changed share. Every point's replay is held
+    bit for bit against the eager loop."""
+    from concurrent.futures import ThreadPoolExecutor
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    wl, cadence = scene_workload()
+    seed = int(time.time() * 1e3) % 100000
+
+    def frames(over):
+        video = SpriteVideo(SpriteVideoConfig(
+            height=H, width=W, noise_std=0.002, seed=seed,
+            **workload_video_kwargs("scene"), **over))
+        return [video.clip(T) for _ in range(CR_CHUNKS)]
+
+    t0 = time.perf_counter()
+    rows = []
+    reset_launches()
+    # the numpy generator releases the interpreter lock in its heavy
+    # parts: the points' frames are made in parallel threads, each point
+    # timed once all of its frames are on the card
+    with ThreadPoolExecutor(len(CHANGERATE_POINTS)) as pool:
+        made = [pool.submit(frames, over) for _, over in CHANGERATE_POINTS]
+        for k, (label, over) in enumerate(CHANGERATE_POINTS):
+            chunks = [torch.from_numpy(c).cuda() for c in made[k].result()]
+            made[k] = None  # the host copy goes
+            rows.append(_changerate_point(torch, np, wl, cadence, label,
+                                          over, chunks))
+            del chunks
+            torch.cuda.empty_cache()
+    counts = launches()
+    pts = sorted((r["changed_tile_frac_layer0"], r["speedup"]) for r in rows)
+    break_even = None
+    for (x0, y0), (x1, y1) in zip(pts, pts[1:]):
+        if (y0 - 1.0) * (y1 - 1.0) <= 0 and y0 != y1:
+            break_even = x0 + (1.0 - y0) * (x1 - x0) / (y1 - y0)
+            break
+    emit("changerate", clip_seed=seed, chunks=CR_CHUNKS, T=T,
+         refresh_every_chunks=cadence, rows=rows,
+         break_even_changed_tile_frac=break_even,
+         seconds_with_frames=time.perf_counter() - t0, launches=counts,
+         smi=nvidia_smi("name,power.limit"))
+    bad = [r["point"] for r in rows if r["agreement_miou"] < CR_AGREEMENT]
+    if bad:
+        raise AssertionError(f"changerate: agreement below {CR_AGREEMENT} "
+                             f"at {bad}")
+    missing = [k for k in PER_FRAME["flagship"] if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"changerate: no launch of {missing}")
+
+
+def _changerate_point(torch, np, wl, cadence, label, over, chunks):
+    from cbinfer_tpu_torch.metrics import miou_labels
+    from cbinfer_tpu_torch.runner import _Graphs, scan_video, scan_video_jit
+    net, params, taus = wl.net, wl.params, wl.taus
+    out_u8 = _u8_map(torch)
+    run = scan_video_jit(net)
+    dense = _Graphs(1)
+    state = net.init_state()
+
+    def cb(i):
+        return run(params, chunks[i], state, thresholds=taus,
+                   refresh_start=i % cadence == 0, collect_stats="mean",
+                   out_map=out_u8)
+
+    def dn(i):
+        return dense.run(("dense",), lambda fs: torch.stack(
+            [out_u8(net.apply_dense(params, f)) for f in fs]), chunks[i])
+
+    # warm: a refresh and a steady chunk (eager, then captured), the dense
+    # chunk; then chunk 2 replayed against the eager loop from a copy
+    cb(0)
+    after0 = _clone_state(state)
+    cb(1)
+    dn(0)
+    s_eager = _clone_state(state)
+    eager = scan_video(net, params, chunks[2], s_eager, collect_stats="mean",
+                       thresholds=taus, out_map=out_u8)
+    graphed = no_sync(torch, lambda: cb(2))
+    _same_run(torch, eager, graphed, f"changerate {label}: graph vs eager")
+    del eager, graphed, s_eager
+    last = {}
+
+    def cb_unit(_):
+        _restore(state, after0)
+        last["cb"] = [cb(i) for i in range(1, CR_CHUNKS)]
+
+    def dense_unit(_):
+        last["dense"] = [dn(i) for i in range(1, CR_CHUNKS)]
+
+    frames = (CR_CHUNKS - 1) * T
+    series, host, ratio = _pairs(torch, ["cb", "dense", "dense", "cb"]
+                                 * (CR_PAIRS // 2),
+                                 {"cb": cb_unit, "dense": dense_unit},
+                                 frames)
+    agree = float(np.mean([miou_labels(c[0].cpu().numpy(),
+                                       d.cpu().numpy(), NUM_CLASSES)
+                           for c, d in zip(last["cb"], last["dense"])]))
+    stats = [c[2] for c in last["cb"]]
+    stem = [_first_cb_stats(s) for s in stats]
+    changed = float(np.mean([float(s["changed_tiles"] / s["n_tiles"])
+                             for s in stem]))
+    overflow = max(float(np.mean([float(d["overflow"]) for d in ds]))
+                   for ds in zip(*[[d for _, d in _layers(s) if d]
+                                   for s in stats]))
+    cb_ms, dn_ms = float(np.median(series["cb"])), \
+        float(np.median(series["dense"]))
+    row = dict(point=label, config={k: list(v) if isinstance(v, tuple)
+                                    else v for k, v in over.items()},
+               changed_tile_frac_layer0=changed, overflow_rate=overflow,
+               cb_fps=1e3 / cb_ms, dense_fps=1e3 / dn_ms,
+               speedup=float(np.median(ratio)),
+               speedup_spread=[min(ratio), max(ratio)],
+               agreement_miou=agree,
+               stem_computed_tiles=float(np.mean(
+                   [float(s["computed_tiles"]) for s in stem])),
+               stem_n_tiles=float(stem[0]["n_tiles"]),
+               ms_per_frame=series, host_cpu_ms_per_frame=host,
+               graph_identical_to_eager=True)
+    print(json.dumps({"changerate_point": row}), flush=True)
+    return row
+
+
+def dryrun_phase(torch):
+    """parallel.dryrun_multistream over every card of the machine: the
+    plain-stem flagship, the kernel path and the pose_graph DAG, one
+    stream per card."""
+    from cbinfer_tpu_torch.graph import convert_graph_flagship
+    from cbinfer_tpu_torch.models.pose import pose_graph
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.parallel import dryrun
+    n = torch.cuda.device_count()
+    reset_launches()
+    shapes = dryrun.dryrun_multistream(n)
+    torch.cuda.synchronize()
+    counts = launches()
+    nodes, out = pose_graph(width=8)
+    dag = per_frame_launches(convert_graph_flagship(
+        nodes, (dryrun.GRAPH_H, dryrun.GRAPH_W, 3),
+        dryrun.pipeline_config(torch.device("cuda", 0)), output=out))
+    expected = set(PER_FRAME["flagship"]) | set(dag)
+    missing = sorted(k for k in expected if not counts.get(k))
+    emit("dryrun", devices=n, shapes={k: list(v) for k, v in shapes.items()},
+         dag_per_frame=dag, launches=counts)
+    if missing:
+        raise AssertionError(f"dryrun: no launch of {missing}")
+
+
 def emit_kernels():
     from cbinfer_tpu_torch.ops.kernels import KERNELS
     per = RESULTS.pop("_per_kernel")
@@ -2535,7 +3024,11 @@ def emit_kernels():
                 "pose_graph": RESULTS["pose_graph"]["launches"],
                 "import": RESULTS["import"]["launches"],
                 "tune": RESULTS["tune"]["launches"],
-                "cli": RESULTS["cli"]["launches"]}
+                "cli": RESULTS["cli"]["launches"],
+                "multistream": RESULTS["multistream"]["launches"],
+                "live": RESULTS["live"]["launches"],
+                "changerate": RESULTS["changerate"]["launches"],
+                "dryrun": RESULTS["dryrun"]["launches"]}
     rows = []
     for k in KERNELS:
         paths = {}

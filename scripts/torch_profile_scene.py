@@ -5,6 +5,7 @@
                                             pose|pose_unfused|pose_fwd|
                                             seg|pose_graph]
                                            [--frames 32] [--graph]
+                                           [--pan DY DX]
 
 Builds one of chip_smoke.py's paths, trained weights and tuned taus through
 zoo.load, bf16. Of the scene network (w128): ``flagship`` (the sparse
@@ -27,7 +28,10 @@ share, the top kernels by device time per frame, and the device time and
 launches per frame of each of the port's own kernels. ``--graph`` runs
 the CB frames through ``runner.scan_video_jit`` instead: the profiled chunk
 is one replay of a captured CUDA graph of the same frame loop (warmed by the
-key's eager first call and one replay). Needs a CUDA GPU.
+key's eager first call and one replay). ``--pan DY DX`` scrolls the
+background by (DY, DX) pixels a frame under the sprites, as the change-rate
+sweep's pan points do (``chip_smoke.py``'s ``changerate`` phase: pan_slow
+1 2, pan_fast 4 8). Needs a CUDA GPU.
 """
 
 import argparse
@@ -117,6 +121,9 @@ def main():
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--graph", action="store_true",
                     help="CB frames as CUDA graph replays (scan_video_jit)")
+    ap.add_argument("--pan", type=float, nargs=2, default=(0.0, 0.0),
+                    metavar=("DY", "DX"),
+                    help="camera pan, pixels a frame (default: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -147,7 +154,7 @@ def main():
             extra_overrides={k: "forward_hint" for k in (15, 16, 20)})
     video = SpriteVideo(SpriteVideoConfig(
         height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
-        noise_std=0.002, seed=SEED,
+        noise_std=0.002, seed=SEED, pan=tuple(args.pan),
         distinct_classes=is_pose,
         **workload_video_kwargs(workload)))
     warm, clip_t, clip_p = (torch.from_numpy(video.clip(args.frames)).cuda()
@@ -210,6 +217,7 @@ def main():
         if name == "cb" and args.graph:
             name = "cb_graph"
         print(json.dumps({"path": name, "net": args.path, "seed": SEED,
+                          "pan": list(args.pan),
                           "card": smi,
                           "frames": args.frames,
                           "wall_ms_per_frame": plain_wall,

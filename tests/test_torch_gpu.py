@@ -1143,3 +1143,114 @@ def test_workflow_cli_on_card(cuda, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[0])
     assert out["backend"] == "cuda" and out["flop_reduction"] > 1.0
     assert out["live_chunk"] == 1 and out["live_ms_per_frame"] > 0
+
+
+# ------------------------------ many streams ---------------------------------
+
+
+def _stream_net(dev):
+    """The flagship scene net (w16, bf16) at 64x128 and its params."""
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import convert_flagship
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.network import init_params
+    specs = get_model("scene", num_classes=8, width=16)
+    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375),
+                         compute_dtype="bfloat16", cache_dtype="bfloat16")
+    return (convert_flagship(specs, (64, 128, 3), cfg),
+            init_params(specs, (64, 128, 3), 0, dev, torch.bfloat16))
+
+
+def _stream_chunks(dev, streams=3, chunks=3, t=8):
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
+    clips = torch.from_numpy(np.stack([SpriteVideo(SpriteVideoConfig(
+        height=64, width=128, n_sprites=2, sprite_size=12, noise_std=0.002,
+        seed=40 + s)).clip(chunks * t) for s in range(streams)])).to(dev)
+    return [clips[:, i * t:(i + 1) * t] for i in range(chunks)]
+
+
+def test_multistream_runner_streams_equal_alone_on_card(cuda):
+    """S = 3 streams through MultiStreamRunner on the card: each stream's
+    outputs, stats (T, S) and caches bit-identical to that stream run
+    alone through its own scan_video_jit, chunk by chunk (eager first
+    calls, captures, replays), and step by step; a second run_clip of a
+    captured kind recaptures nothing (the graphs stay, replays rise)."""
+    from cbinfer_tpu_torch.parallel import MultiStreamRunner, make_stream_mesh
+    from cbinfer_tpu_torch.runner import scan_video_jit
+    net, params = _stream_net(cuda)
+    chunks = _stream_chunks(cuda)
+    runner = MultiStreamRunner(net, params, 3, mesh=make_stream_mesh(1))
+    alone = [scan_video_jit(net) for _ in range(3)]
+    states = [net.init_state() for _ in range(3)]
+    for i, ch in enumerate(chunks):
+        ys, st = runner.run_clip(ch, refresh_start=i == 0)
+        for s in range(3):
+            ya, _, sa = alone[s](params, ch[s], states[s],
+                                 refresh_start=i == 0)
+            chip_smoke._same_run(
+                torch, (ys[s], runner.states[s],
+                        chip_smoke._stream_stats(st, s, axis=1)),
+                (ya, states[s], sa), f"stream {s}, chunk {i}")
+    for k in range(2):
+        f = chunks[0][:, k]
+        ys, st = runner.step(f)
+        for s in range(3):
+            ya, _, sa = alone[s](params, f[s][None], states[s])
+            chip_smoke._same_run(
+                torch, (ys[s], runner.states[s],
+                        chip_smoke._stream_stats(st, s)),
+                (ya[0], states[s], chip_smoke._stream_stats(sa, 0)),
+                f"stream {s}, step {k}")
+    graphs = runner.graphs()
+    assert [len(g) for g in graphs] == [3, 3, 3]
+    replays = sum(g["replays"] for gs in graphs for g in gs)
+    runner.run_clip(chunks[2])
+    again = runner.graphs()
+    assert [len(g) for g in again] == [3, 3, 3]
+    assert sum(g["replays"] for gs in again for g in gs) == replays + 3
+
+
+def test_side_stream_replays_equal_in_order_on_card(cuda):
+    """Each stream's graphs (a pool per stream) replayed on a side CUDA
+    stream of its own, joined by events: outputs, stats and caches equal
+    the in-order replays from the same states, bit for bit."""
+    from cbinfer_tpu_torch.runner import scan_video_jit
+    net, params = _stream_net(cuda)
+    chunks = _stream_chunks(cuda)
+    scans = [scan_video_jit(net) for _ in range(3)]
+    states = [net.init_state() for _ in range(3)]
+    for i in range(2):  # a refresh and a steady graph per stream
+        for s in range(3):
+            scans[s](params, chunks[i][s], states[s], refresh_start=i == 0)
+    snap = [chip_smoke._clone_state(st) for st in states]
+    ref = [scans[s](params, chunks[2][s], states[s]) for s in range(3)]
+    ref_states = [chip_smoke._clone_state(st) for st in states]
+    for st, sn in zip(states, snap):
+        chip_smoke._restore(st, sn)
+    side = [torch.cuda.Stream() for _ in range(3)]
+    got = chip_smoke.side_stream_chunk(torch, scans, params,
+                                       [chunks[2][s] for s in range(3)],
+                                       states, side)
+    torch.cuda.synchronize()
+    for s in range(3):
+        chip_smoke._same_run(torch, (got[s][0], states[s], got[s][1]),
+                             (ref[s][0], ref_states[s], ref[s][2]),
+                             f"stream {s}: side vs in order")
+        assert all(g["replays"] == 2 for g in scans[s].graphs.info()
+                   if not g["refresh_start"])
+
+
+def test_stream_mesh_refuses_more_gpus_than_the_machine_has(cuda):
+    from cbinfer_tpu_torch.parallel import make_stream_mesh
+    n = torch.cuda.device_count()
+    assert make_stream_mesh() == [torch.device("cuda", i) for i in range(n)]
+    with pytest.raises(ValueError, match="GPUs"):
+        make_stream_mesh(n + 1)
+
+
+def test_dryrun_multistream_on_card(cuda):
+    from cbinfer_tpu_torch.parallel import dryrun_multistream
+    n = torch.cuda.device_count()
+    shapes = dryrun_multistream(n)
+    assert shapes["kernel_path"][:2] == (n, 2)
+    assert shapes["pose_graph"][:2] == (n, 2)

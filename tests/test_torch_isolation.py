@@ -47,6 +47,10 @@ def test_port_imports_without_jax_or_reference():
     # the workflow modules: the tuner, the command line, the file readers
     assert {"cbinfer_tpu_torch.tuner", "cbinfer_tpu_torch.cli",
             "cbinfer_tpu_torch.fileio"} <= names
+    # many streams, the dry run, the native frame source
+    assert {"cbinfer_tpu_torch.parallel", "cbinfer_tpu_torch.parallel.streams",
+            "cbinfer_tpu_torch.parallel.dryrun",
+            "cbinfer_tpu_torch.data"} <= names
 
 
 def test_sources_never_name_jax():

@@ -30,7 +30,9 @@ from cbinfer_tpu import graph as jgraph
 from cbinfer_tpu import metrics as jmetrics
 from cbinfer_tpu import tuner as jtuner
 from cbinfer_tpu import video as jvideo
+from cbinfer_tpu.config import ConvSpec as JConvSpec
 from cbinfer_tpu.config import PipelineConfig as JCfg
+from cbinfer_tpu.config import PoolSpec as JPoolSpec
 from cbinfer_tpu.config import TileConfig as JTile
 from cbinfer_tpu.models import get_model as jget_model
 from cbinfer_tpu.models.pose import pose_graph as jpose_graph
@@ -314,3 +316,51 @@ def test_stress_validate_multi_clip_worst_and_labels():
     with pytest.raises(ValueError, match="taus"):
         tuner.stress_validate(net, params, {"short": [0.0]}, clips,
                               metric_fn=gt_metric, labels=labels)
+
+
+# ---- stress_validate: the port's rows against the reference's ----
+
+
+def test_stress_rows_equal_the_reference_rows():
+    """The reference's and the port's ``stress_validate`` on one net and
+    weights (carried across), the same two labelled clips and three
+    distinct tau vectors, with the GT-mIoU degradation as the metric, a
+    refresh every 4 frames and 2 skipped frames: every row (name, taus,
+    per-clip, worst and mean degradation) and the choice are equal, and
+    the three vectors' rows differ from one another."""
+    def layers(conv, pool):
+        return [conv(features=8, threshold=0.0), pool(threshold=0.0),
+                conv(features=8, threshold=0.0),
+                conv(features=5, kernel=(1, 1), activation=None,
+                     threshold=0.0)]
+    specs, jspecs = layers(ConvSpec, PoolSpec), layers(JConvSpec, JPoolSpec)
+    jnet = jconvert.convert(jspecs, (32, 48, 3), JCfg())
+    jparams = jinit_params(jspecs, (32, 48, 3), jax.random.PRNGKey(5))
+    net = convert(specs, (32, 48, 3), PipelineConfig(device="cpu"))
+    params = params_from_numpy(
+        net.specs, [None if p is None else (np.asarray(p[0]),
+                                            np.asarray(p[1]))
+                    for p in jparams], device="cpu")
+    pairs = [SpriteVideo(SpriteVideoConfig(
+        height=32, width=48, n_sprites=3, sprite_size=8, noise_std=0.02,
+        seed=s)).clip_with_labels(10) for s in (21, 22)]
+    clips = np.stack([f for f, _ in pairs])
+    labels = np.stack([lab[:, ::2, ::2] for _, lab in pairs])
+    candidates = {"fine": [0.01] * 4, "mid": [0.08, 0.05, 0.08, 0.05],
+                  "coarse": [0.3] * 4}
+
+    def metric(miou_labels):
+        def gt(cb, dn, lab):
+            return 1.0 - (miou_labels(dn, lab, 5) - miou_labels(cb, lab, 5))
+        return gt
+
+    kw = dict(labels=labels, budget=0.01, skip_frames=2, refresh_every=4)
+    ref = jtuner.stress_validate(jnet, jparams, candidates, clips,
+                                 metric(jmetrics.miou_labels), **kw)
+    got = tuner.stress_validate(net, params, candidates, clips,
+                                metric(metrics.miou_labels), **kw)
+    assert got.rows == ref.rows
+    assert (got.source, got.passed, got.thresholds) == \
+        (ref.source, ref.passed, ref.thresholds)
+    worst = [r["per_clip_degradation"] for r in got.rows]
+    assert len({tuple(w) for w in worst}) == 3, worst
