@@ -19,7 +19,10 @@ version. Layout:
                       FrameStepper replay it as CUDA graphs on the card
   profiling           torch.profiler trace, stage timer, stats table
   zoo                 one-call loading of the shipped workloads
-  video, metrics      synthetic labelled video, mIoU, PCK, FLOP accounting
+  video, metrics      synthetic labelled video, pose targets, mIoU, PCK,
+                      FLOP accounting
+  train               weight training on the dense path (autograd, Adam)
+  benchmark           CB against dense: bench_network, BenchResult
 """
 
 __version__ = "0.1.0"

@@ -113,6 +113,20 @@ def load_npz_params(path: str, params_like: Sequence, specs: Sequence
     return params_from_numpy(specs, params_np, device, dtype)
 
 
+def save_npz_params(path: str, params: Sequence) -> None:
+    """Flat npz of a params list, keys ``w{i}`` / ``b{i}`` by layer index
+    (the JAX package's format, written by its train scripts and read by
+    ``load_npz_params``; float32 numpy arrays)."""
+    flat = {}
+    for i, p in enumerate(params):
+        if p is None:
+            continue
+        flat[f"w{i}"] = p[0].detach().float().cpu().numpy()
+        if p[1] is not None:
+            flat[f"b{i}"] = p[1].detach().float().cpu().numpy()
+    np.savez(path, **flat)
+
+
 def save_npz_graph_params(path: str, params: Dict[str, Any]) -> None:
     """Flat npz of a DAG's params dict, keys ``w:{node}`` / ``b:{node}``
     (the JAX package's format; float32 numpy arrays)."""

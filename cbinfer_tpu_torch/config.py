@@ -140,6 +140,21 @@ class PipelineConfig:
     device: str = "cuda"             # "cuda" | "cpu"
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    """Top-level run description saved next to benchmark outputs
+    (``cbinfer_tpu/config.py:188``); ``pipeline.device`` says where
+    ``benchmark.make_clips`` puts the frames."""
+
+    model: str = "scene"
+    height: int = 720
+    width: int = 1280
+    frames: int = 32
+    streams: int = 1
+    seed: int = 0
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+
+
 # ------------------------------ JSON round-trip ------------------------------
 
 
@@ -164,6 +179,7 @@ _TYPES = {
     "PoolSpec": PoolSpec,
     "UpsampleSpec": UpsampleSpec,
     "PipelineConfig": PipelineConfig,
+    "RunConfig": RunConfig,
 }
 
 

@@ -97,8 +97,28 @@ def out_shapes(specs: Sequence, in_shape: Tuple[int, int, int]
     return shapes
 
 
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """An HWC frame or a (B, H, W, C) batch as an NCHW view (channels-last
+    in memory)."""
+    return (x[None] if x.dim() == 3 else x).permute(0, 3, 1, 2)
+
+
+def _hwc(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``_nchw``'s inverse, at the rank of ``like``."""
+    y = y.permute(0, 2, 3, 1)
+    return y[0] if like.dim() == 3 else y
+
+
 def _activate(y: torch.Tensor, spec: ConvSpec) -> torch.Tensor:
-    return torch.relu_(y) if spec.activation == "relu" else y
+    """ReLU, in place when no gradient is recorded. Under autograd
+    (training) it is the reference's ``jnp.maximum(y, 0)``, whose gradient
+    at y == 0 is one half (``relu``'s is 0): at zero biases a patch of
+    zeros gives exactly 0. The values are the same either way."""
+    if spec.activation != "relu":
+        return y
+    if torch.is_grad_enabled() and y.requires_grad:
+        return torch.maximum(y, y.new_zeros(()))
+    return torch.relu_(y)
 
 
 def pointwise_dot_conv(x: torch.Tensor, w: torch.Tensor,
@@ -135,25 +155,27 @@ def im2col_conv(xp: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                 spec: ConvSpec, compute_dtype=torch.float32,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stride-1 conv of an ALREADY zero-padded HWC input ``xp``
-    ((H + kh - 1, W + kw - 1, cin), a view is fine) as one
-    (H*W, kh*kw*cin) @ (kh*kw*cin, cout) matmul, written into ``out`` (a
-    contiguous (H, W, cout) tensor in the compute dtype) when given."""
+    ((H + kh - 1, W + kw - 1, cin), a view is fine; or a batch of them,
+    (B, ..., cin)) as one (B*H*W, kh*kw*cin) @ (kh*kw*cin, cout) matmul,
+    written into ``out`` (a contiguous (H, W, cout) tensor in the compute
+    dtype) when given."""
     dtype = torch_dtype(compute_dtype)
     kh, kw = spec.kernel
     cin, cout = w.shape[2], w.shape[3]
-    H, W = xp.shape[0] - kh + 1, xp.shape[1] - kw + 1
+    H, W = xp.shape[-3] - kh + 1, xp.shape[-2] - kw + 1
     xp = xp.to(dtype)
-    patches = torch.cat([xp[dy:dy + H, dx:dx + W] for dy in range(kh)
-                         for dx in range(kw)], dim=-1)
-    y = _matmul_bias(patches.reshape(H * W, kh * kw * cin),
+    patches = torch.cat([xp[..., dy:dy + H, dx:dx + W, :]
+                         for dy in range(kh) for dx in range(kw)], dim=-1)
+    y = _matmul_bias(patches.reshape(-1, kh * kw * cin),
                      w.to(dtype).reshape(kh * kw * cin, cout), b, dtype,
-                     out=None if out is None else out.view(H * W, cout))
-    return _activate(y, spec).reshape(H, W, cout)
+                     out=None if out is None else out.view(-1, cout))
+    return _activate(y, spec).reshape(*xp.shape[:-3], H, W, cout)
 
 
 def dense_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                spec: ConvSpec, compute_dtype=torch.float32) -> torch.Tensor:
-    """Dense conv of one HWC frame, output HWC in the compute dtype.
+    """Dense conv of one HWC frame (or a (B, H, W, C) batch, one conv of
+    N = B), output HWC in the compute dtype.
 
     Small-cin stems go through ``im2col_conv``; everything else through
     ``F.conv2d`` in channels-last layout (the HWC tensor permuted to NCHW
@@ -163,7 +185,7 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     compute dtype: at most one rounding apart)."""
     dtype = torch_dtype(compute_dtype)
     kh, kw = spec.kernel
-    H, W, _ = x.shape
+    H, W = x.shape[-3], x.shape[-2]
     if use_im2col(spec, w.shape[2]):
         plo_h, phi_h = (kh - 1) // 2, kh // 2
         plo_w, phi_w = (kw - 1) // 2, kw // 2
@@ -177,7 +199,7 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     else:
         ph = (spec.padding[0],) * 2
         pw = (spec.padding[1],) * 2
-    xn = x.to(dtype).permute(2, 0, 1)[None]
+    xn = _nchw(x.to(dtype))
     pad = (ph[0], pw[0])
     if ph[0] != ph[1] or pw[0] != pw[1]:  # asymmetric SAME: pad by hand
         xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1])).contiguous(
@@ -187,22 +209,27 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         memory_format=torch.channels_last)
     y = F.conv2d(xn, wn, None if b is None else b.to(dtype),
                  stride=spec.stride, padding=pad, dilation=spec.dilation)
-    return _activate(y[0].permute(1, 2, 0), spec)
+    return _activate(_hwc(y, x), spec)
 
 
 def dense_pool(x: torch.Tensor, spec: PoolSpec) -> torch.Tensor:
-    """Max pool of one HWC frame: VALID, SAME or explicit symmetric
-    padding, every pad -inf (the reference's ``lax.reduce_window`` with a
-    -inf init). SAME pads as XLA does, the odd pixel of an even total at
+    """Max pool of one HWC frame (or a (B, H, W, C) batch): VALID, SAME or
+    explicit symmetric padding, every pad -inf (the reference's
+    ``lax.reduce_window`` with a -inf init). SAME pads as XLA does, the odd pixel of an even total at
     the end, so it is padded by hand: ``F.max_pool2d`` pads symmetrically
-    only. An aligned VALID pool is one reduction over a free reshape."""
+    only. An aligned VALID pool is one reduction over a free reshape, except
+    under autograd (training): ``amax`` splits the gradient among tied
+    maxima, where the reference's ``lax.reduce_window`` max and
+    ``F.max_pool2d`` give all of it to the first maximum in window order.
+    The values are the same either way."""
     (kh, kw), (sh, sw) = spec.window, spec.stride
-    H, W, C = x.shape
-    if spec.padding == "VALID" and (kh, kw) == (sh, sw):
+    H, W, C = x.shape[-3:]
+    if spec.padding == "VALID" and (kh, kw) == (sh, sw) and not (
+            torch.is_grad_enabled() and x.requires_grad):
         Ho, Wo = H // kh, W // kw
-        return x[:Ho * kh, :Wo * kw].reshape(Ho, kh, Wo, kw, C).amax(
-            dim=(1, 3))
-    xn = x.permute(2, 0, 1)[None]
+        return x[..., :Ho * kh, :Wo * kw, :].reshape(
+            *x.shape[:-3], Ho, kh, Wo, kw, C).amax(dim=(-4, -2))
+    xn = _nchw(x)
     pad = (0, 0)
     if spec.padding == "SAME":
         ph, pw = same_pads(H, kh, sh, 1), same_pads(W, kw, sw, 1)
@@ -211,28 +238,28 @@ def dense_pool(x: torch.Tensor, spec: PoolSpec) -> torch.Tensor:
         pad = tuple(spec.padding)
     y = F.max_pool2d(xn, kernel_size=spec.window, stride=spec.stride,
                      padding=pad)
-    return y[0].permute(1, 2, 0)
+    return _hwc(y, x)
 
 
 def upsample(x: torch.Tensor, spec: UpsampleSpec) -> torch.Tensor:
-    """Nearest or bilinear upsampling of one HWC frame by an integer
-    scale. Bilinear is the reference's ``jax.image.resize(...,
-    "bilinear")``: half-pixel centres, and at the border the one input
+    """Nearest or bilinear upsampling of one HWC frame (or a (B, H, W, C)
+    batch) by an integer scale. Bilinear is the reference's
+    ``jax.image.resize(..., "bilinear")``: half-pixel centres, and at the border the one input
     pixel in reach takes the whole weight, which is
     ``F.interpolate(align_corners=False)``'s clamp of the source index."""
     if spec.method == "nearest":
-        return x.repeat_interleave(spec.scale[0], 0).repeat_interleave(
-            spec.scale[1], 1)
-    h, w, _ = x.shape
-    y = F.interpolate(x.permute(2, 0, 1)[None],
-                      size=(h * spec.scale[0], w * spec.scale[1]),
+        return x.repeat_interleave(spec.scale[0], -3).repeat_interleave(
+            spec.scale[1], -2)
+    h, w = x.shape[-3], x.shape[-2]
+    y = F.interpolate(_nchw(x), size=(h * spec.scale[0], w * spec.scale[1]),
                       mode="bilinear", align_corners=False, antialias=False)
-    return y[0].permute(1, 2, 0).contiguous()
+    return _hwc(y, x).contiguous()
 
 
 def dense_apply(specs: Sequence, params: Sequence, x: torch.Tensor,
                 cfg: Optional[PipelineConfig] = None) -> torch.Tensor:
-    """Full dense forward of one HWC frame (the baseline path)."""
+    """Full dense forward of one HWC frame (the baseline path), or of a
+    (B, H, W, C) batch (training: every layer once over the batch)."""
     dtype = torch_dtype(cfg.compute_dtype) if cfg else torch.float32
     for spec, p in zip(specs, params):
         if isinstance(spec, ConvSpec):

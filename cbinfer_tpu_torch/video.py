@@ -9,8 +9,8 @@ graded-change dynamics (slow illumination drift, spatially smooth sensor
 noise, sprite colour pulsation) of the pose profile, and with the sprites'
 keypoint ground truth, and under a global camera pan (the background
 scrolls, wrapping, under the sprites). ``two_frame_pair`` is the fixture of
-the single change-gated conv. The pose training targets of the original are
-not copied.
+the single change-gated conv; ``pose_targets`` the pose net's training
+target (heatmaps and limb fields from the keypoint ground truth).
 """
 
 from __future__ import annotations
@@ -80,11 +80,15 @@ class SpriteVideoConfig:
 
 # Pose supervision: parts per sprite are its centre and its top-left and
 # bottom-right corners; keypoint type = (class - 1) * 3 + part for classes
-# 1..POSE_CLASSES (18 types, the OpenPose heatmap count). The model's
+# 1..POSE_CLASSES (18 types, the OpenPose heatmap count). Limbs per
+# sprite: top-left -> centre, centre -> bottom-right, top-left ->
+# bottom-right, 18 limbs in all, each a (dy, dx) pair of PAF channels: 36
+# of the 38 OpenPose PAF channels (the last 2 train to zero). The model's
 # output layout is [paf(38) | heat(18)].
 POSE_CLASSES = 6
 POSE_PARTS = 3
 NUM_KEYPOINTS = POSE_CLASSES * POSE_PARTS
+POSE_LIMB_PARTS = ((1, 0), (0, 2), (1, 2))
 NUM_PAFS = 38
 
 
@@ -293,6 +297,50 @@ class SpriteVideo:
             vs.append(v)
             self.step()
         return np.stack(fs), np.stack(ks), np.stack(vs)
+
+
+def pose_targets(kps: np.ndarray, valid: np.ndarray, out_h: int, out_w: int,
+                 stride: int, sigma: float, limb_width: float = 2.0
+                 ) -> np.ndarray:
+    """(out_h, out_w, NUM_PAFS + NUM_KEYPOINTS) float32 training target
+    (a copy of ``cbinfer_tpu/video.py:386-431``, ``pose_targets``).
+
+    Channel layout [paf(38) | heat(18)] (module comment above). ``kps`` are
+    full-resolution [y, x] pixels; ``sigma``/``limb_width`` are in OUTPUT-
+    GRID pixels. Heat channel k: a unit-height Gaussian at kps[k]/stride.
+    PAF channels (2l, 2l+1): the limb's unit direction (dy, dx) on pixels
+    within ``limb_width`` of the segment, as in OpenPose."""
+    heat = np.zeros((out_h, out_w, NUM_KEYPOINTS), np.float32)
+    paf = np.zeros((out_h, out_w, NUM_PAFS), np.float32)
+    gy = np.arange(out_h, dtype=np.float32)[:, None]
+    gx = np.arange(out_w, dtype=np.float32)[None, :]
+    for k in range(NUM_KEYPOINTS):
+        if not valid[k]:
+            continue
+        cy, cx = kps[k] / stride
+        d2 = (gy - cy) ** 2 + (gx - cx) ** 2
+        heat[:, :, k] = np.exp(-d2 / (2.0 * sigma * sigma))
+    for c in range(POSE_CLASSES):
+        for li, (pa, pb) in enumerate(POSE_LIMB_PARTS):
+            ka, kb = c * POSE_PARTS + pa, c * POSE_PARTS + pb
+            if not (valid[ka] and valid[kb]):
+                continue
+            l = c * len(POSE_LIMB_PARTS) + li
+            ay, ax = kps[ka] / stride
+            by, bx = kps[kb] / stride
+            vy, vx = by - ay, bx - ax
+            norm = float(np.hypot(vy, vx))
+            if norm < 1e-6:
+                continue
+            uy, ux = vy / norm, vx / norm
+            # distance of each grid point to the segment [a, b]
+            t = ((gy - ay) * uy + (gx - ax) * ux)
+            t = np.clip(t, 0.0, norm)
+            dist = np.hypot(gy - (ay + t * uy), gx - (ax + t * ux))
+            on = dist <= limb_width
+            paf[:, :, 2 * l] += np.where(on, uy, 0.0)
+            paf[:, :, 2 * l + 1] += np.where(on, ux, 0.0)
+    return np.concatenate([paf, heat], axis=-1)
 
 
 # Which distribution each workload is trained, tuned and evaluated on, so a

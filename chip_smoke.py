@@ -40,7 +40,9 @@ workload's thresholds tuned at full width, and the command line. Then the
 flagship serving many 720p cameras at once (parallel.MultiStreamRunner,
 frames from the native generator, data.NativeSpriteVideo), live behind
 data.PrefetchingSource, over every change rate up to a panning camera,
-and the multi-stream dry run.
+and the multi-stream dry run. Then training on the card (train.py through
+scripts/torch_train.py's recipes), the freshly trained scene net served
+at 720p, and the benchmark module (benchmark.bench_network).
 
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
@@ -147,6 +149,24 @@ Phases, each printing one JSON line:
   dryrun      parallel.dryrun_multistream over the machine's cards: the
               plain-stem flagship, the kernel path and the pose_graph DAG
               through the runner, one stream per card
+  train       scripts/torch_train.py's scene recipe (w128, 8 classes,
+              192x256, batch 4, 16 videos, 600 steps, seed 0): ms/step,
+              seconds of data and of steps, the first and last 20-step mean
+              loss (gated: falls), the final accuracy (gated: >= 0.95), the
+              TF32 settings; the trained params served in bf16 through
+              convert_flagship at 720p with ckpts/scene_w128_tau.json's taus
+              over 3 chunks of the seed-0 scene clip through scan_video_jit:
+              the flagship's launches asserted, GT-mIoU of dense (gated:
+              >= 0.95) and CB against the 0.005 budget; the params through
+              checkpoint.save_npz_params and load_npz_params, one served
+              chunk bit-identical; then pose and pose_graph cut to 300 of
+              their 3000 steps: ms/step, train PCK, falling loss
+  bench       benchmark.bench_network on zoo.load("scene") at 720p over
+              make_clips(RunConfig(...), 3) (seed 0), a refresh every 8
+              chunks (REFRESH_scene.json): the graphed dense baseline and
+              scan_video_jit; the BenchResult and its headline beside
+              graph_flagship's figures; gated: flop_reduction > 1,
+              metric_value >= 0.995, the flagship's five kernels launched
   check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -298,6 +318,11 @@ def main():
     phase("changerate", changerate_phase, torch, np)
     torch.cuda.empty_cache()
     phase("dryrun", dryrun_phase, torch)
+    torch.cuda.empty_cache()
+    phase("train", train_phase, torch, np)
+    torch.cuda.empty_cache()
+    phase("bench", bench_phase, torch, np)
+    torch.cuda.empty_cache()
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
     seconds["total"] = round(time.perf_counter() - t0, 1)
@@ -3010,6 +3035,160 @@ def dryrun_phase(torch):
         raise AssertionError(f"dryrun: no launch of {missing}")
 
 
+# ------------------------------ train, bench ---------------------------------
+
+TRAIN_CUT_STEPS = 300   # pose and pose_graph here (their recipes: 3000)
+TRAIN_ACC = 0.95        # scene's final train accuracy (the TPU run: 1.000)
+TRAIN_DENSE_MIOU = 0.95  # dense GT-mIoU of the served net (shipped: 0.9998)
+TRAIN_CHUNKS = 3        # served chunks of T frames (the first refreshes)
+BENCH_SEED = 0          # of make_clips' video in the bench phase
+BENCH_AGREEMENT = 0.995  # the repo's budget: CB's mIoU against dense
+
+
+def _train_row(r):
+    loss = r["losses"]
+    first = float(sum(loss[:20]) / len(loss[:20]))
+    last = float(sum(loss[-20:]) / len(loss[-20:]))
+    row = {"steps": r["steps"], "ms_per_step": r["ms_per_step"],
+           "steady_ms_per_step": r["steady_ms_per_step"],
+           "seconds": r["seconds"], "data_seconds": r["data_seconds"],
+           "steps_seconds": r["seconds"] - r["data_seconds"],
+           "loss_first20": first, "loss_last20": last,
+           r["metric"]: r[r["metric"]]}
+    if not last < first:
+        raise AssertionError(f"training loss did not fall: {row}")
+    return row
+
+
+def train_phase(torch, np):
+    """scripts/torch_train.py's recipes on the card: scene at its whole
+    recipe, served at 720p through the flagship, the npz round trip; pose
+    and pose_graph cut to TRAIN_CUT_STEPS steps."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_train
+    from cbinfer_tpu_torch import checkpoint, zoo
+    from cbinfer_tpu_torch.convert import convert_flagship
+    from cbinfer_tpu_torch.metrics import iu_counts, merge_iu
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.runner import scan_video_jit
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
+    precision = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                 "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    r = torch_train.train_workload("scene", device="cuda")
+    rows = {"scene": _train_row(r)}
+    if not r["train_acc"] >= TRAIN_ACC:
+        raise AssertionError(f"scene train accuracy {r['train_acc']} < "
+                             f"{TRAIN_ACC}")
+
+    # serve the trained net in bf16 through the flagship, tuned taus
+    specs = get_model("scene", num_classes=NUM_CLASSES, width=128)
+    cfg = zoo.default_pipeline_config()
+    taus = checkpoint.load_thresholds(
+        os.path.join(REPO, "ckpts", "scene_w128_tau.json"))
+    net = convert_flagship(specs, (H, W, 3), cfg, thresholds=taus)
+    params = checkpoint.params_from_numpy(
+        specs, [None if p is None else tuple(t.cpu().numpy() for t in p)
+                for p in r["params"]], "cuda", torch.bfloat16)
+    video = SpriteVideo(SpriteVideoConfig(
+        height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+        noise_std=0.002, seed=0))
+    clips = [video.clip_with_labels(T) for _ in range(TRAIN_CHUNKS)]
+    out_u8 = _u8_map(torch)
+    run = scan_video_jit(net)
+    state = net.init_state()
+    sums = {k: [0, 0] for k in ("cb", "dense", "agree")}
+    reset_launches()
+    for i, (fr, lab) in enumerate(clips):
+        ch = torch.from_numpy(fr).cuda()
+        lab = torch.from_numpy(lab[:, ::4, ::4]).cuda()
+        cmap = no_sync(torch, lambda: run(
+            params, ch, state, thresholds=taus, refresh_start=i == 0,
+            collect_stats=False, out_map=out_u8)[0])
+        dmap = torch.stack([out_u8(net.apply_dense(params, f)) for f in ch])
+        skip = 8 if i == 0 else 0  # cold start is exact by construction
+        for key, a, b in (("cb", cmap, lab), ("dense", dmap, lab),
+                          ("agree", cmap, dmap)):
+            it, un = iu_counts(a[skip:], b[skip:], NUM_CLASSES)
+            sums[key][0] += it.cpu().numpy()
+            sums[key][1] += un.cpu().numpy()
+    torch.cuda.synchronize()
+    counts = launches()
+    # eager first call and capture of the refresh and the steady key, then
+    # replays (which bypass the counters)
+    expect_launches("flagship", counts, 2 * (T - 1) + 2 * T)
+    _graph_launches("flagship", run.graphs.info(), [(T, True), (T, False)])
+    miou = {k: merge_iu(*v) for k, v in sums.items()}
+
+    # the npz writer and load_npz_params: one served chunk bit-identical
+    path = os.path.join(REPO, "build", "smoke_train", "scene_w128.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    checkpoint.save_npz_params(path, r["params"])
+    reloaded = checkpoint.load_npz_params(path, params, specs)
+    same_params = all(p is None or (torch.equal(p[0], q[0])
+                                    and torch.equal(p[1], q[1]))
+                      for p, q in zip(params, reloaded))
+    ch = torch.from_numpy(clips[0][0]).cuda()
+    chunk = [scan_video_jit(net)(ps, ch, net.init_state(), thresholds=taus,
+                                 refresh_start=True, out_map=out_u8)[0]
+             for ps in (params, reloaded)]
+    if not (same_params and torch.equal(*chunk)):
+        raise AssertionError("the npz round trip changed the served chunk")
+    del run, state, params, reloaded, chunk, r
+    torch.cuda.empty_cache()
+
+    for name in ("pose", "pose_graph"):
+        rows[name] = _train_row(torch_train.train_workload(
+            name, steps=TRAIN_CUT_STEPS, device="cuda"))
+    emit("train", in_shape=list(torch_train.IN_SHAPE), rows=rows,
+         precision=precision, served_clip_seed=0, served_chunks=TRAIN_CHUNKS,
+         miou_gt_cb=miou["cb"], miou_gt_dense=miou["dense"],
+         miou_degradation=miou["dense"] - miou["cb"],
+         within_budget=miou["dense"] - miou["cb"] <= 0.005,
+         miou_vs_dense=miou["agree"], launches=counts,
+         npz_round_trip_identical=True, taus=taus,
+         smi=nvidia_smi("name,power.limit"))
+    if not miou["dense"] >= TRAIN_DENSE_MIOU:
+        raise AssertionError(f"dense GT-mIoU of the trained net "
+                             f"{miou['dense']} < {TRAIN_DENSE_MIOU}")
+
+
+def bench_phase(torch, np):
+    """benchmark.bench_network on the flagship at 720p over
+    make_clips(RunConfig(...), 3): the graphed dense baseline against
+    scan_video_jit, the refresh cadence of REFRESH_scene.json."""
+    import dataclasses
+    from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.benchmark import bench_network, make_clips
+    from cbinfer_tpu_torch.config import RunConfig
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    wl, cadence = scene_workload()
+    rc = RunConfig(model="scene", height=H, width=W, frames=T,
+                   seed=BENCH_SEED, pipeline=zoo.default_pipeline_config())
+    clips = make_clips(rc, 3)
+    reset_launches()
+    res = bench_network(wl.net, wl.params, clips, metric="miou",
+                        num_classes=NUM_CLASSES, thresholds=wl.taus,
+                        refresh_every=cadence * T, run_config=rc)
+    torch.cuda.synchronize()
+    counts = launches()
+    print(res.to_json(), flush=True)
+    g = RESULTS["graph_flagship"]
+    emit("bench", result=dataclasses.asdict(res), headline=res.headline(),
+         refresh_every=cadence * T, launches=counts,
+         graph_flagship={k: g[k] for k in (
+             "graph_fps", "graph_ms_per_frame", "dense_fps",
+             "graph_vs_baseline")},
+         smi=nvidia_smi("name,power.limit"))
+    missing = [k for k in PER_FRAME["flagship"] if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"bench: no launch of {missing}")
+    if not (res.flop_reduction > 1
+            and res.metric_value >= BENCH_AGREEMENT):
+        raise AssertionError(f"bench: flop_reduction {res.flop_reduction},"
+                             f" metric {res.metric_value}")
+
+
 def emit_kernels():
     from cbinfer_tpu_torch.ops.kernels import KERNELS
     per = RESULTS.pop("_per_kernel")
@@ -3028,7 +3207,9 @@ def emit_kernels():
                 "multistream": RESULTS["multistream"]["launches"],
                 "live": RESULTS["live"]["launches"],
                 "changerate": RESULTS["changerate"]["launches"],
-                "dryrun": RESULTS["dryrun"]["launches"]}
+                "dryrun": RESULTS["dryrun"]["launches"],
+                "train": RESULTS["train"]["launches"],
+                "bench": RESULTS["bench"]["launches"]}
     rows = []
     for k in KERNELS:
         paths = {}

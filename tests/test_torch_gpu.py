@@ -1254,3 +1254,35 @@ def test_dryrun_multistream_on_card(cuda):
     shapes = dryrun_multistream(n)
     assert shapes["kernel_path"][:2] == (n, 2)
     assert shapes["pose_graph"][:2] == (n, 2)
+
+
+def test_train_segmentation_step_on_card_equals_cpu(cuda):
+    """One train_segmentation step (scene chain w8 at 48x64) on the card
+    against the same step on the CPU, from the same initial weights (the
+    port's init_params seeds numpy). Tolerance of TF32 convolutions, so it
+    holds whichever precision cuDNN runs (the port switches TF32 off):
+    the step's loss within 2e-3 relative. Adam's first update is about
+    lr * sign(g) whatever |g|, so the updated weights agree wherever the
+    gradient's sign does: at least 99.9% of the entries within 1e-5 +
+    1e-4 * |p|, every entry within 2 * lr."""
+    from cbinfer_tpu_torch import train
+    from cbinfer_tpu_torch.models import get_model
+    specs = get_model("scene", num_classes=8, width=8)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        losses = []
+        params, acc = train.train_segmentation(
+            specs, (48, 64, 3), 8, steps=1, batch=2, n_videos=2,
+            device=dev, losses=losses)
+        runs[dev] = (params, acc, float(losses[0]))
+    (pc, ac, lc), (pg, ag, lg) = runs["cpu"], runs["cuda"]
+    assert abs(lg - lc) <= 2e-3 * abs(lc)
+    assert abs(ag - ac) <= 4 / (2 * 12 * 16)
+    got = np.concatenate([t.cpu().numpy().ravel() for p in pg if p
+                          for t in p])
+    want = np.concatenate([t.numpy().ravel() for p in pc if p for t in p])
+    assert pg[0][0].device.type == "cuda"
+    assert pg[0][0].dtype == torch.float32
+    close = np.abs(got - want) <= 1e-5 + 1e-4 * np.abs(want)
+    assert close.mean() >= 0.999, close.mean()
+    assert np.abs(got - want).max() <= 2 * 3e-3
