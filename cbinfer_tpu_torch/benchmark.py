@@ -56,6 +56,17 @@ def concat_stats(chunk_stats: Sequence):
     return cat(*chunk_stats)
 
 
+def card() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them (the first card):
+    every time kept beside it."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def measure_sync_overhead(reps: int = 5, device="cuda") -> float:
     """Seconds of one host-device round trip (a null op's dispatch and its
     scalar fetch): the MEDIAN of ``reps`` samples

@@ -7,8 +7,12 @@ Conventions, identical to the JAX package so tensors compare like with like:
 
 Differences from the JAX package: ``PipelineConfig.interpret`` is replaced by
 ``device`` (the port's entry points run on the card unless the caller asks
-for the CPU), and the hand-written kernel backend is named ``"cuda"`` — the
-counterpart of the JAX package's ``"pallas"``.
+for the CPU), and the backends are named in the port's idiom: the
+hand-written kernel backend is ``"cuda"`` — the counterpart of the JAX
+package's ``"pallas"`` — and the capacity-bounded plain path is
+``"torch"`` — the counterpart of its ``"jnp"`` (plain PyTorch ops on every
+device, no kernel). ``"patch_stem"``, ``"dense_cached"``,
+``"dense_cached_flat"`` and ``"band_cached"`` keep their names.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ def _as_padding(v):
 @dataclass(frozen=True)
 class TileConfig:
     """Tile-level block-sparsity parameters. ``capacity_fraction`` bounds
-    the compacted changed-tile list of the ``patch_stem`` stem: past
-    ``capacity(n_tiles)`` changed tiles the stem recomputes its whole map
+    the compacted changed-tile list of the ``patch_stem`` stem, the
+    ``band_cached`` stem (in bands) and every ``"torch"`` layer: past
+    ``capacity(n_tiles)`` changed tiles the layer recomputes its whole map
     (recorded as ``overflow`` in the step stats). The ``"cuda"`` layers
     walk a device-side count over a full-size list, so it bounds nothing
     there (as on the JAX package's ``"pallas"`` backend)."""
@@ -136,7 +141,7 @@ class PipelineConfig:
     tile: TileConfig = field(default_factory=TileConfig)
     compute_dtype: str = "float32"   # dtype of conv math
     cache_dtype: str = "float32"     # dtype of persistent activation caches
-    backend: str = "cuda"            # hand-written kernels (CPU: plain twins)
+    backend: str = "cuda"            # kernels (CPU: plain twins) | "torch"
     device: str = "cuda"             # "cuda" | "cpu"
 
 

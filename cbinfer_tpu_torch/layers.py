@@ -16,10 +16,21 @@ the next layer's sparse detect visits only those tiles.
 
 Backends: ``"cuda"`` (the hand-written kernels; on CPU tensors their plain
 versions), ``"patch_stem"`` (the sparse small-cin stem: full-map stem
-detect plus the stem conv kernel over dirty (8, 32) tiles) and
+detect plus the stem conv kernel over dirty (8, 32) tiles),
 ``"dense_cached"`` (full-map detect plus a dense conv from the accepted
-cache). The capacity-bounded jnp path, ``band_cached`` and
-``dense_cached_flat`` are not ported; asking for them raises.
+cache), ``"torch"`` (the JAX package's ``"jnp"``: plain PyTorch ops, a
+gathered list of ``TileConfig.capacity`` tiles and a dense fallback past
+it), ``band_cached`` (a stem recomputing full-width row bands of dirty
+tiles, bounded the same way) and ``dense_cached_flat`` (``dense_cached``
+with the stem's input cache kept as the flat (H, W*C) view).
+
+Capacity overflow (``"torch"``, ``band_cached``): the JAX package branches
+to a dense recompute with ``lax.cond``; a branch on a device value here
+would read it on the host, which a CUDA graph cannot hold. So the tile path
+runs over its list every frame, the dense fallback too, and
+``torch.where(overflow, dense, out_cache)`` keeps one of them. Both share
+``ops.delta_conv._accumulate``, so the choice is value-exact; the cost is
+a dense conv every frame, which is why these are not the shipped path.
 
 Change-mask modes of a ``"cuda"`` conv: re-detection (the default);
 mask forwarding (``ConvSpec.forward_hint``: no detection, the input cache
@@ -51,8 +62,9 @@ from . import network
 from .config import ConvSpec, PipelineConfig, PoolSpec
 from .ops import compact, detect
 from .ops import flat4 as flat4_ops
-from .ops.delta_conv import make_storage, storage_interior
-from .ops.delta_pool import dense_pool
+from .ops.delta_conv import (delta_conv_jnp, dense_conv_shifted,
+                             make_storage, storage_interior)
+from .ops.delta_pool import delta_pool_jnp, dense_pool
 from .ops.geometry import TileGeometry, cdiv, conv_tile_geometry
 from .ops.kernels.accept import accept_tiles
 from .ops.kernels.delta_conv import channel_quantum, delta_conv
@@ -66,7 +78,9 @@ from .ops.kernels.stem_detect import stem_detect
 
 NEG_FILL = -3.0e38  # pool margin fill (finite "-inf")
 HINT_TILE = 8       # fixed tile size of inter-layer dirty hints
-BACKENDS = ("cuda", "patch_stem", "dense_cached")
+BACKENDS = ("cuda", "patch_stem", "dense_cached", "torch", "band_cached",
+            "dense_cached_flat")
+STEM_BACKENDS = ("band_cached", "dense_cached_flat")  # conv layers only
 
 
 @dataclasses.dataclass
@@ -132,6 +146,9 @@ def _layer_cfg(spec, cfg: PipelineConfig) -> PipelineConfig:
     if cfg.backend not in BACKENDS:
         raise NotImplementedError(
             f"backend {cfg.backend!r} is not ported (have {BACKENDS})")
+    if cfg.backend in STEM_BACKENDS and not isinstance(spec, ConvSpec):
+        raise ValueError(f"backend {cfg.backend!r} is for conv layers; "
+                         f"got {type(spec).__name__}")
     return cfg
 
 
@@ -141,6 +158,10 @@ def _geometry(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
     if isinstance(spec, ConvSpec):
         if cfg.backend == "patch_stem":  # the stem kernel's fixed tiles
             th, tw = flat4_ops.TILE_H, flat4_ops.TILE_W
+        elif cfg.backend == "band_cached":
+            # full-width row bands: tw clamps to out_w, so tiles_w == 1
+            # and a compacted tile id IS a band index
+            tw = 1 << 30
         return conv_tile_geometry(in_shape, spec.kernel, spec.stride,
                                   spec.dilation, spec.padding, th, tw)
     return conv_tile_geometry(in_shape, spec.window, spec.stride, (1, 1),
@@ -207,6 +228,14 @@ def cb_layer_init(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
         return CBLayerState(
             in_cache=torch.zeros((1, 1, 1), dtype=dtype, device=dev),
             out_cache=out_cache)
+    if cfg.backend == "dense_cached_flat":
+        # the flat (H, W*C) view of the HWC cache, no margins (the conv
+        # pads on read)
+        return CBLayerState(
+            in_cache=torch.full((in_shape[0], in_shape[1] * cin),
+                                detect.COLD_START_FILL, dtype=dtype,
+                                device=dev),
+            out_cache=out_cache)
     margin = NEG_FILL if isinstance(spec, PoolSpec) else 0.0
     return CBLayerState(
         in_cache=make_storage(g, detect.COLD_START_FILL, margin, dtype, dev),
@@ -267,10 +296,19 @@ def _forward_mask(hint_mask: torch.Tensor, g: TileGeometry) -> torch.Tensor:
 
 
 def _accept_hinted(x: torch.Tensor, in_cache: torch.Tensor, hint: DirtyHint,
-                   g: TileGeometry):
+                   g: TileGeometry, cfg: Optional[PipelineConfig] = None):
     """Forwarding-mode cache update IN PLACE: the storage tracks the
     producer's output over the hinted tiles (no diff, no tau), by the tile
-    copy kernel. Returns (storage, n_detect_tiles)."""
+    copy kernel (a ``"torch"`` layer's ``cfg``: a full-map ``where``,
+    value-identical). Returns (storage, n_detect_tiles)."""
+    if cfg is not None and cfg.backend == "torch":
+        H, W = g.in_h, g.in_w
+        pix = hint.mask.repeat_interleave(HINT_TILE, 0) \
+            .repeat_interleave(HINT_TILE, 1)[:H, :W]
+        interior = storage_interior(in_cache, g)
+        torch.where(pix[..., None], x[:H, :W].to(interior.dtype), interior,
+                    out=interior)
+        return in_cache, hint.mask.sum(dtype=torch.int32)
     if g.in_h < HINT_TILE or g.in_w % HINT_TILE:
         raise NotImplementedError(
             "a forward-hint conv needs a map of at least 8 rows and "
@@ -346,21 +384,53 @@ def _detect_and_mask(x: torch.Tensor, in_cache: torch.Tensor, tau,
 # ------------------------------ layer steps ---------------------------------
 
 
+def _bounded_update(storage: torch.Tensor, comp: compact.Compacted,
+                    capacity: int, g: TileGeometry, out_cache: torch.Tensor,
+                    tile_fn, dense_fn) -> Optional[torch.Tensor]:
+    """The capacity-bounded tile path with its dense fallback, IN PLACE
+    and without a host read: ``tile_fn`` over the ``capacity`` listed
+    tiles, then, where more tiles changed, ``dense_fn(storage)`` (the
+    whole map) replaces the out cache through ``torch.where``. Returns the
+    device bool ``overflow``, or None when the list holds every tile."""
+    tile_fn(storage, comp.idx, comp.count, out_cache)
+    if capacity >= g.n_tiles:
+        return None
+    overflow = comp.count > capacity
+    torch.where(overflow, dense_fn(storage).to(out_cache.dtype), out_cache,
+                out=out_cache)
+    return overflow
+
+
+def _bounded_conv_fns(w, b, g: TileGeometry, spec: ConvSpec, compute_dtype):
+    """(tile_fn, dense_fn) of a bounded conv (``"torch"``, ``band_cached``):
+    the tile path over a sentinel-padded list and its dense fallback."""
+    def tile_fn(storage, idx, count, out_cache):
+        delta_conv_jnp(storage, idx, w, b, out_cache, g, spec.activation,
+                       compute_dtype)
+
+    def dense_fn(storage):
+        return dense_conv_shifted(storage, w, b, g, spec.activation,
+                                  compute_dtype)
+    return tile_fn, dense_fn
+
+
 def _run_gated(spec, state: CBLayerState, x: torch.Tensor, g: TileGeometry,
                cfg: PipelineConfig, tile_fn, tau=None,
                hint: Optional[DirtyHint] = None, forward: bool = False,
-               fused_fn=None):
-    """Shared detect -> compact -> delta-kernel skeleton. Cond-free: the
-    kernels walk the device-side count, so the index list holds every tile
-    (capacity = n_tiles, as on the JAX package's ``"pallas"`` backend) and
-    there is no overflow branch. ``forward`` (needs a hint): detection is
-    replaced by the hint-dilated mask plus a pure tile copy, tau unused.
-    ``fused_fn`` replaces ``tile_fn`` with the fused delta conv + consumer
-    detect and returns the consumer's ``PreDetect``, which rides out on the
-    returned hint. Returns (state, stats, out_hint)."""
+               fused_fn=None, dense_fn=None):
+    """Shared detect -> compact -> delta-kernel skeleton. On ``"cuda"`` it
+    is cond-free: the kernels walk the device-side count, so the index list
+    holds every tile (capacity = n_tiles, as on the JAX package's
+    ``"pallas"`` backend) and there is no overflow. On ``"torch"`` the list
+    holds ``cfg.tile.capacity(n_tiles)`` tiles and ``dense_fn`` is the
+    fallback past it (``_bounded_update``). ``forward`` (needs a hint):
+    detection is replaced by the hint-dilated mask plus a pure tile copy,
+    tau unused. ``fused_fn`` replaces ``tile_fn`` with the fused delta conv
+    + consumer detect and returns the consumer's ``PreDetect``, which rides
+    out on the returned hint. Returns (state, stats, out_hint)."""
     if forward:
         assert hint is not None
-        in_cache, n_detect = _accept_hinted(x, state.in_cache, hint, g)
+        in_cache, n_detect = _accept_hinted(x, state.in_cache, hint, g, cfg)
         mask = _forward_mask(hint.mask, g)
         # forwarding never inspects pixels; visited = hinted area
         n_pix = n_detect * (HINT_TILE * HINT_TILE)
@@ -369,21 +439,27 @@ def _run_gated(spec, state: CBLayerState, x: torch.Tensor, g: TileGeometry,
             tau = spec.threshold
         in_cache, mask, n_pix, n_detect = _detect_and_mask(
             x, state.in_cache, tau, g, cfg, hint)
-    comp = compact.compact_mask(mask, g.n_tiles)
-    predetect = None
+    bounded = cfg.backend == "torch"
+    capacity = cfg.tile.capacity(g.n_tiles) if bounded else g.n_tiles
+    comp = compact.compact_mask(mask, capacity)
+    predetect = overflow = None
     if fused_fn is not None:
         predetect = fused_fn(in_cache, comp.idx, comp.count, state.out_cache)
-    else:
+    elif not bounded:
         tile_fn(in_cache, comp.idx, comp.count, state.out_cache)
+    else:
+        overflow = _bounded_update(in_cache, comp, capacity, g,
+                                   state.out_cache, tile_fn, dense_fn)
     stats = {
         "changed_tiles": comp.count,
-        "computed_tiles": comp.count,
+        "computed_tiles": (comp.count if overflow is None
+                           else torch.where(overflow, g.n_tiles, comp.count)),
         "n_tiles": g.n_tiles,
-        "overflow": False,
+        "overflow": False if overflow is None else overflow,
         "changed_pixels": n_pix,
         "detect_tiles": n_detect,
     }
-    out_hint = _out_hint(mask, g)
+    out_hint = _out_hint(mask, g, overflow)
     if predetect is not None:
         out_hint = out_hint._replace(predetect=predetect)
     return state, stats, out_hint
@@ -458,6 +534,11 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
     if cfg.backend == "patch_stem":
         return _patch_stem_apply(state, x, w, b, g, spec, cfg, compute_dtype,
                                  tau)
+    if cfg.backend == "dense_cached_flat":
+        return _flat_stem_apply(state, x, w, b, g, spec, compute_dtype, tau)
+    if cfg.backend == "band_cached":
+        return _band_apply(state, x, w, b, g, spec, cfg, compute_dtype, tau,
+                           hint)
 
     if cfg.backend == "dense_cached":
         # detect + full dense conv FROM THE ACCEPTED CACHE every frame:
@@ -494,14 +575,17 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
         return (Feature(state.out_cache, g.out_h, g.out_w, spec.features),
                 state, stats, _out_hint(mask, g))
 
-    w, b = _padded_params(w, b, state.out_cache.shape[-1])
+    fused_fn = dense_fn = None
+    if cfg.backend == "torch":
+        tile_fn, dense_fn = _bounded_conv_fns(w, b, g, spec, compute_dtype)
+    else:
+        w, b = _padded_params(w, b, state.out_cache.shape[-1])
 
-    def tile_fn(storage, idx, count, out_cache):
-        delta_conv(storage, idx, w, b, out_cache, g, spec.activation,
-                   compute_dtype, count=count)
+        def tile_fn(storage, idx, count, out_cache):
+            delta_conv(storage, idx, w, b, out_cache, g, spec.activation,
+                       compute_dtype, count=count)
 
-    fused_fn = None
-    if fuse_ctx is not None:
+    if fuse_ctx is not None and cfg.backend == "cuda":
         spec2 = fuse_ctx.spec
         cfg2 = _layer_cfg(spec2, pipe_cfg)
         g2 = _geometry(spec2, (g.out_h, g.out_w, spec.features), cfg2)
@@ -524,7 +608,7 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
     forward = bool(spec.forward_hint) and hint is not None
     state, stats, out_hint = _run_gated(spec, state, x, g, cfg, tile_fn,
                                         tau, hint, forward=forward,
-                                        fused_fn=fused_fn)
+                                        fused_fn=fused_fn, dense_fn=dense_fn)
     return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
             stats, out_hint)
 
@@ -593,11 +677,82 @@ def _patch_stem_apply(state: CBLayerState, x: torch.Tensor, w, b,
             stats, _out_hint(hint_mask, g_hint, overflow))
 
 
+def _flat_stem_apply(state: CBLayerState, x: torch.Tensor, w, b,
+                     g: TileGeometry, spec: ConvSpec, compute_dtype, tau):
+    """``dense_cached`` on the flat (H, W*C) input cache: detect on the
+    flat view (``detect.detect_and_update_flat``), then the dense conv of
+    the accepted cache every frame. A stem: an incoming hint is not read
+    (the JAX package's rule)."""
+    if tau is None:
+        tau = spec.threshold
+    H, W, C = g.in_h, g.in_w, g.cin
+    xf = x[:H, :W, :C].reshape(H, W * C)
+    storage, changed = detect.detect_and_update_flat(
+        xf, state.in_cache, tau, C, out=state.in_cache)
+    mask = detect.changed_tile_mask(changed, g)
+    _store_output(state, network.dense_conv(
+        storage.view(H, W, C), w, b, spec, compute_dtype), g)
+    stats = {
+        "changed_tiles": mask.sum(dtype=torch.int32),
+        "computed_tiles": g.n_tiles,
+        "n_tiles": g.n_tiles,
+        "overflow": False,
+        "changed_pixels": changed.sum(dtype=torch.int32),
+        "detect_tiles": cdiv(H, HINT_TILE) * cdiv(W, HINT_TILE),
+    }
+    return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
+            stats, _out_hint(mask, g))
+
+
+def _band_apply(state: CBLayerState, x: torch.Tensor, w, b, g: TileGeometry,
+                spec: ConvSpec, cfg: PipelineConfig, compute_dtype, tau,
+                hint: Optional[DirtyHint]):
+    """The full-width row-band sparse conv: per-pixel detect, then only the
+    dirty (th x out_w) output bands recomputed from the accepted cache
+    (``delta_conv_jnp`` over band ids, since ``g.tiles_w == 1``), bounded
+    by ``cfg.tile.capacity(bands)`` with the dense fallback past it. Three
+    grids: the bands ``g``, the configured tile grid the stats are counted
+    on (a band is one row of it), and the 8x8 hint grid, which carries the
+    exact dilated change region (a band would dirty a whole row of hint
+    tiles downstream)."""
+    if tau is None:
+        tau = spec.threshold
+    storage, changed, n_pix, n_detect = _detect_xla(x, state.in_cache, tau,
+                                                    g, hint)
+    band_mask = detect.changed_tile_mask(changed, g)
+    capacity = cfg.tile.capacity(g.n_tiles)
+    comp = compact.compact_mask(band_mask, capacity)
+    overflow = _bounded_update(storage, comp, capacity, g, state.out_cache,
+                               *_bounded_conv_fns(w, b, g, spec,
+                                                  compute_dtype))
+    in_shape = (g.in_h, g.in_w, g.cin)
+    g_hint = conv_tile_geometry(in_shape, spec.kernel, spec.stride,
+                                spec.dilation, spec.padding, HINT_TILE,
+                                HINT_TILE)
+    g_fine = conv_tile_geometry(in_shape, spec.kernel, spec.stride,
+                                spec.dilation, spec.padding,
+                                cfg.tile.tile_h, cfg.tile.tile_w)
+    bands = (comp.count if overflow is None
+             else torch.where(overflow, g.n_tiles, comp.count))
+    stats = {
+        "changed_tiles": detect.changed_tile_mask(changed, g_fine).sum(
+            dtype=torch.int32),
+        "computed_tiles": bands * g_fine.tiles_w,
+        "n_tiles": g_fine.n_tiles,
+        "overflow": False if overflow is None else overflow,
+        "changed_pixels": n_pix,
+        "detect_tiles": n_detect,
+    }
+    return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
+            stats, _out_hint(detect.changed_tile_mask(changed, g_hint),
+                             g_hint, overflow))
+
+
 def _full_stats(g: TileGeometry, tile_scale: int = 1) -> Dict[str, Any]:
     """Stats of a full (refresh) recompute, same keys as _run_gated's.
     Counters known on the host stay Python numbers: no device work.
-    ``tile_scale``: the ``patch_stem`` stem reports in configured-grid
-    tiles, several to one of its kernel tiles."""
+    ``tile_scale``: the ``patch_stem`` and ``band_cached`` stems report in
+    configured-grid tiles, several to one of their tiles."""
     return {
         "changed_tiles": g.n_tiles * tile_scale,
         "computed_tiles": g.n_tiles * tile_scale,
@@ -625,11 +780,14 @@ def cb_conv_refresh(params, state: CBLayerState, x, spec: ConvSpec,
     compute_dtype = network.torch_dtype(cfg.compute_dtype)
     x, w, b, g = _conv_prep(params, x, spec, cfg)
     x = x[:g.in_h, :g.in_w]
-    storage_interior(state.in_cache, g).copy_(x)
+    if cfg.backend == "dense_cached_flat":
+        state.in_cache.view(g.in_h, g.in_w, g.cin).copy_(x)
+    else:
+        storage_interior(state.in_cache, g).copy_(x)
     y = network.dense_conv(x.to(compute_dtype), w, b, spec, compute_dtype)
     _store_output(state, y, g)
     tile_scale = 1
-    if cfg.backend == "patch_stem":
+    if cfg.backend in ("patch_stem", "band_cached"):
         tile_scale = (cdiv(g.out_h, cfg.tile.tile_h)
                       * cdiv(g.out_w, cfg.tile.tile_w)) // g.n_tiles
     return (Feature(state.out_cache, g.out_h, g.out_w, spec.features), state,
@@ -717,9 +875,15 @@ def cb_pool_apply(state: CBLayerState, x, spec: PoolSpec,
             f"backend={cfg.backend}); rebuild via the flagship converter")
 
     def tile_fn(storage, idx, count, out_cache):
-        delta_pool(storage, idx, out_cache, g, count=count)
+        if cfg.backend == "torch":
+            delta_pool_jnp(storage, idx, out_cache, g)
+        else:
+            delta_pool(storage, idx, out_cache, g, count=count)
+
+    def dense_fn(storage):
+        return dense_pool(storage, g)
 
     state, stats, out_hint = _run_gated(spec, state, x, g, cfg, tile_fn, tau,
-                                        hint)
+                                        hint, dense_fn=dense_fn)
     return (Feature(state.out_cache, g.out_h, g.out_w, c), state, stats,
             out_hint)

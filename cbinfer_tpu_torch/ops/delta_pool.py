@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .delta_conv import gather_windows, scatter_tiles
+from .delta_conv import gather_windows, scatter_tiles_drop
 from .geometry import TileGeometry
 
 
@@ -22,13 +22,16 @@ def pool_tiles(windows: torch.Tensor, g: TileGeometry) -> torch.Tensor:
     return y
 
 
-def delta_pool_jnp(storage: torch.Tensor, ids: torch.Tensor,
+def delta_pool_jnp(storage: torch.Tensor, idx: torch.Tensor,
                    out_cache: torch.Tensor, g: TileGeometry) -> torch.Tensor:
-    """Gather + pool + scatter of tiles ``ids`` (int64, no sentinels) out
-    of the padded storage into ``out_cache`` IN PLACE. Named after the JAX
-    package's function it ports."""
-    return scatter_tiles(out_cache, ids,
-                         pool_tiles(gather_windows(storage, ids, g), g), g)
+    """Gather + pool + scatter of the tiles of a compacted list (sentinel
+    ``n_tiles`` past the changed ids, as ``compact_mask`` gives; a list of
+    valid ids alone is one too) out of the padded storage into
+    ``out_cache`` IN PLACE, sentinels dropped, with no host read. Named
+    after the JAX package's function it ports."""
+    return scatter_tiles_drop(out_cache, idx,
+                              pool_tiles(gather_windows(storage, idx, g), g),
+                              g)
 
 
 def dense_pool(storage: torch.Tensor, g: TileGeometry) -> torch.Tensor:

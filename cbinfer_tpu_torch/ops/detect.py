@@ -9,7 +9,7 @@ pixel lies in its receptive field.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,24 @@ def detect_and_update(x: torch.Tensor, in_cache: torch.Tensor, tau
     new_cache = torch.where(changed[..., None], x.to(in_cache.dtype),
                             in_cache)
     return new_cache, changed
+
+
+def detect_and_update_flat(x: torch.Tensor, in_cache: torch.Tensor, tau,
+                           C: int, out: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``detect_and_update`` on the FLAT (H, W*C) view of an HWC buffer
+    (the same memory, so the reshape is free): the per-pixel channel max
+    is a (1, C) window reduce and the write-back a repeat-expand ``where``.
+    Returns (new_cache (H, W*C), changed (H, W) bool); the new cache is
+    written into ``out`` when given (``in_cache`` itself for an in-place
+    update)."""
+    H = x.shape[0]
+    diff = (x.float() - in_cache.float()).abs_()
+    changed = diff.view(H, -1, C).amax(dim=-1) > tau32(tau)
+    expand = changed.repeat_interleave(C, dim=1)
+    new = torch.where(expand, x.to(in_cache.dtype), in_cache,
+                      **({} if out is None else {"out": out}))
+    return new, changed
 
 
 def changed_tile_mask(changed: torch.Tensor, g: TileGeometry

@@ -26,16 +26,18 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CK = os.path.join(_REPO, "ckpts")
 
 
-def default_pipeline_config() -> PipelineConfig:
+def default_pipeline_config(device: str = "cuda") -> PipelineConfig:
     """The deployment PipelineConfig: the flagship operating configuration
     every shipped tau vector and backend policy was calibrated against
     (hand-written kernels on the card, bf16 compute and caches, 8x8 tiles,
-    capacity 0.375). ``zoo.load`` uses it when no cfg is given; pass a cfg
-    with ``device="cpu"`` to run the plain versions."""
+    capacity 0.375). ``zoo.load`` uses it when no cfg is given.
+    ``device="cpu"`` gives the same in float32 on the plain versions (the
+    calibration scripts' CPU runs, as the JAX package's run off the
+    TPU)."""
+    dt = "bfloat16" if device == "cuda" else "float32"
     return PipelineConfig(
         tile=TileConfig(tile_h=8, tile_w=8, capacity_fraction=0.375),
-        backend="cuda", compute_dtype="bfloat16", cache_dtype="bfloat16",
-        device="cuda")
+        backend="cuda", compute_dtype=dt, cache_dtype=dt, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +102,16 @@ def names() -> List[str]:
     return list(REGISTRY)
 
 
+def output_stride(wl: "Workload", h: int, w: int) -> int:
+    """Input rows per output row of a loaded workload's network at (h, w)
+    (the stride its labels are taken at)."""
+    from .network import out_shapes
+    if wl.kind == "graph":
+        from .graph import node_out_shapes
+        return h // node_out_shapes(wl.net.nodes, (h, w, 3))[wl.net.output][0]
+    return h // out_shapes(wl.net.specs, (h, w, 3))[-1][0]
+
+
 def load_refresh_cadence(name: str, t: int, h: int, w: int,
                          default: int = 2) -> Tuple[int, str]:
     """Validated refresh cadence for a workload, parity-guarded.
@@ -135,7 +147,7 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
          tau: Optional[float] = None,
          apply_policy: bool = True,
          strip_trailing_upsample: bool = True,
-         seed: int = 0) -> Workload:
+         seed: int = 0, width: Optional[int] = None) -> Workload:
     """Build the flagship-converted network for a registered workload with
     its trained weights (on ``cfg.device``, in the compute dtype), tuned
     thresholds and measured backend policy.
@@ -147,7 +159,11 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
     then a nearest ``upsample_scale`` of the uint8 map). A ``"graph"``
     workload builds ``models.pose.pose_graph`` through
     ``graph.convert_graph_flagship``; its policy overrides are keyed by
-    node name."""
+    node name. ``width`` builds the architecture at another channel width
+    than the registry's (the calibration scripts' small CPU runs): no
+    trained checkpoint fits it, so its weights are random from ``seed``
+    (a warning says so); the tau file applies as long as the CB layer
+    count matches."""
     from .checkpoint import load_npz_graph_params, load_npz_params
     from .convert import convert_flagship, num_cb_layers
     from .graph import convert_graph_flagship, init_graph_params
@@ -158,6 +174,8 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
     if name not in REGISTRY:
         raise KeyError(f"unknown workload {name!r} (have: {names()})")
     e = REGISTRY[name]
+    if width is not None and width != e.width:
+        e = dataclasses.replace(e, width=width)
     cfg = cfg or default_pipeline_config()
     dtype = torch_dtype(cfg.compute_dtype)
     warnings: List[str] = []

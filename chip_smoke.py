@@ -42,7 +42,11 @@ frames from the native generator, data.NativeSpriteVideo), live behind
 data.PrefetchingSource, over every change rate up to a panning camera,
 and the multi-stream dry run. Then training on the card (train.py through
 scripts/torch_train.py's recipes), the freshly trained scene net served
-at 720p, and the benchmark module (benchmark.bench_network).
+at 720p, and the benchmark module (benchmark.bench_network). Then the
+other layer backends (band_cached, dense_cached_flat and the
+capacity-bounded "torch") on the scene net, and the calibration scripts'
+twins (scripts/torch_optimize_policy.py, torch_validate_refresh.py,
+torch_eval_headline.py) in this process.
 
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
@@ -167,6 +171,24 @@ Phases, each printing one JSON line:
               scan_video_jit; the BenchResult and its headline beside
               graph_flagship's figures; gated: flop_reduction > 1,
               metric_value >= 0.995, the flagship's five kernels launched
+  backends    the scene net (zoo.load, trained weights, shipped taus) on
+              five forms: the flagship, a band_cached stem, a
+              dense_cached_flat stem (both before the kernel pipeline),
+              and the whole net on the capacity-bounded plain backend
+              ("torch") in float32 and in bf16: GT-mIoU of CB and dense
+              over two seed-0 chunks (gated: within 0.005), the overflow
+              frames and computed share per layer on a panning clip
+              (gated: the bounded forms overflow), a steady chunk's
+              launches (PER_FRAME) and eager ms/frame, replays equal to
+              the eager loop (refresh, steady, pan) and their ms/frame;
+              the band and flat stems' caches against the dense_cached
+              stem's (gated: one bf16 ulp of the pre-bias dot product)
+  policy      scripts/torch_optimize_policy.py on scene in this process
+              (2 chunks, 2 windows a network): the band_cached stem's fps
+              against the flagship's, every flip's verdict
+  refresh     scripts/torch_validate_refresh.py on scene and pose, 4
+              chunks, cadences 2 and 0, seed 0: the rows
+  headline    one scripts/torch_eval_headline.py row for scene
   check       each of the nine kernels against its plain version on the
               inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -232,6 +254,15 @@ PER_FRAME = {
     # pools re-detect and the 1x1 head is a CB conv
     "cli": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 6,
             "delta_pool": 2, "delta_conv": 4},
+    # the backends phase's forms (BACKEND_FORMS): a band or flat stem
+    # before the kernel pipeline runs dense_stem's kernels; the bounded
+    # plain backend runs none
+    "band_stem": {"detect_pool_fused": 2, "detect_sparse": 3,
+                  "delta_conv": 3},
+    "flat_stem": {"detect_pool_fused": 2, "detect_sparse": 3,
+                  "delta_conv": 3},
+    "torch_f32": {},
+    "torch_bf16": {},
 }
 # what zoo.load must give the two workloads of the last phases: CB layers,
 # the fused consumer detect, the policy file it came from (None: "none")
@@ -322,6 +353,14 @@ def main():
     phase("train", train_phase, torch, np)
     torch.cuda.empty_cache()
     phase("bench", bench_phase, torch, np)
+    torch.cuda.empty_cache()
+    phase("backends", backends_phase, torch, np)
+    torch.cuda.empty_cache()
+    phase("policy", policy_phase, torch)
+    torch.cuda.empty_cache()
+    phase("refresh", refresh_phase, torch)
+    torch.cuda.empty_cache()
+    phase("headline", headline_phase, torch)
     torch.cuda.empty_cache()
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
@@ -946,8 +985,9 @@ def per_frame_launches(net):
         if cfg.backend == "patch_stem":
             add("stem_detect")
             add("stem_conv")
-        elif cfg.backend == "dense_cached":
-            pass  # detects and convolves the full map with torch ops
+        elif cfg.backend in ("dense_cached", "dense_cached_flat",
+                             "band_cached", "torch"):
+            pass  # detects and convolves with torch ops, no kernel
         elif (spec.kind == "pool" and spec.forward_hint and hint
               and L.fused_pool_gate(spec, g, cfg)):
             add("detect_pool_fused")
@@ -3189,6 +3229,242 @@ def bench_phase(torch, np):
                              f" metric {res.metric_value}")
 
 
+# ------------------------- the other layer backends --------------------------
+
+# the backends phase's forms of the scene net: (pipeline backend, stem
+# override, dtype); "torch" is the capacity-bounded plain backend (the JAX
+# package's "jnp"), whose flagship stem is dense_cached
+BACKEND_FORMS = {
+    "flagship": ("cuda", None, "bfloat16"),
+    "band_stem": ("cuda", {0: "band_cached"}, "bfloat16"),
+    "flat_stem": ("cuda", {0: "dense_cached_flat"}, "bfloat16"),
+    "torch_f32": ("torch", None, "float32"),
+    "torch_bf16": ("torch", None, "bfloat16"),
+}
+BOUNDED_FORMS = ("band_stem", "torch_f32", "torch_bf16")
+BK_ACC_CHUNKS = 2     # seed-0 chunks of the GT-mIoU pass (chunk 0 refreshes)
+BK_PAN = (4.0, 8.0)   # the pan clip's camera, px/frame (changerate's pan_fast)
+BK_PAN_SEED = 5
+BK_REPLAYS = 3        # timed replays of a steady chunk per form
+# the band and flat stems' out caches against the dense_cached stem's on
+# the same frames: the band path rounds its float32 sum plus bias to bf16
+# once; the dense conv's bf16 GEMM may round the dot product before its
+# bias is added (the CPU's does). So within one bf16 ulp of the pre-bias
+# dot product: 2^-7 (|larger output| + |bias|), plus an absolute 1e-4 for
+# the float32 summation order. An ulp count of the outputs themselves is
+# meaningless where a sum cancels next to zero (0 and 1e-7 are ~13000 bf16
+# ulps apart, the ReLU clamping one side)
+BK_STEM_RTOL = 2.0 ** -7
+BK_STEM_ATOL = 1e-4
+BK_BUDGET = 0.005     # GT-mIoU of dense minus that of the form
+
+
+def _load_script(name):
+    """A scripts/ twin as a module (its main() is not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def backends_phase(torch, np):
+    """The scene net (zoo.load, trained weights, shipped taus, 720p) on
+    each of BACKEND_FORMS: GT-mIoU of CB and dense over the seed-0 clip,
+    the overflow frames per layer and computed tiles on a panning clip,
+    eager and graphed ms/frame of a steady chunk, the kernel launches of a
+    steady chunk (PER_FRAME[form]), replays equal to the eager loop, and
+    the band and flat stems' caches against the dense_cached stem's."""
+    import dataclasses
+    from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.convert import convert_flagship
+    from cbinfer_tpu_torch.metrics import iu_counts, merge_iu
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.runner import scan_video, scan_video_jit
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+    vk = workload_video_kwargs("scene")
+    out_u8 = _u8_map(torch)
+
+    def video(seed, pan=(0.0, 0.0)):
+        return SpriteVideo(SpriteVideoConfig(
+            height=H, width=W, n_sprites=4, sprite_size=48, speed=4.0,
+            noise_std=0.002, seed=seed, pan=pan, **vk))
+
+    av = video(0)
+    acc = []
+    for _ in range(BK_ACC_CHUNKS):
+        f, lab = av.clip_with_labels(T)
+        acc.append((torch.from_numpy(f).cuda(), torch.from_numpy(
+            np.ascontiguousarray(lab[:, ::4, ::4])).cuda()))
+    pan = torch.from_numpy(video(BK_PAN_SEED, BK_PAN).clip(T)).cuda()
+    base = zoo.default_pipeline_config()
+    total = {}
+    rows, stems = {}, {}
+    forms = dict(BACKEND_FORMS,
+                 dense_stem=("cuda", {0: "dense_cached"}, "bfloat16"))
+    for form, (backend, extra, dt) in forms.items():
+        cfg = dataclasses.replace(base, backend=backend, compute_dtype=dt,
+                                  cache_dtype=dt)
+        wl = zoo.load("scene", (H, W, 3), cfg)
+        if wl.weights != "trained(npz)" or wl.tau_source != "tuned":
+            raise AssertionError(f"{form}: {wl.weights} {wl.tau_source}")
+        net = wl.net if extra is None else convert_flagship(
+            wl.specs, (H, W, 3), cfg, extra_overrides=extra)
+        params, taus = wl.params, wl.taus
+        # GT-mIoU over the seed-0 chunks (a refresh prolog on chunk 0, the
+        # REFRESH_scene.json cadence), the stem's stats kept
+        sums = {k: [0, 0] for k in ("cb", "dense")}
+        state = net.init_state()
+        stem_stats = []
+        for i, (ch, lab) in enumerate(acc):
+            cmap, state, st = scan_video(net, params, ch, state,
+                                         thresholds=taus,
+                                         refresh_start=i == 0,
+                                         out_map=out_u8)
+            stem_stats.append({k: v.cpu().tolist() for k, v in st[0].items()
+                               if k in ("changed_tiles", "changed_pixels",
+                                        "detect_tiles")})
+            dmap = torch.stack([out_u8(net.apply_dense(params, f))
+                                for f in ch])
+            skip = 8 if i == 0 else 0
+            for key, m in (("cb", cmap), ("dense", dmap)):
+                it, un = iu_counts(m[skip:], lab[skip:], NUM_CLASSES)
+                sums[key][0] += it.cpu().numpy()
+                sums[key][1] += un.cpu().numpy()
+        miou = {k: merge_iu(*v) for k, v in sums.items()}
+        if form in ("band_stem", "flat_stem", "dense_stem"):
+            stems[form] = (state[0].out_cache.clone(), stem_stats)
+        if form == "dense_stem":
+            stem_bias = params[0][1].float().abs()
+            del state
+            continue
+        # a steady chunk eagerly: launches and ms/frame, no host sync
+        s_t = _clone_state(state)
+        reset_launches()
+        _, eager_ms, eager_host = timed(torch, lambda: no_sync(
+            torch, lambda: scan_video(net, params, acc[1][0], s_t,
+                                      collect_stats=False, thresholds=taus,
+                                      out_map=out_u8)))
+        counts = launches()
+        expect_launches(form, counts, T)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        # the panning clip from the steady state: overflow frames per
+        # layer (frame 0 is a new scene: frames 1..T-1 counted) and the
+        # computed share of each layer
+        _, _, ps = scan_video(net, params, pan, s_t, thresholds=taus)
+        overflow = [int(s["overflow"][1:].sum()) if s else None for s in ps]
+        computed = [float(s["computed_tiles"][1:].float().mean()
+                          / s["n_tiles"][0]) if s else None for s in ps]
+        del s_t
+        # graphs: replays equal the eager loop (refresh, steady, the pan)
+        s_e, s_g = _clone_state(state), _clone_state(state)
+        run = scan_video_jit(net)
+        for i, (refresh, ch) in enumerate(((True, acc[0][0]),
+                                           (False, acc[1][0]),
+                                           (False, pan))):
+            eager = scan_video(net, params, ch, s_e, thresholds=taus,
+                               refresh_start=refresh)
+            graphed = no_sync(torch, lambda: run(
+                params, ch, s_g, thresholds=taus, refresh_start=refresh))
+            _same_run(torch, eager, graphed, f"{form}: graph vs eager, "
+                      f"chunk {i}")
+        del eager, graphed, s_e
+
+        def replay():
+            return run(params, acc[1][0], s_g, thresholds=taus,
+                       collect_stats=False, out_map=out_u8)[0]
+        replay()  # the key's eager call, then its capture
+        replay()
+        graph_ms = [timed(torch, lambda: no_sync(torch, replay))[1] / T
+                    for _ in range(BK_REPLAYS)]
+        rows[form] = dict(
+            backends=[getattr(sp, "backend", None) for sp in net.specs],
+            dtype=dt, miou_gt_cb=miou["cb"], miou_gt_dense=miou["dense"],
+            miou_degradation=miou["dense"] - miou["cb"],
+            eager_ms_per_frame=eager_ms / T,
+            eager_host_cpu_ms_per_frame=eager_host / T,
+            graph_ms_per_frame=float(np.median(graph_ms)),
+            graph_ms_per_frame_all=graph_ms, launches=counts,
+            pan_overflow_frames=overflow, pan_computed_share=computed,
+            graphed="captured, replays equal the eager loop")
+        del run, s_g, state, net, wl, params
+        torch.cuda.empty_cache()
+    ref_cache, ref_stats = stems.pop("dense_stem")
+    ref = ref_cache.float()
+    stem_cmp = {}
+    for f, (c, st) in stems.items():
+        d = (c.float() - ref).abs()
+        bound = BK_STEM_RTOL * (torch.maximum(c.float().abs(), ref.abs())
+                                + stem_bias) + BK_STEM_ATOL
+        stem_cmp[f] = dict(max_abs_err=float(d.max()),
+                           differing_share=float((d > 0).float().mean()),
+                           within_tolerance=bool((d <= bound).all()),
+                           stats_equal=st == ref_stats)
+    emit("backends", forms=rows, stem_vs_dense_cached=stem_cmp,
+         stem_rtol=BK_STEM_RTOL, stem_atol=BK_STEM_ATOL, launches=total,
+         pan=list(BK_PAN), pan_seed=BK_PAN_SEED, acc_seed=0,
+         smi=nvidia_smi("name,power.limit"))
+    for form, r in rows.items():
+        if not r["miou_degradation"] <= BK_BUDGET:
+            raise AssertionError(f"{form}: GT-mIoU degradation "
+                                 f"{r['miou_degradation']} > {BK_BUDGET}")
+    for form in BOUNDED_FORMS:
+        if not any(rows[form]["pan_overflow_frames"][i] or 0
+                   for i in range(len(rows[form]["pan_overflow_frames"]))):
+            raise AssertionError(f"{form}: no overflow on the pan clip")
+    if not all(c["within_tolerance"] and c["stats_equal"]
+               for c in stem_cmp.values()):
+        raise AssertionError(f"stems against dense_cached: {stem_cmp}")
+
+
+def policy_phase(torch):
+    """scripts/torch_optimize_policy.py on scene in this process with few
+    reps and chunks: the band_cached stem's fps against the flagship's and
+    every flip's verdict (recorded; nothing is written)."""
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    mod = _load_script("torch_optimize_policy")
+    reset_launches()
+    # three windows per arm: one slow window does not move their median
+    rec = mod.optimize("scene", H, W, T, chunks=2, reps=3, seed=0,
+                       log=lambda m: print(m, flush=True))
+    emit("policy", **rec, launches=launches())
+    if [t["mode"] for t in rec["trials"]][0] != "band_cached":
+        raise AssertionError("policy: the stem trial did not come first")
+
+
+def refresh_phase(torch):
+    """scripts/torch_validate_refresh.py on scene and pose at 720p with a
+    short horizon: 4 chunks, cadences 2 and 0, seed 0."""
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    mod = _load_script("torch_validate_refresh")
+    reset_launches()
+    out = {}
+    for model, t in (("scene", T), ("pose", 12)):
+        rec = mod.validate(model, H, W, t, 4, [2, 0], [0], BK_BUDGET,
+                           log=lambda m: print(m, flush=True))
+        out[model] = rec
+        if [r["cadence"] for r in rec["rows"]] != [2, 0]:
+            raise AssertionError(f"refresh {model}: rows {rec['rows']}")
+    emit("refresh", **out, launches=launches())
+
+
+def headline_phase(torch):
+    """One scripts/torch_eval_headline.py row for scene (tuned taus, the
+    seed-0 clips)."""
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    mod = _load_script("torch_eval_headline")
+    reset_launches()
+    row = mod.bench_model("scene", H, W, T, seed=0,
+                          log=lambda m: print(m, flush=True))
+    emit("headline", row=row, launches=launches())
+    if not (row["flop_reduction"] > 1 and row["cb_fps"] > 0
+            and row["miou_degradation"] <= BK_BUDGET):
+        raise AssertionError(f"headline: {row}")
+
+
 def emit_kernels():
     from cbinfer_tpu_torch.ops.kernels import KERNELS
     per = RESULTS.pop("_per_kernel")
@@ -3209,7 +3485,11 @@ def emit_kernels():
                 "changerate": RESULTS["changerate"]["launches"],
                 "dryrun": RESULTS["dryrun"]["launches"],
                 "train": RESULTS["train"]["launches"],
-                "bench": RESULTS["bench"]["launches"]}
+                "bench": RESULTS["bench"]["launches"],
+                "backends": RESULTS["backends"]["launches"],
+                "policy": RESULTS["policy"]["launches"],
+                "refresh": RESULTS["refresh"]["launches"],
+                "headline": RESULTS["headline"]["launches"]}
     rows = []
     for k in KERNELS:
         paths = {}

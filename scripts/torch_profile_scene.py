@@ -3,7 +3,8 @@
 
     python3 scripts/torch_profile_scene.py [flagship|dense_stem|hintless|
                                             pose|pose_unfused|pose_fwd|
-                                            seg|pose_graph]
+                                            seg|pose_graph|band_stem|
+                                            flat_stem|torch_f32|torch_bf16]
                                            [--frames 32] [--graph]
                                            [--pan DY DX]
 
@@ -19,7 +20,11 @@ producer's hint). ``seg`` (zoo.load("seg"), w64, on the seg profile's
 video, the full-resolution uint8 class map as output: argmax, then the
 nearest x4 of the stripped upsample) and ``pose_graph`` (zoo.load(
 "pose_graph"), the OpenPose DAG, the 18 heat argmaxes) are the two other
-workloads. The clip is seeded with the constant SEED, so two source
+workloads. ``band_stem`` and ``flat_stem`` are the scene flagship with the
+stem on ``band_cached`` or ``dense_cached_flat``; ``torch_f32`` and
+``torch_bf16`` the scene net on the capacity-bounded plain backend
+(``"torch"``, no kernel) in float32 or bf16 (``chip_smoke.py``'s
+``backends`` phase's forms). The clip is seeded with the constant SEED, so two source
 trees are profiled on the same frames. It warms up, then profiles one chunk of CB frames (no refresh frame) and
 the same frames through the dense path. Prints one JSON line per path: wall ms per frame (CUDA events),
 the host thread's CPU ms per frame while enqueuing,
@@ -35,6 +40,7 @@ sweep's pan points do (``chip_smoke.py``'s ``changerate`` phase: pan_slow
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -116,7 +122,8 @@ def main():
     ap.add_argument("path", nargs="?", default="flagship",
                     choices=("flagship", "dense_stem", "hintless", "pose",
                              "pose_unfused", "pose_fwd", "seg",
-                             "pose_graph"))
+                             "pose_graph", "band_stem", "flat_stem",
+                             "torch_f32", "torch_bf16"))
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--graph", action="store_true",
@@ -131,7 +138,13 @@ def main():
     is_pose = args.path.startswith("pose")
     workload = (args.path if args.path in ("seg", "pose_graph")
                 else "pose" if is_pose else "scene")
-    wl = zoo.load(workload, (H, W, 3),
+    cfg = None
+    if args.path.startswith("torch_"):
+        dt = "float32" if args.path == "torch_f32" else "bfloat16"
+        cfg = dataclasses.replace(zoo.default_pipeline_config(),
+                                  backend="torch", compute_dtype=dt,
+                                  cache_dtype=dt)
+    wl = zoo.load(workload, (H, W, 3), cfg,
                   apply_policy=args.path != "pose_unfused")
     if wl.weights != "trained(npz)" or wl.tau_source != "tuned" \
             or wl.warnings:
@@ -141,9 +154,11 @@ def main():
               file=sys.stderr)
         return 1
     net, params, taus = wl.net, wl.params, wl.taus
-    if args.path == "dense_stem":
+    stems = {"dense_stem": "dense_cached", "band_stem": "band_cached",
+             "flat_stem": "dense_cached_flat"}
+    if args.path in stems:
         net = convert_flagship(wl.specs, (H, W, 3), net.cfg,
-                               extra_overrides={0: "dense_cached"})
+                               extra_overrides={0: stems[args.path]})
     elif args.path == "hintless":
         net = convert(wl.specs, (H, W, 3), net.cfg,
                       dense_layers=(0, len(wl.specs) - 1))

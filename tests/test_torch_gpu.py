@@ -1286,3 +1286,89 @@ def test_train_segmentation_step_on_card_equals_cpu(cuda):
     close = np.abs(got - want) <= 1e-5 + 1e-4 * np.abs(want)
     assert close.mean() >= 0.999, close.mean()
     assert np.abs(got - want).max() <= 2 * 3e-3
+
+
+def _backend_form(cuda_dev, form, dtype, device="cuda"):
+    """scene w8 at 64x128 on one of the new backends' forms (the bounded
+    plain pipeline; a band or flat stem before the kernel pipeline), its
+    params from one seed, and a clip."""
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import convert_flagship
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.network import init_params
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
+    backend, extra = {"torch": ("torch", None),
+                      "band_cached": ("cuda", {0: "band_cached"}),
+                      "dense_cached_flat": ("cuda",
+                                            {0: "dense_cached_flat"}),
+                      "dense_cached": ("cuda", {0: "dense_cached"})}[form]
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    specs = get_model("scene", num_classes=8, width=8)
+    cfg = PipelineConfig(tile=TileConfig(8, 8, 0.375), backend=backend,
+                         compute_dtype=name, cache_dtype=name, device=device)
+    net = convert_flagship(specs, (64, 128, 3), cfg, thresholds=[0.05] * 6,
+                           extra_overrides=extra)
+    params = init_params(specs, (64, 128, 3), 3, device, dtype)
+    clip = torch.from_numpy(SpriteVideo(SpriteVideoConfig(
+        height=64, width=128, n_sprites=3, sprite_size=16, speed=3.0,
+        seed=3)).clip(20)).to(device)
+    return net, params, clip
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["torch", "band_cached",
+                                  "dense_cached_flat"])
+def test_new_backends_graph_replay_equals_eager_on_card(cuda, form, dtype):
+    """The bounded plain backend and the band and flat stems capture into
+    CUDA graphs (the frame loop reads nothing on the host; the capture
+    raises on a sync) and replay the eager loop bit for bit, refresh and
+    steady chunks; the bounded forms overflow on the cold frame."""
+    from cbinfer_tpu_torch.runner import scan_video, scan_video_jit
+    net, params, clip = _backend_form(cuda, form, dtype)
+    state = net.init_state()
+    s_e, s_g = chip_smoke._clone_state(state), chip_smoke._clone_state(state)
+    run = scan_video_jit(net)
+    chunks = [clip[i:i + 4] for i in range(0, 20, 4)]
+    for ch, refresh in zip(chunks, (True, False, False, True, False)):
+        eager = scan_video(net, params, ch, s_e, refresh_start=refresh)
+        graphed = run(params, ch, s_g, refresh_start=refresh)
+        chip_smoke._same_run(torch, eager, graphed, f"{form} {refresh}")
+    assert sorted(g["replays"] for g in run.graphs.info()) == [1, 2]
+    if form != "dense_cached_flat":
+        cold = scan_video(net, params, clip[:1], net.init_state())[2]
+        assert any(bool(s["overflow"].any()) for s in cold if s)
+
+
+@pytest.mark.parametrize("form", ["torch", "band_cached",
+                                  "dense_cached_flat"])
+def test_new_backends_on_card_equal_cpu(cuda, form):
+    """float32 on the card against the CPU's run of the same form: every
+    counter exact, outputs within 1e-3."""
+    from cbinfer_tpu_torch.runner import scan_video
+    net, params, clip = _backend_form(cuda, form, torch.float32)
+    cnet, cparams, cclip = _backend_form(cuda, form, torch.float32, "cpu")
+    yg, _, sg = scan_video(net, params, clip, refresh_start=True)
+    yc, _, sc = scan_video(cnet, cparams, cclip, refresh_start=True)
+    torch.testing.assert_close(yg.cpu(), yc, rtol=0, atol=1e-3)
+    for (k, a), (_, b) in zip(chip_smoke._layers(sg),
+                              chip_smoke._layers(sc)):
+        for key in a:
+            assert a[key].cpu().tolist() == b[key].tolist(), (k, key)
+
+
+def test_band_stem_equals_dense_cached_within_bf16_ulps_on_card(cuda):
+    """In bf16 the band path's float32 epilogue (one rounding of the
+    float32 sum) and the dense_cached stem's bf16 matmul output differ by
+    final-rounding ulps: the stem's out caches within 1 bf16 ulp, every
+    counter of the stem equal."""
+    from cbinfer_tpu_torch.runner import scan_video
+    outs = {}
+    for form in ("band_cached", "dense_cached"):
+        net, params, clip = _backend_form(cuda, form, torch.bfloat16)
+        st = net.init_state()
+        _, st, stats = scan_video(net, params, clip[:6], st)
+        outs[form] = (st[0].out_cache, stats[0])
+    (a, sa), (b, sb) = outs["band_cached"], outs["dense_cached"]
+    assert chip_smoke._ulps(torch, a, b) <= 1
+    for key in ("changed_tiles", "changed_pixels", "detect_tiles"):
+        assert sa[key].tolist() == sb[key].tolist(), key

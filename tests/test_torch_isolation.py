@@ -78,6 +78,15 @@ def test_default_device_entry_points_raise_without_cuda():
                            extra_overrides={0: "dense_cached"})
     with pytest.raises(RuntimeError, match="cuda"):
         net.init_state()
+    # the other layer backends run on the card by default too
+    for backend, extra in (("cuda", {0: "band_cached"}),
+                           ("cuda", {0: "dense_cached_flat"}),
+                           ("torch", None)):
+        net = convert_flagship(specs, (64, 128, 3),
+                               PipelineConfig(backend=backend),
+                               extra_overrides=extra)
+        with pytest.raises(RuntimeError, match="cuda"):
+            net.init_state()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -97,3 +106,32 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def _imported_modules(path):
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_torch_scripts_never_import_jax_or_reference():
+    """Every scripts/torch_*.py (the kernel A/B tools, the profiler, the
+    trainer and the calibration twins) imports neither jax nor the JAX
+    package, at the top or inside a function."""
+    import glob
+    scripts = sorted(glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
+    names = {os.path.basename(p) for p in scripts}
+    assert {"torch_train.py", "torch_profile_scene.py", "torch_kernel_ab.py",
+            "torch_detect_ab.py", "torch_demo_import.py",
+            "torch_optimize_policy.py", "torch_validate_refresh.py",
+            "torch_tune_model.py", "torch_eval_headline.py"} <= names
+    for path in scripts:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in ("jax", "jaxlib", "cbinfer_tpu",
+                                      "optax", "flax")]
+        assert not bad, (path, bad)
