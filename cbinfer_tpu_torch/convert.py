@@ -18,6 +18,7 @@ from . import layers as L
 from . import network
 from .config import ConvSpec, PipelineConfig, PoolSpec, UpsampleSpec
 from .netview import NetView, hint_reaches
+from .ops import detect as detect_ops
 from .ops import flat4 as flat4_ops
 
 
@@ -76,19 +77,17 @@ class CBNet:
     def _taus(self, thresholds):
         if thresholds is None:
             return None
-        taus = [float(t) for t in thresholds]
-        if len(taus) != num_cb_layers(self.specs):
-            raise ValueError(f"got {len(taus)} thresholds for "
-                             f"{num_cb_layers(self.specs)} CB layers")
-        return taus
+        return detect_ops.tau_list(thresholds, num_cb_layers(self.specs))
 
     def apply(self, params: Sequence, state: List, x: torch.Tensor,
               thresholds: Optional[Sequence[float]] = None
               ) -> Tuple[torch.Tensor, List, List[Dict[str, Any]]]:
         """One frame through the CB network; ``state`` is updated in place
-        and returned. ``thresholds``: optional host-side tau per CB layer
-        overriding the specs' (floats: the kernels take tau by value, so
-        no device read is needed). Returns (y, state, stats)."""
+        and returned. ``thresholds``: optional tau per CB layer overriding
+        the specs', host numbers or a float32 vector on the layers' device
+        (the kernels read tau from device memory at run time, so a captured
+        graph takes new values written into that vector). Returns (y,
+        state, stats)."""
         taus = self._taus(thresholds)
         dtype = network.torch_dtype(self.cfg.compute_dtype)
         stats: List[Dict[str, Any]] = []

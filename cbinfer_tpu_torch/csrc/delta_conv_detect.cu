@@ -63,7 +63,8 @@ delta_conv_detect_wg_kernel(const __nv_bfloat16* __restrict__ st,
                             __nv_bfloat16* __restrict__ out,
                             __nv_bfloat16* __restrict__ nc,
                             float* __restrict__ mask, int* __restrict__ npix,
-                            float tau, ConvArgs a, WgPlan pl, NextArgs n) {
+                            const float* __restrict__ tau_p, ConvArgs a,
+                            WgPlan pl, NextArgs n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   WgShared& sh = *reinterpret_cast<WgShared*>(smem_raw);
   int rank;
@@ -82,6 +83,7 @@ delta_conv_detect_wg_kernel(const __nv_bfloat16* __restrict__ st,
   }
   if (threadIdx.x < 64) {
     const int p = threadIdx.x;
+    const float tau = __ldg(tau_p);  // once per thread, after the conv
     float m = sh.part[p];
     for (int r = 0; r < pl.csize; ++r)
       if (r != rank) m = fmaxf(m, dsmem_load(&sh.part[p], r));
@@ -124,9 +126,10 @@ delta_conv_detect_f32_kernel(const float* __restrict__ st,
                              const float* __restrict__ bias,
                              float* __restrict__ out, float* __restrict__ nc,
                              float* __restrict__ mask, int* __restrict__ npix,
-                             float tau, ConvArgs a, NextArgs n,
-                             int win_elems) {
+                             const float* __restrict__ tau_p, ConvArgs a,
+                             NextArgs n, int win_elems) {
   if ((int)blockIdx.x >= __ldg(count)) return;
+  const float tau = __ldg(tau_p);  // once per thread, not per pixel
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_n;
   float* win = reinterpret_cast<float*>(smem_raw);
@@ -167,7 +170,8 @@ extern "C" int cb_delta_conv_detect(
     const float* bias, void* out, void* next_cache, float* mask, int* npix,
     int n_blocks, int dtype, int cin, int cout, int kh, int kw, int sh,
     int sw, int dh, int dw, int win_h, int win_w, int dx0, int tiles_w,
-    long long s_row, long long out_row, int relu, int has_bias, float tau2,
+    long long s_row, long long out_row, int relu, int has_bias,
+    const float* tau2,
     int out_h, long long nc_row, int nc_lo_h, int nc_lo_w, int tiles_h2,
     int tiles_w2, int step_h2, int step_w2, int pad_lo_h2, int pad_lo_w2,
     int win_h2, int win_w2, int n_blk, int csize, int slices, int steps,

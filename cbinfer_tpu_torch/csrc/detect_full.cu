@@ -6,7 +6,8 @@
 // max_c |x - cache| > tau (float32, x already in the cache's type); accept
 // changed pixels into the padded storage interior in place; count them;
 // mark every out tile of this layer (conv or pool: its own stride, padding
-// and window) whose input window holds a changed pixel.
+// and window) whose input window holds a changed pixel. tau is read from
+// device memory, once per thread, so a captured graph takes a new value.
 //
 // Bound on the H100: bytes. The sweep reads x and the cache once each
 // (2 * H*W*C elements) and writes the changed pixels; there is no
@@ -26,8 +27,9 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 detect_full_kernel(const T* __restrict__ x, T* __restrict__ st,
                    float* __restrict__ mask, int* __restrict__ npix,
-                   float tau, int W, CbDetectArgs a) {
+                   const float* __restrict__ tau_p, int W, CbDetectArgs a) {
   __shared__ int s_n;
+  const float tau = __ldg(tau_p);  // once per thread, not per pixel
   if (threadIdx.x == 0) s_n = 0;
   __syncthreads();
   const int warp = threadIdx.x >> 5;
@@ -45,7 +47,7 @@ detect_full_kernel(const T* __restrict__ x, T* __restrict__ st,
 }  // namespace
 
 extern "C" int cb_detect_full(
-    const void* x, void* storage, float* mask, int* npix, float tau,
+    const void* x, void* storage, float* mask, int* npix, const float* tau,
     int dtype, int H, int W, int C, long long x_row, long long s_row,
     int slo_h, int slo_w, int tiles_h, int tiles_w, int step_h, int step_w,
     int pad_lo_h, int pad_lo_w, int win_h, int win_w, void* stream) {

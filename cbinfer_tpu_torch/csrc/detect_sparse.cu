@@ -6,7 +6,9 @@
 // max_c |x - cache| > tau (float32); accept changed pixels into the padded
 // storage in place; count them; mark every out tile of THIS layer whose
 // receptive field holds a changed pixel. The layer may be a conv or a pool:
-// the dilation takes the layer's stride, padding and window as given.
+// the dilation takes the layer's stride, padding and window as given. tau
+// is read from device memory, once per thread, so a captured graph takes a
+// new value.
 //
 // Bound on the H100: bytes. Each visited tile reads x and the cache once
 // and writes at most its changed pixels (3 * 8*8*C * 2 bytes in bf16 at
@@ -119,9 +121,11 @@ __global__ void __launch_bounds__(256)
 detect_sparse_kernel(const T* __restrict__ x, T* __restrict__ st,
                      const int* __restrict__ idx,
                      const int* __restrict__ count, float* __restrict__ mask,
-                     int* __restrict__ npix, int cap, float tau,
-                     int hint_tiles_w, int up, CbDetectArgs a) {
+                     int* __restrict__ npix, int cap,
+                     const float* __restrict__ tau_p, int hint_tiles_w,
+                     int up, CbDetectArgs a) {
   __shared__ int s_n[8];
+  const float tau = __ldg(tau_p);  // once per thread, not per pixel
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   // blockIdx.x < gridDim.x <= cap: the first index loads beside the count
@@ -159,7 +163,7 @@ detect_sparse_kernel(const T* __restrict__ x, T* __restrict__ st,
 
 template <typename T, typename U>
 int launch(const void* x, void* st, const int* idx, const int* count,
-           float* mask, int* npix, int cap, int grid, float tau,
+           float* mask, int* npix, int cap, int grid, const float* tau,
            int hint_tiles_w, int up, const CbDetectArgs& a,
            cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
@@ -178,7 +182,7 @@ int launch(const void* x, void* st, const int* idx, const int* count,
 
 template <typename T>
 int launch_type(const void* x, void* st, const int* idx, const int* count,
-                float* mask, int* npix, int cap, int grid, float tau,
+                float* mask, int* npix, int cap, int grid, const float* tau,
                 int hint_tiles_w, const CbDetectArgs& a, cudaStream_t s) {
   // 16-byte units where every pixel starts 16-byte aligned (all offsets
   // are multiples of C elements), else 4-byte units
@@ -197,9 +201,9 @@ int launch_type(const void* x, void* st, const int* idx, const int* count,
 // cap: entries of idx; grid: blocks to launch (1 <= grid <= cap).
 extern "C" int cb_detect_sparse(
     const void* x, void* storage, const int* idx, const int* count,
-    float* mask, int* npix, int cap, int grid, float tau, int dtype, int H,
-    int C, int hint_tiles_w, long long x_row, long long s_row, int slo_h,
-    int slo_w, int tiles_h, int tiles_w, int step_h, int step_w,
+    float* mask, int* npix, int cap, int grid, const float* tau, int dtype,
+    int H, int C, int hint_tiles_w, long long x_row, long long s_row,
+    int slo_h, int slo_w, int tiles_h, int tiles_w, int step_h, int step_w,
     int pad_lo_h, int pad_lo_w, int win_h, int win_w, void* stream) {
   CbDetectArgs a{H,     C,     x_row,
                  s_row, slo_h, slo_w,

@@ -9,7 +9,9 @@
 // cache rounded to its type; their exact count goes to npix; every 8x8 cell
 // whose input window (the layer's 3x3 SAME window: rows [8i - 1, 8i + 9))
 // holds a changed pixel is marked. tau < 0 marks every pixel: the sweep
-// covers the logical map only, so no margin has to be gated out.
+// covers the logical map only, so no margin has to be gated out. tau is
+// read from device memory, once per thread, so a captured graph takes a
+// new value.
 //
 // Bound on the H100: bytes, the frame read once (12 bytes a pixel) and the
 // cache read once and written where changed (6 bytes a pixel in bf16).
@@ -92,7 +94,7 @@ template <typename T, int C, bool VEC>
 __global__ void __launch_bounds__(256)
 stem_detect_kernel(const float* __restrict__ x, T* __restrict__ st,
                    float* __restrict__ mask, int* __restrict__ npix,
-                   float tau, StemDetectArgs a) {
+                   const float* __restrict__ tau_p, StemDetectArgs a) {
   using E = Elem<T>;
   using R = typename E::raw;
   __shared__ unsigned long long s_mark[8];
@@ -105,6 +107,7 @@ stem_detect_kernel(const float* __restrict__ x, T* __restrict__ st,
   const int r = ca * 8 + warp;
   unsigned bits = 0;  // bit p: pixel 8*cb + p of row r changed
   if (cb < a.cells_w) {
+    const float tau = __ldg(tau_p);  // once per thread, not per pixel
     Group<float, kPix * C> xv;
     Group<R, kPix * C> cv;
     R* sp = reinterpret_cast<R*>(st) + (long long)(r + a.slo_h) * a.s_row +
@@ -184,8 +187,9 @@ stem_detect_kernel(const float* __restrict__ x, T* __restrict__ st,
 }
 
 template <typename T, int C>
-int launch_c(const float* x, void* st, float* mask, int* npix, float tau,
-             bool vec, int grid, const StemDetectArgs& a, cudaStream_t s) {
+int launch_c(const float* x, void* st, float* mask, int* npix,
+             const float* tau, bool vec, int grid, const StemDetectArgs& a,
+             cudaStream_t s) {
   // launched to overlap the wrapper's fill of mask and npix
   auto kernel = vec ? &stem_detect_kernel<T, C, true>
                     : &stem_detect_kernel<T, C, false>;
@@ -195,9 +199,9 @@ int launch_c(const float* x, void* st, float* mask, int* npix, float tau,
 }
 
 template <typename T>
-int launch_type(const float* x, void* st, float* mask, int* npix, float tau,
-                int C, bool vec, int grid, const StemDetectArgs& a,
-                cudaStream_t s) {
+int launch_type(const float* x, void* st, float* mask, int* npix,
+                const float* tau, int C, bool vec, int grid,
+                const StemDetectArgs& a, cudaStream_t s) {
   switch (C) {
     case 1: return launch_c<T, 1>(x, st, mask, npix, tau, vec, grid, a, s);
     case 2: return launch_c<T, 2>(x, st, mask, npix, tau, vec, grid, a, s);
@@ -214,9 +218,9 @@ int launch_type(const float* x, void* st, float* mask, int* npix, float tau,
 // 16-byte aligned (16-byte loads). bw: blocks over a cell row (the
 // wrapper's block_plan, cdiv(W / 8, 32)); the grid is bw * H / 8.
 extern "C" int cb_stem_detect(const float* x, void* storage, float* mask,
-                              int* npix, float tau, int dtype, int H, int W,
-                              int C, long long s_row, int slo_h, int slo_w,
-                              int vec16, int bw, void* stream) {
+                              int* npix, const float* tau, int dtype, int H,
+                              int W, int C, long long s_row, int slo_h,
+                              int slo_w, int vec16, int bw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H <= 0 || W <= 0) return 0;
   const int cells_w = W / 8;

@@ -27,6 +27,7 @@ from . import network
 from .config import ConvSpec, PipelineConfig, PoolSpec, UpsampleSpec
 from .convert import _as_array, _output, dense_conv_on_feature
 from .netview import NetView, hint_reaches
+from .ops import detect as detect_ops
 from .ops import flat4 as flat4_ops
 from .ops.geometry import conv_out_size, pad_dim
 
@@ -158,17 +159,15 @@ class CBGraphNet:
     def _taus(self, thresholds):
         if thresholds is None:
             return None
-        taus = [float(t) for t in thresholds]
-        if len(taus) != self.num_cb_layers():
-            raise ValueError(f"got {len(taus)} thresholds for "
-                             f"{self.num_cb_layers()} CB layers")
-        return taus
+        return detect_ops.tau_list(thresholds, self.num_cb_layers())
 
     def apply(self, params: Dict[str, Any], state: Dict[str, Any],
               x: torch.Tensor, thresholds: Optional[Sequence[float]] = None):
         """One frame through the CB graph; ``state`` is updated in place
-        and returned. ``thresholds``: optional host-side tau per CB node, in
-        topological order. Returns (y, state, stats by node name)."""
+        and returned. ``thresholds``: optional tau per CB node, in
+        topological order, host numbers or a float32 vector on the nodes'
+        device (see ``CBNet.apply``). Returns (y, state, stats by node
+        name)."""
         taus = self._taus(thresholds)
         dtype = network.torch_dtype(self.cfg.compute_dtype)
         vals: Dict[str, Any] = {"input": x}

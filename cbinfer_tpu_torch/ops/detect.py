@@ -9,7 +9,7 @@ pixel lies in its receptive field.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,13 +21,57 @@ from .geometry import TileGeometry
 # bf16/fp32 arithmetic stays NaN-free.
 COLD_START_FILL = 3.0e38
 
+# Host taus as device constants, one 0-d float32 tensor per (value,
+# device). A captured graph reads these tensors: an entry is never dropped.
+_TAU_CONSTANTS: Dict[Tuple[float, torch.device], torch.Tensor] = {}
 
-def tau32(tau) -> float:
-    """tau rounded to float32, as a Python float: compared against a
-    float32 tensor it gives the JAX package's float32 comparison, and being
-    a host scalar it needs no host-to-device copy (a device tensor made
-    from a host value waits for the card)."""
+
+def tau32(tau) -> Union[float, torch.Tensor]:
+    """tau in float32 without a host read: a host number rounded to
+    float32 as a Python float, a tensor (the runtime form, a 0-d view of a
+    device vector) as float32. Compared against a float32 tensor either
+    gives the JAX package's float32 comparison."""
+    if isinstance(tau, torch.Tensor):
+        return tau if tau.dtype == torch.float32 else tau.float()
     return float(np.float32(tau))
+
+
+def tau_on(tau, device) -> torch.Tensor:
+    """tau as the detecting kernels read it: a 0-d float32 tensor on
+    ``device``. A tensor passes through (it must already be float32 there);
+    a host number becomes a device constant, made once per value and
+    device by a fill kernel (no host-to-device copy, so no host sync) and
+    then reused."""
+    device = torch.device(device)
+    if isinstance(tau, torch.Tensor):
+        if (tau.dtype != torch.float32 or tau.numel() != 1
+                or tau.device != device):
+            raise ValueError(f"tau: a float32 scalar on {device}, got "
+                             f"{tuple(tau.shape)} {tau.dtype} on "
+                             f"{tau.device}")
+        return tau
+    v = tau32(tau)
+    got = _TAU_CONSTANTS.get((v, device))
+    if got is None:
+        got = _TAU_CONSTANTS[(v, device)] = torch.full(
+            (), v, dtype=torch.float32, device=device)
+    return got
+
+
+def tau_list(thresholds, n: int) -> list:
+    """The per-layer taus of a thresholds vector of ``n`` entries: host
+    numbers as floats, a 1-D tensor (the runtime form) as 0-d views of it,
+    whose addresses a captured graph reads (no host read)."""
+    if isinstance(thresholds, torch.Tensor):
+        if thresholds.ndim != 1:
+            raise ValueError(f"thresholds: a vector, got "
+                             f"{tuple(thresholds.shape)}")
+        taus = list(thresholds.unbind(0))
+    else:
+        taus = [float(t) for t in thresholds]
+    if len(taus) != n:
+        raise ValueError(f"got {len(taus)} thresholds for {n} CB layers")
+    return taus
 
 
 def detect_and_update(x: torch.Tensor, in_cache: torch.Tensor, tau

@@ -24,7 +24,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "kernels"
 SOURCES = ("detect_sparse", "delta_conv", "pool_fused", "stem_detect",
            "stem_conv", "detect_full", "delta_pool", "delta_conv_detect",
-           "accept_tiles")
+           "accept_tiles", "tma_window")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

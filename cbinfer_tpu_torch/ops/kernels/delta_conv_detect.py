@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from .. import detect as detect_ops
 from ..conv_plan import conv_plan, packed_weights
 from ..geometry import TileGeometry
 from . import DTYPE_CODE, Kernel
@@ -68,8 +69,8 @@ def _fn():
     f = library("delta_conv_detect").cb_delta_conv_detect
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = ([vp] * 9 + [i] * 14 + [ll, ll, i, i, ctypes.c_float, i,
-                                            ll] + [i] * 16 + [vp])
+        f.argtypes = ([vp] * 9 + [i] * 14 + [ll, ll, i, i, vp, i, ll]
+                      + [i] * 16 + [vp])
         f.restype = ctypes.c_int
     return f
 
@@ -84,10 +85,11 @@ def delta_conv_detect(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
 
     Arguments as ``delta_conv`` plus the consumer's padded input cache
     ``next_cache`` (UPDATED IN PLACE, like ``out_cache``), its threshold
-    (a host float) and its geometry ``g2``. Returns (out_cache, next_cache,
-    the consumer's out-tile mask float32 (g2.tiles_h, g2.tiles_w), changed
-    pixels int32 (1,)). ``count`` = 0 leaves both caches untouched and
-    returns zeros.
+    (a host number, or a 0-d float32 tensor on the card that the kernel
+    reads at run time) and its geometry ``g2``. Returns (out_cache,
+    next_cache, the consumer's out-tile mask float32 (g2.tiles_h,
+    g2.tiles_w), changed pixels int32 (1,)). ``count`` = 0 leaves both
+    caches untouched and returns zeros.
     """
     if not fuse_gate(g, g2):
         raise ValueError(f"delta_conv_detect: fuse gate fails for {g} -> {g2}")
@@ -129,6 +131,7 @@ def delta_conv_detect(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("delta_conv_detect: operands must be contiguous")
+    next_tau = detect_ops.tau_on(next_tau, xp.device)
     mask = torch.zeros((g2.tiles_h, g2.tiles_w), dtype=torch.float32,
                        device=xp.device)
     npix = torch.zeros((1,), dtype=torch.int32, device=xp.device)
@@ -149,7 +152,7 @@ def delta_conv_detect(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                 kh, kw, sh, sw, dh, dw, g.win_h, g.win_w, g.dx0, g.tiles_w,
                 xp.shape[1] * cin, g.out_w_pad * cout,
                 int(activation == "relu"), int(b is not None),
-                float(next_tau), g.out_h, next_cache.shape[1] * cout,
+                next_tau.data_ptr(), g.out_h, next_cache.shape[1] * cout,
                 g2.store_lo_h, g2.store_lo_w, g2.tiles_h, g2.tiles_w,
                 g2.th * s2h, g2.tw * s2w, g2.pad_lo_h, g2.pad_lo_w,
                 g2.win_h, g2.win_w, *plan, stream)

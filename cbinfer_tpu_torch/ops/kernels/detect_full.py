@@ -42,8 +42,7 @@ def _fn():
     f = library("detect_full").cb_detect_full
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 4 + [ctypes.c_float] + [i] * 4 + [ll, ll] \
-            + [i] * 10 + [vp]
+        f.argtypes = [vp] * 5 + [i] * 4 + [ll, ll] + [i] * 10 + [vp]
         f.restype = ctypes.c_int
     return f
 
@@ -55,8 +54,10 @@ def detect_full(x: torch.Tensor, storage: torch.Tensor, tau,
     x: (>=H, >=W, C) current input (only logical coordinates are read),
     compared in the cache dtype. storage: this layer's padded input cache
     (conv: zero margins; pool: the finite "-inf" fill), UPDATED IN PLACE
-    (the JAX package donates and aliases it). Returns (storage, mask f32
-    (tiles_h, tiles_w), npix int32 (1,))."""
+    (the JAX package donates and aliases it). tau: a host number or a 0-d
+    float32 tensor on the card, which the kernel reads at run time (a
+    captured graph takes a new value written into it). Returns (storage,
+    mask f32 (tiles_h, tiles_w), npix int32 (1,))."""
     H, W = g.in_h, g.in_w
     if x.device.type == "cpu" and storage.device.type == "cpu":
         return detect_full_plain(x, storage, tau, g)
@@ -71,14 +72,15 @@ def detect_full(x: torch.Tensor, storage: torch.Tensor, tau,
         raise ValueError(
             f"detect_full: unsupported operands x{tuple(x.shape)} {x.dtype} "
             f"storage{tuple(storage.shape)} {storage.dtype} for {g}")
+    tau = detect_ops.tau_on(tau, storage.device)
     mask = torch.zeros((g.tiles_h, g.tiles_w), dtype=torch.float32,
                        device=storage.device)
     npix = torch.zeros((1,), dtype=torch.int32, device=storage.device)
     sh, sw = g.stride
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     err = _fn()(x.data_ptr(), storage.data_ptr(), mask.data_ptr(),
-                npix.data_ptr(), float(tau), DTYPE_CODE[storage.dtype], H,
-                W, C, x.shape[1] * C, storage.shape[1] * C, g.store_lo_h,
+                npix.data_ptr(), tau.data_ptr(), DTYPE_CODE[storage.dtype],
+                H, W, C, x.shape[1] * C, storage.shape[1] * C, g.store_lo_h,
                 g.store_lo_w, g.tiles_h, g.tiles_w, g.th * sh, g.tw * sw,
                 g.pad_lo_h, g.pad_lo_w, g.win_h, g.win_w, stream)
     check(err, "detect_full")

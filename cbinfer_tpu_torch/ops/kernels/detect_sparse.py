@@ -57,8 +57,8 @@ def _fn():
     f = library("detect_sparse").cb_detect_sparse
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp, vp, vp, vp, vp, vp, i, i, ctypes.c_float, i, i, i,
-                      i, ll, ll, i, i, i, i, i, i, i, i, i, i, vp]
+        f.argtypes = [vp, vp, vp, vp, vp, vp, i, i, vp, i, i, i, i, ll, ll,
+                      i, i, i, i, i, i, i, i, i, i, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -71,8 +71,9 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
     cache; only logical coordinates are read). storage: this layer's
     padded input cache, UPDATED IN PLACE (the JAX package donates and
     aliases it). idx/count: compacted ids on the 8x8 hint grid of the
-    input, ``count`` a device int32 scalar. Returns (storage, mask f32
-    (tiles_h, tiles_w), npix int32 (1,)).
+    input, ``count`` a device int32 scalar. tau: a host number or a 0-d
+    float32 tensor on the card, read by the kernel at run time. Returns
+    (storage, mask f32 (tiles_h, tiles_w), npix int32 (1,)).
     """
     H, W = g.in_h, g.in_w
     if W % HINT or H < HINT:
@@ -99,6 +100,7 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
     for t in (x, storage, idx):
         if not t.is_contiguous():
             raise ValueError("detect_sparse: operands must be contiguous")
+    tau = detect_ops.tau_on(tau, storage.device)
     # mask and npix are two views of one buffer: one fill per call
     n_mask = g.tiles_h * g.tiles_w
     out = torch.zeros((n_mask + 1,), dtype=torch.int32, device=storage.device)
@@ -110,11 +112,11 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
                      BLOCKS_PER_SM)
     err = _fn()(x.data_ptr(), storage.data_ptr(), idx.data_ptr(),
                 count.data_ptr(), mask.data_ptr(), npix.data_ptr(),
-                idx.numel(), grid, float(tau), DTYPE_CODE[storage.dtype], H,
-                C, W // HINT, x.shape[1] * C, storage.shape[1] * C,
-                g.store_lo_h, g.store_lo_w, g.tiles_h, g.tiles_w,
-                g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w, g.win_h,
-                g.win_w, stream)
+                idx.numel(), grid, tau.data_ptr(),
+                DTYPE_CODE[storage.dtype], H, C, W // HINT, x.shape[1] * C,
+                storage.shape[1] * C, g.store_lo_h, g.store_lo_w, g.tiles_h,
+                g.tiles_w, g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w,
+                g.win_h, g.win_w, stream)
     check(err, "detect_sparse")
     KERNEL.launches += 1
     return storage, mask, npix

@@ -64,8 +64,7 @@ def _fn():
     f = library("stem_detect").cb_stem_detect
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 4 + [ctypes.c_float] + [i] * 4 + [ll] \
-            + [i] * 4 + [vp]
+        f.argtypes = [vp] * 5 + [i] * 4 + [ll] + [i] * 4 + [vp]
         f.restype = ctypes.c_int
     return f
 
@@ -77,9 +76,11 @@ def stem_detect(x: torch.Tensor, storage: torch.Tensor, tau,
     x: (H, W, cin <= 3) frame, compared as float32 WITHOUT rounding to the
     cache dtype first. storage: the stem's padded HWC input cache (geometry
     ``g``, the (8, 32)-tile stem geometry), UPDATED IN PLACE (the JAX
-    package donates and aliases its flat4 buffer). tau < 0 marks every
-    pixel. Returns (storage, cell mask f32 (H/8, W/8): the 8x8 cells whose
-    3x3 SAME window holds a changed pixel, npix int32 (1,))."""
+    package donates and aliases its flat4 buffer). tau: a host number or
+    a 0-d float32 tensor on the card, read by the kernel at run time;
+    tau < 0 marks every pixel. Returns (storage, cell mask f32 (H/8,
+    W/8): the 8x8 cells whose 3x3 SAME window holds a changed pixel, npix
+    int32 (1,))."""
     H, W, C = g.in_h, g.in_w, g.cin
     if H % flat4.CELL or W % flat4.CELL:
         raise ValueError(f"stem_detect needs an 8-aligned map, got {(H, W)}")
@@ -98,6 +99,7 @@ def stem_detect(x: torch.Tensor, storage: torch.Tensor, tau,
         raise ValueError(
             f"stem_detect: unsupported operands x{tuple(x.shape)} "
             f"storage{tuple(storage.shape)} {storage.dtype} for {g}")
+    tau = detect_ops.tau_on(tau, storage.device)
     # mask and npix are two views of one buffer: one fill per call
     ch, cw = H // flat4.CELL, W // flat4.CELL
     out = torch.zeros((ch * cw + 1,), dtype=torch.int32,
@@ -110,7 +112,7 @@ def stem_detect(x: torch.Tensor, storage: torch.Tensor, tau,
                 (g.store_lo_h * s_row + g.store_lo_w * C) * es)
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     err = _fn()(x.data_ptr(), storage.data_ptr(), mask.data_ptr(),
-                npix.data_ptr(), float(tau), DTYPE_CODE[storage.dtype], H,
+                npix.data_ptr(), tau.data_ptr(), DTYPE_CODE[storage.dtype], H,
                 W, C, s_row, g.store_lo_h, g.store_lo_w, int(vec),
                 block_plan(H, W)[0], stream)
     check(err, "stem_detect")

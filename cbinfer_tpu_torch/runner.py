@@ -356,6 +356,7 @@ class _Graphs:
         self._graphs: "collections.OrderedDict[Tuple, _Graph]" = \
             collections.OrderedDict()
         self._pool = None
+        self.captures = 0  # graphs captured so far, dropped ones included
 
     def run(self, key: Tuple, fn: Callable, frames: torch.Tensor, meta=None):
         if frames.device.type == "cpu":
@@ -397,6 +398,7 @@ class _Graphs:
             torch.cuda.set_sync_debug_mode(mode)
         launched = {k: v - before[k] for k, v in launches().items()
                     if v != before[k]}
+        self.captures += 1
         return _Graph(graph, static, out, launched, meta)
 
     def info(self) -> List[Dict[str, Any]]:
@@ -408,6 +410,21 @@ class _Graphs:
                  "replays": g.replays} for g in self._graphs.values()]
 
 
+def write_taus(static: torch.Tensor, thresholds) -> torch.Tensor:
+    """Write a thresholds vector into ``static`` (a float32 vector on the
+    card or the CPU) in place, without a host sync: a tensor by a device
+    copy, host numbers rounded to float32 and copied from pinned memory
+    asynchronously (a copy from pageable memory waits for the card; the
+    pinned block is not reused before the copy has run). A captured graph
+    that reads ``static`` then takes the new values at its next replay."""
+    if isinstance(thresholds, torch.Tensor):
+        return static.copy_(thresholds)
+    host = torch.from_numpy(np.asarray(thresholds, dtype=np.float32))
+    if static.is_cuda:
+        return static.copy_(host.pin_memory(), non_blocking=True)
+    return static.copy_(host)
+
+
 def scan_video_jit(net):
     """``scan_video`` in one dispatch per call: returns
     ``fn(params, frames, state, *, thresholds=None, refresh_start=False,
@@ -416,21 +433,32 @@ def scan_video_jit(net):
 
     On the card each call replays a CUDA graph of the frame loop, captured
     per (frames' shape and dtype, ``refresh_start``, ``collect_stats``,
-    ``out_map``, thresholds, the state's and params' addresses) after the
-    key's first, eager call. Thresholds are part of the key because the
-    kernels take tau by value: a graph bakes them in. A new state object
-    (other addresses) captures anew; at most 4 graphs stay live (a refresh
-    and a steady graph for two keys). On CPU tensors it is the eager
-    ``scan_video``. ``fn.graphs`` holds the runner (``fn.graphs.info()``)."""
+    ``out_map``, whether thresholds are given, the state's and params'
+    addresses) after the key's first, eager call. Thresholds are runtime
+    values, as in the JAX package's jitted scan: the kernels read tau from
+    device memory, so each call writes its thresholds (host numbers or a
+    tensor) into one static float32 vector per device (``write_taus``)
+    before the replay, and one graph serves every threshold vector. A new
+    state object (other addresses) captures anew; at most 4 graphs stay
+    live (a refresh and a steady graph for two keys). On CPU tensors it is
+    the eager ``scan_video``. ``fn.graphs`` holds the runner
+    (``fn.graphs.info()``)."""
     graphs = _Graphs(4)
+    statics: Dict[torch.device, torch.Tensor] = {}
 
     def run(params, frames, state, *, thresholds=None, refresh_start=False,
             collect_stats=True, out_map=None):
-        taus = None if thresholds is None else \
-            tuple(float(t) for t in thresholds)
+        taus = None
+        if thresholds is not None:
+            taus = statics.get(frames.device)
+            if taus is None:
+                taus = statics[frames.device] = torch.empty(
+                    len(thresholds), dtype=torch.float32,
+                    device=frames.device)
+            write_taus(taus, thresholds)
         key = (tuple(frames.shape), frames.dtype, frames.device,
-               bool(refresh_start), collect_stats, out_map, taus,
-               _addresses(params, state))
+               bool(refresh_start), collect_stats, out_map,
+               thresholds is not None, _addresses(params, state))
 
         def fn(fs):
             ys, _, stats = scan_video(net, params, fs, state,
@@ -496,7 +524,9 @@ def _as_frames(x, device) -> torch.Tensor:
 
 class FrameStepper:
     """Streaming interface for frames that arrive one at a time (camera,
-    socket), the live twin of ``scan_video``: runtime ``thresholds``, the
+    socket), the live twin of ``scan_video``: ``thresholds`` fixed at
+    construction (a float32 vector on the state's device, which the
+    kernels read at run time), the
     periodic dense refresh that bounds cache drift on unbounded streams
     (``refresh_every``), and ``out_map`` for the deployment output form.
     Frame 0 always refreshes: it is the dense cold start that fills the
@@ -532,8 +562,11 @@ class FrameStepper:
         self._state = net.init_state()
         tensors = _tensors(self._state)
         self._device = tensors[0].device if tensors else torch.device("cpu")
-        self._taus = (None if thresholds is None
-                      else tuple(float(t) for t in thresholds))
+        # fixed for the stepper's life, as the JAX package's; on the
+        # stepper's device once, so no frame copies them from the host
+        self._taus = None if thresholds is None else write_taus(
+            torch.empty(len(thresholds), dtype=torch.float32,
+                        device=self._device), thresholds)
         self._refresh_every = refresh_every
         self._t = 0
         self._since_refresh = 0

@@ -6,12 +6,13 @@ ratio-greedy selection of one tau per layer under an accuracy budget, and
 the accuracy/compute Pareto curve as the budget varies; ``stress_validate``
 then checks candidate vectors on fresh clips at the deployment point.
 
-Every evaluation runs the eager ``runner.scan_video`` with the taus as
-Python floats, which the kernels take by value: nothing is recompiled or
-captured per candidate (a CUDA graph bakes its taus in, so the graphed
-forms would capture a graph per candidate). On the card each scan runs
-under ``torch.cuda.set_sync_debug_mode("error")`` after one two-frame
-warm-up per runner, the metric is computed on the device when a
+The taus are runtime values, as in the JAX package's jitted scan: the
+kernels read them from a float32 device vector, so one captured CUDA
+graph per clip shape serves the whole sweep (``_make_runner``): the
+first scan of a shape runs eagerly and captures, every later one resets
+the clip's state in place, writes the candidate's taus and replays, under
+``torch.cuda.set_sync_debug_mode("error")``. On the CPU every scan is the
+eager ``runner.scan_video``. The metric is computed on the device when a
 ``device_metric_fn`` is given, and an evaluation fetches the metrics and
 the packed stats of its clips once each.
 """
@@ -31,7 +32,8 @@ from .config import ConvSpec, PoolSpec
 from .metrics import _np, effective_cost_view, effective_flops_view
 from .netview import NetView, hint_reaches
 from .network import resolve_device
-from .runner import pack_stats, scan_video, unpack_stats
+from .runner import (_addresses, _Graphs, _tensors, pack_stats, scan_video,
+                     unpack_stats, write_taus)
 
 
 @dataclasses.dataclass
@@ -78,23 +80,44 @@ def _no_host_sync(device: torch.device):
 
 
 def _make_runner(net, params, refresh_every=None):
-    """(frames, taus) -> (outputs, stacked stats) through the eager
-    ``scan_video``. Its first call warms both frame kinds on two frames
-    (kernel builds, weight packing, the device constants of host-known
-    counters) outside the sync check; every scan after runs inside it."""
-    warm = []
+    """(frames, taus) -> (outputs, stacked stats), ``scan_video`` from a
+    fresh state with ``refresh_every``. Each clip shape keeps one state, a
+    pristine copy of it and a float32 tau vector; every scan first writes
+    the copy into the state (new state tensors would be other addresses,
+    and a graph bound to them) and its taus into the vector
+    (``write_taus``), which the kernels read at run time. On the card the
+    first scan of a shape runs eagerly, outside the sync check (kernel
+    builds, weight packing, device constants), and captures a CUDA graph
+    of the loop; every later scan of that shape, whatever its taus,
+    replays that graph under the sync check. On the CPU every scan is the
+    eager loop."""
+    graphs = _Graphs(4)
+    states: Dict[tuple, tuple] = {}
 
     def run(frames, taus):
-        taus = [float(t) for t in taus]
-        if not warm:
-            scan_video(net, params, frames[:2], thresholds=taus,
-                       refresh_start=True)
-            warm.append(True)
-        with _no_host_sync(frames.device):
-            ys, _, stats = scan_video(net, params, frames, thresholds=taus,
-                                      refresh_every=refresh_every)
-        return ys, stats
+        key = (tuple(frames.shape), frames.dtype, frames.device)
+        first = key not in states
+        if first:
+            state = net.init_state()
+            states[key] = (state, [t.clone() for t in _tensors(state)],
+                           torch.empty(len(taus), dtype=torch.float32,
+                                       device=frames.device))
+        state, pristine, tv = states[key]
+        with (contextlib.nullcontext() if first
+              else _no_host_sync(frames.device)):
+            for t, t0 in zip(_tensors(state), pristine):
+                t.copy_(t0)
+            write_taus(tv, taus)
 
+            def fn(fs):
+                ys, _, stats = scan_video(net, params, fs, state,
+                                          thresholds=tv,
+                                          refresh_every=refresh_every)
+                return ys, stats
+            return graphs.run(key + (_addresses(params, state),), fn,
+                              frames)
+
+    run.graphs, run.states = graphs, states
     return run
 
 

@@ -51,6 +51,13 @@ torch_eval_headline.py) in this process.
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
   build       nvcc builds the kernels from cbinfer_tpu_torch/csrc/ (sm_90a)
+  probe_dma   scripts/torch_probe_dma_constraints.py's eleven window cases
+              (the path of P1 and P2, the DMA-window probes, on TMA): the
+              card's verdict per case beside the encoder rules', every
+              accepted window bit-identical to the plain version (each
+              kernel needs one), a refused one raising with the buffer
+              untouched; ms per launch (L2 flushed), plain ms, one
+              PyTorch copy_'s ms, and the bound (the window's bytes)
   balance     the achieved bf16 GEMM rate (torch.matmul, 8192^3) and device
               copy rate (1 GiB), their ratio beside the data sheet's and
               metrics.MACHINE_BALANCE, the cost model's constant
@@ -104,7 +111,10 @@ Phases, each printing one JSON line:
               pairs (graph_fps, graph_ms_per_frame, graph_vs_baseline with
               its spread, host CPU, the graphs' peak memory); on flagship
               and pose, FrameStepper at K = 1 from a cold start, equal to
-              the eager loop, per-frame median and p90 wall ms
+              the eager loop, per-frame median and p90 wall ms; on
+              flagship, hintless, pose and pose_graph, runtime_taus: one
+              graph replayed at three tau vectors, changed before every
+              replay, equal to the eager loop bit for bit
   import      scene w128 written as an nn.Sequential (conv + BatchNorm with
               random running stats + ReLU, pools, a 1x1 head) through
               convert.specs_from_torch and convert_flagship: its bf16
@@ -121,7 +131,10 @@ Phases, each printing one JSON line:
               budget, a Pareto flop_reduction that does not fall as the
               budget rises, the device metric equal to the host one, the
               dense reference (CB at tau = -1) equal to apply_dense, every
-              flagship kernel launched; each scan runs under the sync check
+              flagship kernel launched, the selected taus 0.15 x 6, and
+              one graph captured for the sweep (and one for the stress
+              check) replayed for every other scan; each replay runs
+              under the sync check
   cli         cli.main in this process: synthetic 720p w128 bf16 with
               --tune and --live 1, then a .y4m that fileio.write_y4m wrote;
               the JSON keys, flop_reduction > 1, live ms/frame
@@ -189,8 +202,8 @@ Phases, each printing one JSON line:
   refresh     scripts/torch_validate_refresh.py on scene and pose, 4
               chunks, cadences 2 and 0, seed 0: the rows
   headline    one scripts/torch_eval_headline.py row for scene
-  check       each of the nine kernels against its plain version on the
-              inputs its path gave it on one steady-state frame, plus
+  check       each of the nine path kernels against its plain version on
+              the inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
               pools and the tile copy: lists longer than the grid, so
               blocks walk several entries), tau = -1 for the full-map
@@ -203,7 +216,8 @@ Phases, each printing one JSON line:
               synthetic tile-conv cases (TILE_CONV_CASES: clusters of 1-8
               blocks, cin/cout off the 16-channel grid, dilation, stride,
               small tiles, ragged maps, counts 0, 1 and capacity)
-  kernels     every kernel: launches, ms per launch, plain ms, bound ms;
+  kernels     every kernel: launches, ms per launch, plain ms, bound ms
+              (P1 and P2: their first accepted case's, with library_ms);
               B1, B3 and B4 carry the launch floor (one fill of their
               buffer and an empty one-block kernel, timed as they are) in
               their context, B5, B8 and B9, which make no fill, the empty
@@ -234,6 +248,11 @@ GRAPH_PAIRS = 4       # timed (CUDA-graph chunk, dense chunk) pairs per path
 # steady graph are each captured after an eager first call, then replayed
 GRAPH_PATTERN = (True, False, False, True, False)
 LATENCY_FRAMES = 64   # timed FrameStepper K=1 frames (flagship, pose)
+# the paths whose graph phase replays one graph at three tau vectors (B1,
+# B4, B6 and B7 read tau at run time), and the vectors' order: a change
+# between every two replays
+RUNTIME_TAU_PATHS = ("flagship", "hintless", "pose", "pose_graph")
+RUNTIME_TAU_ORDER = (0, 1, 2, 0)
 RESULTS = {}
 # kernels launched per steady (non-refresh) frame of each path; the pose
 # paths' numbers are derived from their converted specs (per_frame_launches),
@@ -315,6 +334,7 @@ def main():
          ptxas={k: [ln.strip() for ln in v.splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in info["ptxas"].items()})
+    phase("probe_dma", probe_dma_phase, torch, np)
 
     phase("balance", balance_phase, torch)
     phase("small", small_parity, torch, np)
@@ -880,6 +900,8 @@ def graph_path(torch, path, net, params, taus, state, chunks, out_map,
         raise AssertionError(f"{path}: {replays} replays: {info}")
     _graph_launches(path, info, [(T, True), (T, False)])
     del eager, graphed, s_eager
+    runtime = (runtime_taus(torch, path, net, params, taus, state, chunks)
+               if path in RUNTIME_TAU_PATHS else None)
 
     # timed: replayed steady chunks (no stats, the deployment out_map)
     # against the dense path, in turns
@@ -915,6 +937,8 @@ def graph_path(torch, path, net, params, taus, state, chunks, out_map,
                                         - held) / 2**30,
                reserved_gib=torch.cuda.memory_reserved() / 2**30,
                smi=nvidia_smi("name,power.limit"))
+    if runtime is not None:
+        out["runtime_taus"] = runtime
     del run, s_graph
     if latency:
         frames = torch.cat([chunks[0][:8]] + list(chunks[1:]))[
@@ -944,6 +968,40 @@ def graph_path(torch, path, net, params, taus, state, chunks, out_map,
         del stepper
     emit(f"graph_{path}", **out)
     torch.cuda.empty_cache()
+
+
+def runtime_taus(torch, path, net, params, taus, state, chunks):
+    """Thresholds at run time inside one graph: steady chunks from two
+    clones of ``state`` through scan_video_jit and the eager scan_video,
+    at three tau vectors in the order RUNTIME_TAU_ORDER (the first call
+    eager and captured, then a replay after each change of the vector):
+    outputs, stats, packed stats and final caches bit for bit, and one
+    graph captured for all of them."""
+    from cbinfer_tpu_torch.runner import (pack_stats, scan_video,
+                                          scan_video_jit)
+    vectors = [list(taus), [0.5 * t for t in taus],
+               [t * (2.0 if i % 2 else 0.25) for i, t in enumerate(taus)]]
+    run = scan_video_jit(net)
+    s_eager, s_graph = _clone_state(state), _clone_state(state)
+    for i, v in enumerate(RUNTIME_TAU_ORDER):
+        ch = chunks[i % len(chunks)]
+        eager = scan_video(net, params, ch, s_eager, collect_stats=True,
+                           thresholds=vectors[v])
+        graphed = no_sync(torch, lambda: run(
+            params, ch, s_graph, thresholds=vectors[v], collect_stats=True))
+        what = f"{path}: runtime taus, chunk {i} (vector {v})"
+        _same_run(torch, eager, graphed, what)
+        if not torch.equal(pack_stats(eager[2]), pack_stats(graphed[2])):
+            raise AssertionError(f"{what}: packed stats differ")
+    info = run.graphs.info()
+    if (run.graphs.captures != 1 or len(info) != 1
+            or info[0]["replays"] != len(RUNTIME_TAU_ORDER) - 1):
+        raise AssertionError(f"{path}: runtime taus took "
+                             f"{run.graphs.captures} captures: {info}")
+    del run, s_eager, s_graph
+    return dict(vectors=vectors, order=list(RUNTIME_TAU_ORDER),
+                identical_to_eager=True, captures=1,
+                replays=len(RUNTIME_TAU_ORDER) - 1)
 
 
 # ------------------------------ the pose paths -------------------------------
@@ -2134,7 +2192,8 @@ def check_kernels(torch, np, calls):
                      all_tiles_tau_minus_one_npix=npix_all,
                      map=[g.out_h, g.out_w], ragged=g.out_h % 8 != 0,
                      cin=g.cin, cout=cout, kernel_hw=list(g.kernel),
-                     consumer_kernel_hw=list(g2.kernel), tau2=tau2,
+                     consumer_kernel_hw=list(g2.kernel),
+                     tau2=float(tau2),
                      count=c, npix=int(pk)))
             out_k, out_p = out0.clone(), out0.clone()
             nc_k, nc_p = nc0.clone(), nc0.clone()
@@ -2507,27 +2566,57 @@ def tune_phase(torch, np):
     del run, clip0, lab0, ref_cb, ref_dense, ys
     torch.cuda.synchronize()
 
-    reset_launches()
-    t0 = time.perf_counter()
-    res = tuner.tune(net, params, calib, gt_metric,
-                     device_metric_fn=gt_metric_device, labels=labels,
-                     tau_grid=TUNE_GRID, budgets=TUNE_BUDGETS,
-                     budget=TUNE_BUDGET, skip_frames=TUNE_SKIP,
-                     refresh_every=TUNE_REFRESH)
-    seconds = time.perf_counter() - t0
-    counts = launches()
-    frames_evaluated = res.evaluations * len(TUNE_SEEDS) * TUNE_T
-    del calib, labels
+    # the runners tune and stress_validate make, to count their graphs,
+    # each scan between two events: the scans' own card time
+    runners, make_runner, spans = [], tuner._make_runner, []
 
-    sf, slab = video(STRESS_SEED).clip_with_labels(TUNE_T)
-    t1 = time.perf_counter()
-    stress = tuner.stress_validate(
-        net, params, {"card_tuned": res.thresholds, "shipped": wl.taus,
-                      "flat_0.04": [0.04] * n},
-        [sf], gt_metric, labels=[slab[:, ::stride, ::stride]],
-        budget=TUNE_BUDGET, skip_frames=TUNE_SKIP,
-        refresh_every=TUNE_REFRESH, device_metric_fn=gt_metric_device)
-    stress_seconds = time.perf_counter() - t1
+    def recording_runner(*a, **kw):
+        run = make_runner(*a, **kw)
+        runners.append(run)
+
+        def timed_run(frames, taus):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = run(frames, taus)
+            e1.record()
+            spans.append((e0, e1, int(frames.shape[0])))
+            return out
+        return timed_run
+    tuner._make_runner = recording_runner
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = tuner.tune(net, params, calib, gt_metric,
+                         device_metric_fn=gt_metric_device, labels=labels,
+                         tau_grid=TUNE_GRID, budgets=TUNE_BUDGETS,
+                         budget=TUNE_BUDGET, skip_frames=TUNE_SKIP,
+                         refresh_every=TUNE_REFRESH)
+        seconds = time.perf_counter() - t0
+        counts = launches()
+        tune_graphs = [dict(captures=r.graphs.captures,
+                            graphs=r.graphs.info()) for r in runners]
+        runners.clear()
+        torch.cuda.synchronize()
+        # the replays only: the first scan of the runner ran eagerly and
+        # captured the graph
+        replay_ms = sum(e0.elapsed_time(e1) for e0, e1, _ in spans[1:])
+        replay_frames = sum(f for _, _, f in spans[1:])
+        frames_evaluated = res.evaluations * len(TUNE_SEEDS) * TUNE_T
+        del calib, labels
+
+        sf, slab = video(STRESS_SEED).clip_with_labels(TUNE_T)
+        t1 = time.perf_counter()
+        stress = tuner.stress_validate(
+            net, params, {"card_tuned": res.thresholds, "shipped": wl.taus,
+                          "flat_0.04": [0.04] * n},
+            [sf], gt_metric, labels=[slab[:, ::stride, ::stride]],
+            budget=TUNE_BUDGET, skip_frames=TUNE_SKIP,
+            refresh_every=TUNE_REFRESH, device_metric_fn=gt_metric_device)
+        stress_seconds = time.perf_counter() - t1
+        stress_graphs = [dict(captures=r.graphs.captures,
+                              graphs=r.graphs.info()) for r in runners]
+    finally:
+        tuner._make_runner = make_runner
     view = NetView.of(net)
     dead = [tuner._tau_is_dead(view, r)
             for r, row in enumerate(view.rows) if row.is_cb]
@@ -2544,7 +2633,24 @@ def tune_phase(torch, np):
          stress_seconds=stress_seconds, launches=counts,
          tau_minus_one_vs_dense_rel_err=m1_rel,
          tau_minus_one_vs_dense_argmax=m1_agree,
-         device_metric=dev, host_metric=host)
+         device_metric=dev, host_metric=host, tune_graphs=tune_graphs,
+         stress_graphs=stress_graphs,
+         replay_ms_per_frame=replay_ms / replay_frames,
+         smi=nvidia_smi("name,power.limit"))
+    # one graph per (clip shape, refresh cadence) serves the whole sweep:
+    # the calibration clips share one shape, and so does the stress clip
+    for what, runs, want_replays in (
+            ("tune", tune_graphs,
+             (res.evaluations + 1) * len(TUNE_SEEDS) - 1),
+            ("stress", stress_graphs, len(stress.rows))):
+        if (len(runs) != 1 or runs[0]["captures"] != 1
+                or [g["replays"] for g in runs[0]["graphs"]]
+                != [want_replays]):
+            raise AssertionError(f"{what}: graphs {runs}, not one graph "
+                                 f"replayed {want_replays} times")
+    if [np.float32(t) for t in res.thresholds] != [np.float32(0.15)] * n:
+        raise AssertionError(f"tune selected {res.thresholds}, not 0.15 "
+                             f"x {n}")
     if not (m1_rel <= TAU_MINUS_ONE_REL and m1_agree >= TAU_MINUS_ONE_AGREE):
         raise AssertionError(f"tau = -1 against apply_dense: rel err "
                              f"{m1_rel}, argmax {m1_agree}")
@@ -3465,10 +3571,117 @@ def headline_phase(torch):
         raise AssertionError(f"headline: {row}")
 
 
+def probe_dma_phase(torch, np):
+    """scripts/torch_probe_dma_constraints.py's eleven cases on the card,
+    the path of P1 and P2: each case's verdict (the card's encoder) beside
+    the encoder rules' prediction, its launches; then, per case, the
+    kernel against its plain version on the same inputs (an accepted case
+    bit for bit; a refused one raises and leaves the buffer untouched),
+    ms per launch with L2 flushed, the plain version's and one PyTorch
+    copy's, and the bound: the window's bytes moved once at PEAK_BYTES."""
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.ops.kernels import tma_window as K
+    mod = _load_script("torch_probe_dma_constraints")
+    reset_launches()
+    records = mod.run_cases("cuda", log=lambda m: print(m, flush=True))
+    counts = {k: v for k, v in launches().items() if k in (
+        K.KERNEL_WRITE.name, K.KERNEL_READ.name)}
+    cases = [(n, (mod.R, mod.G, mod.L), w, True)
+             for n, w in mod.WRITE_CASES] \
+        + [(n, sh, w, False) for n, sh, w in mod.READ_CASES]
+    rows, out = {}, []
+    for rec, (name, shape, window, write) in zip(records, cases):
+        _, box = K.window_bounds(shape, window)
+        nbytes = int(np.prod(box)) * 2 * (1 if write else 2)
+        one = dict(case=name, kernel=rec["kernel"], verdict=rec["verdict"],
+                   cu_result=rec["cu_result"], rules=rec["rules"],
+                   rules_agree=(rec["verdict"] == "refused")
+                   == bool(rec["rules"]), window=rec["window"],
+                   bytes=nbytes)
+        zero = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+        src = None if write else mod.read_source(shape).cuda()
+        if rec["verdict"] == "refused":
+            # reported, never copied another way
+            buf = zero.clone()
+            try:
+                if write:
+                    K.window_write(buf, window)
+                else:
+                    K.window_read(src, window)
+            except K.WindowRefused:
+                one["raises"] = True
+            else:
+                raise AssertionError(f"probe_dma {name}: refused by the "
+                                     "card once, then copied")
+            one["untouched"] = bool(torch.equal(buf, zero))
+            if not one["untouched"]:
+                raise AssertionError(f"probe_dma {name}: a refused window "
+                                     "changed the buffer")
+            out.append(one)
+            continue
+        if write:
+            k_out = K.window_write(zero.clone(), window)
+            p_out = K.window_write_plain(zero.clone(), window)
+            buf_k, buf_p, buf_l = zero.clone(), zero.clone(), zero.clone()
+            tile = K.ramp(box, "cuda").contiguous()
+            view = buf_l[window]
+            ms = _time_launches(torch, lambda: K.window_write(buf_k, window),
+                                buf_k.zero_, 20)
+            pms = _time_launches(
+                torch, lambda: K.window_write_plain(buf_p, window),
+                buf_p.zero_, 20)
+            lms = _time_launches(torch, lambda: view.copy_(tile),
+                                 buf_l.zero_, 20)
+        else:
+            k_out = K.window_read(src, window)
+            p_out = K.window_read_plain(src, window)
+            dense = torch.empty(box, dtype=torch.bfloat16, device="cuda")
+            ms = _time_launches(torch, lambda: K.window_read(src, window),
+                                lambda: None, 20)
+            pms = _time_launches(
+                torch, lambda: K.window_read_plain(src, window),
+                lambda: None, 20)
+            lms = _time_launches(torch, lambda: dense.copy_(src[window]),
+                                 lambda: None, 20)
+        exact = bool(torch.equal(k_out, p_out))
+        err = float((k_out.float() - p_out.float()).abs().max())
+        bound, by = _bound_ms(0.0, nbytes)
+        one.update(values_ok=rec["values_ok"], exact=exact,
+                   max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                   bound_ms=bound, bound_by=by)
+        out.append(one)
+        if not (exact and rec["values_ok"]):
+            raise AssertionError(f"probe_dma {name}: kernel and plain "
+                                 f"version differ: {one}")
+        rows.setdefault(rec["kernel"], one)
+    emit("probe_dma", cases=out, launches=counts,
+         smi=nvidia_smi("name,power.limit"))
+    for k in (K.KERNEL_WRITE, K.KERNEL_READ):
+        accepted = sum(1 for c in out
+                       if c["kernel"] == k.name and c["verdict"] == "accepted")
+        if not accepted or counts[k.name] != accepted:
+            raise AssertionError(f"probe_dma: {k.name} accepted {accepted} "
+                                 f"cases, launched {counts[k.name]}")
+    # each row's numbers: its first accepted case's
+    RESULTS["_probe_rows"] = probe_rows = {}
+    for k in (K.KERNEL_WRITE, K.KERNEL_READ):
+        r = rows[k.name]
+        probe_rows[k.name] = {
+            "name": k.name, "route": k.route, "source": k.source,
+            "replaces": k.replaces, "launches": counts[k.name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "case": r["case"],
+            "paths": {"probe_dma": {"launches": counts[k.name]}},
+            "cases": [c for c in out if c["kernel"] == k.name]}
+
+
 def emit_kernels():
     from cbinfer_tpu_torch.ops.kernels import KERNELS
     per = RESULTS.pop("_per_kernel")
     context = RESULTS.pop("_context")
+    probe_rows = RESULTS.pop("_probe_rows")
     launches = {"flagship": RESULTS["main"]["launches"],
                 "dense_stem": RESULTS["main_dense_stem"]["launches"],
                 "hintless": RESULTS["hintless"]["launches"],
@@ -3492,6 +3705,10 @@ def emit_kernels():
                 "headline": RESULTS["headline"]["launches"]}
     rows = []
     for k in KERNELS:
+        if k.name in probe_rows:
+            # P1 and P2: their own path is the probe script's cases
+            rows.append(probe_rows[k.name])
+            continue
         paths = {}
         for path in launches:
             p = per.get((path, k.name))
@@ -3520,7 +3737,8 @@ def emit_kernels():
             # no single PyTorch call computes these sparse, in-place
             # functions (a dense conv or pool recomputes the whole map,
             # the tile copy is an index_select and an index_copy_ over
-            # indices the count has to be read for: see "context")
+            # indices the count has to be read for: see "context"); the
+            # window copies of P1 and P2 have one (their rows above)
             "library_ms": None,
             "calls_per_frame": main["calls_per_frame"], "paths": paths,
             "context": context.get(k.name),

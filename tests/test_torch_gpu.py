@@ -996,8 +996,9 @@ def test_graph_stepper_reset_equals_fresh_stepper(cuda):
 
 
 def test_graph_thresholds_select_another_graph(cuda):
-    """The kernels take tau by value, so a graph bakes its thresholds in:
-    other thresholds capture another graph, equal to the eager loop."""
+    """The kernels read tau from device memory, so other thresholds do not
+    select another graph: one graph serves both vectors, each replay equal
+    to the eager loop at its own thresholds."""
     from cbinfer_tpu_torch.runner import scan_video, scan_video_jit
     net, params, taus, clip, state = _graph_net(cuda, "scene")
     run = scan_video_jit(net)
@@ -1008,7 +1009,113 @@ def test_graph_thresholds_select_another_graph(cuda):
         graphed = run(params, ch, s_g, thresholds=t)
         chip_smoke._same_run(torch, eager, graphed, f"chunk {i}")
     info = run.graphs.info()
-    assert len(info) == 2 and sorted(g["replays"] for g in info) == [1, 2]
+    assert len(info) == 1 and info[0]["replays"] == len(_chunks(clip)) - 1
+    assert run.graphs.captures == 1
+
+
+@pytest.mark.parametrize("kind,path", [("scene", None),
+                                       ("scene", "hintless"),
+                                       ("pose", None), ("pose_graph", None)])
+def test_graph_replay_after_tau_change_equals_eager(cuda, kind, path):
+    """One graph, three tau vectors (host floats and a device tensor), a
+    change before every replay: outputs, stats and caches equal the eager
+    loop's at the same taus (the paths of B4, B1, B7 and B6)."""
+    from cbinfer_tpu_torch.runner import scan_video, scan_video_jit
+    net, params, taus, clip, state = _graph_net(cuda, kind, path)
+    out = chip_smoke.runtime_taus(torch, kind, net, params, taus, state,
+                                  _chunks(clip))
+    assert out["captures"] == 1
+    run = scan_video_jit(net)
+    s_e = chip_smoke._clone_state(state)
+    s_g = chip_smoke._clone_state(state)
+    for i, ch in enumerate(_chunks(clip)):
+        v = torch.tensor([t * (1 + i) for t in taus], device=cuda)
+        eager = scan_video(net, params, ch, s_e, thresholds=v.tolist())
+        graphed = run(params, ch, s_g, thresholds=v)
+        chip_smoke._same_run(torch, eager, graphed, f"chunk {i}")
+    assert run.graphs.captures == 1
+
+
+def test_detect_kernels_take_device_taus_on_card(cuda):
+    """B1 and B7 with tau as a 0-d view of a device vector equal them
+    with the host float, on the card and against the plain versions."""
+    rng = np.random.default_rng(4)
+    H, W, C = 24, 32, 16
+    g = conv_tile_geometry((H, W, C), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
+    from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
+    prev = torch.from_numpy(rng.standard_normal((H, W, C)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    x = prev + (torch.rand(H, W, 1, device=cuda) * 0.4).to(torch.bfloat16)
+    st = torch.zeros(g.store_shape, dtype=torch.bfloat16, device=cuda)
+    st[g.store_lo_h:g.store_lo_h + H, g.store_lo_w:g.store_lo_w + W] = prev
+    idx, count = _ids(np.ones((3, 4), bool), cuda)
+    vec = torch.tensor([0.05, 0.2, -1.0], device=cuda)
+    for i, tau in enumerate((0.05, 0.2, -1.0)):
+        a = KD.detect_sparse(x, st.clone(), vec[i], idx, count, g)
+        b = KD.detect_sparse(x, st.clone(), tau, idx, count, g)
+        c = KD.detect_sparse_plain(x, st.clone(), tau, idx, count, g)
+        assert all(torch.equal(p, q) and torch.equal(p, r)
+                   for p, q, r in zip(a, b, c))
+        a = KDF.detect_full(x, st.clone(), vec[i], g)
+        b = KDF.detect_full_plain(x, st.clone(), tau, g)
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+    with pytest.raises(ValueError):  # tau on another device
+        KDF.detect_full(x, st.clone(), torch.tensor(0.1), g)
+
+
+def test_tuner_sweep_replays_one_graph_on_card(cuda):
+    """The tuner's runner: one graph for every tau vector of a clip shape,
+    each replay equal to a fresh eager scan at its taus, under the sync
+    check."""
+    from cbinfer_tpu_torch import tuner
+    from cbinfer_tpu_torch.runner import scan_video
+    net, params, taus, clip, _ = _graph_net(cuda, "pose")
+    run = tuner._make_runner(net, params, 4)
+    frames = clip[:12]
+    for k in (1.0, 0.5, 2.0, 1.0):
+        v = np.asarray([t * k for t in taus], np.float32)
+        ys, stats = run(frames, v)
+        want = scan_video(net, params, frames, net.init_state(),
+                          thresholds=v.tolist(), refresh_every=4)
+        assert torch.equal(ys, want[0])
+        for x, y in zip(stats, want[2]):
+            assert all(torch.equal(torch.as_tensor(x[key]),
+                                   torch.as_tensor(y[key])) for key in x)
+    assert run.graphs.captures == 1
+    assert [g["replays"] for g in run.graphs.info()] == [3]
+
+
+@pytest.mark.parametrize("i", range(11))
+def test_tma_window_cases_on_card(cuda, i):
+    """Each probe case on the card: the card's verdict is the encoder
+    rules' prediction; an accepted window equals the plain version bit for
+    bit, a refused one raises and leaves the buffer untouched."""
+    from cbinfer_tpu_torch.ops.kernels import tma_window as K
+    mod = chip_smoke._load_script("torch_probe_dma_constraints")
+    cases = [(n, (mod.R, mod.G, mod.L), w, True) for n, w in mod.WRITE_CASES] \
+        + [(n, sh, w, False) for n, sh, w in mod.READ_CASES]
+    name, shape, window, write = cases[i]
+    rules = K.encode_refusal(shape, window)
+    zero = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    src = mod.read_source(shape).to(cuda)
+    if rules:
+        buf = zero.clone()
+        with pytest.raises(K.WindowRefused) as e:
+            if write:
+                K.window_write(buf, window)
+            else:
+                K.window_read(src, window)
+        assert e.value.rules == rules and e.value.cu_result != 0
+        assert torch.equal(buf, zero)
+        return
+    if write:
+        got = K.window_write(zero.clone(), window)
+        want = K.window_write_plain(zero.clone(), window)
+    else:
+        got = K.window_read(src, window)
+        want = K.window_read_plain(src, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_graph_capture_with_host_sync_raises(cuda):
