@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -81,6 +81,28 @@ def measure_sync_overhead(reps: int = 5, device="cuda") -> float:
         _ = float(a.sum() * 0 + 1.0)
         samples.append(time.perf_counter() - t0)
     return float(np.median(samples))
+
+
+def device_ms(fn: Callable[[], Any], device) -> float:
+    """Milliseconds of ``fn()`` at the device's pace: CUDA events around it
+    on the card, with any host sync inside raising (``fn`` must only
+    enqueue: replays of captured graphs); the host clock around it on the
+    CPU, where nothing runs asynchronously."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    e0.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
 
 
 def time_chunked(run_chunk: Callable, chunks: Sequence,

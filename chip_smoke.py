@@ -46,7 +46,11 @@ at 720p, and the benchmark module (benchmark.bench_network). Then the
 other layer backends (band_cached, dense_cached_flat and the
 capacity-bounded "torch") on the scene net, and the calibration scripts'
 twins (scripts/torch_optimize_policy.py, torch_validate_refresh.py,
-torch_eval_headline.py) in this process.
+torch_eval_headline.py) in this process. Then the measurement and
+accuracy scripts' twins, each at a reduced depth (see their phases):
+latency per workload, a long stream, the DAG's headline row, the time
+per layer prefix, a .y4m file through the flagship, the pose and DAG
+accuracy sweeps and the seg repro.
 
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
@@ -155,14 +159,17 @@ Phases, each printing one JSON line:
               runner.step for 64 frames: frames/s, the share of next()
               calls that found the queue empty, the generator's ms/frame
               (recorded, not gated)
-  changerate  scripts/bench_changerate.py's seven points (sprites1 ...
-              sprites24, pan_slow, pan_fast; frames made in threads before
-              each point is timed), 4 chunks of 32: chunk 2's replay equal
-              to the eager loop bit for bit, graphed CB against graphed
-              dense in pairs on chunks 1-3; per point the stem's changed
-              share, overflow rate, both fps, their ratio, agreement mIoU
-              with dense (gated at 0.995) and the stem's computed tiles;
-              the break-even changed share, interpolated as the script does
+  changerate  scripts/torch_bench_changerate.py's sweep: the seven points
+              of scripts/bench_changerate.py (sprites1 ... sprites24,
+              pan_slow, pan_fast; frames made in threads before each point
+              is timed), 4 chunks of 32 from a clock seed: chunk 2's replay
+              equal to the eager loop bit for bit, graphed CB against
+              graphed dense in pairs on chunks 1-3; per point the stem's
+              changed share, overflow rate, both fps, their ratio, the
+              agreement mIoU and pixel agreement with dense (recorded),
+              GT-mIoU of CB and dense, gated: dense - CB <= 0.005 at every
+              point; the classes whose IoU between the two maps is below
+              0.9 in a chunk; the break-even changed share
   dryrun      parallel.dryrun_multistream over the machine's cards: the
               plain-stem flagship, the kernel path and the pose_graph DAG
               through the runner, one stream per card
@@ -202,6 +209,33 @@ Phases, each printing one JSON line:
   refresh     scripts/torch_validate_refresh.py on scene and pose, 4
               chunks, cadences 2 and 0, seed 0: the rows
   headline    one scripts/torch_eval_headline.py row for scene
+  latency     scripts/torch_bench_latency.py on scene, seg, pose and
+              pose_graph, 32 timed frames each (the script: 96): wall
+              p50/p95 of FrameStepper K = 1, 64-frame pipelined windows
+              of CB and dense by CUDA events, step_chunk K = 4 and 8, the
+              refresh and scan_video_jit's ms a frame; gated: finite times
+              for every model, every kernel of each path launched
+  longrun     scripts/torch_bench_longrun.py: one flagship stream of 16
+              chunks of 32 (the script: 64), seed 424242, windows of 8:
+              fps, GT-mIoU of CB and dense, device memory; gated: the
+              worst window within the 0.005 budget
+  pose_graph_bench  scripts/torch_bench_pose_graph.py at 360x640, 12
+              frames x 2 chunks (its defaults): fps, GT-PCK, FLOP
+              reduction; gated: finite fps
+  profile_stages  scripts/torch_profile_stages.py on scene: CB, dense and
+              detect-only ms a frame per layer prefix; gated: finite rows
+  footage     scripts/torch_real_footage_demo.py with 64 frames (the
+              script: 96): native frames through a .y4m, read back,
+              through the flagship, then the CLI on the file; gated:
+              finite fps and the CLI's record
+  sweeps      scripts/torch_pose_acc_sweep.py's protocol for pose (T 12)
+              and pose_graph (T 16) with one seed (the scripts: 4), the
+              tuned vector only (the scripts: 3), cadences 2 and 1, 4
+              chunks: GT-PCK per chunk; gated: a row per cadence
+  seg_repro   scripts/torch_repro_seg_acc.py at its defaults: per chunk
+              dense and CB GT-mIoU and agreement; gated: two finite rows
+              Each of these seven counts its launches from 0 and fails
+              unless every kernel of its path launched.
   check       each of the nine path kernels against its plain version on
               the inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -382,6 +416,13 @@ def main():
     torch.cuda.empty_cache()
     phase("headline", headline_phase, torch)
     torch.cuda.empty_cache()
+    for name, fn in (("latency", latency_phase), ("longrun", longrun_phase),
+                     ("pose_graph_bench", pose_graph_bench_phase),
+                     ("profile_stages", profile_stages_phase),
+                     ("footage", footage_phase), ("sweeps", sweeps_phase),
+                     ("seg_repro", seg_repro_phase)):
+        phase(name, fn, torch, np)
+        torch.cuda.empty_cache()
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
     seconds["total"] = round(time.perf_counter() - t0, 1)
@@ -2753,20 +2794,6 @@ LIVE_WARM = 4         # untimed live steps (eager first call, capture)
 LIVE_FRAMES = 64      # timed live steps
 CR_CHUNKS = 4         # chunks of each change-rate point (chunk 0 refreshes)
 CR_PAIRS = 2          # timed (graphed CB, graphed dense) pairs per point
-CR_AGREEMENT = 0.995  # the repo's budget: CB's agreement mIoU with dense
-# scripts/bench_changerate.py's POINTS, unchanged: sprite-driven change
-# rates, then a global camera pan (the background scrolls every frame)
-CHANGERATE_POINTS = [
-    ("sprites1", dict(n_sprites=1, sprite_size=48, speed=4.0)),
-    ("sprites4", dict(n_sprites=4, sprite_size=48, speed=4.0)),
-    ("sprites8", dict(n_sprites=8, sprite_size=48, speed=6.0)),
-    ("sprites16", dict(n_sprites=16, sprite_size=64, speed=8.0)),
-    ("sprites24", dict(n_sprites=24, sprite_size=80, speed=10.0)),
-    ("pan_slow", dict(n_sprites=4, sprite_size=48, speed=4.0,
-                      pan=(1.0, 2.0))),
-    ("pan_fast", dict(n_sprites=4, sprite_size=48, speed=4.0,
-                      pan=(4.0, 8.0))),
-]
 
 
 def _stream_stats(stats, s, axis=0):
@@ -3028,132 +3055,44 @@ def live_phase(torch):
 
 
 def changerate_phase(torch, np):
-    """scripts/bench_changerate.py on the card: the flagship at 720p over
-    the seven CHANGERATE_POINTS, graphed CB against graphed dense in
-    alternating pairs on frames made before timing; per point the stem's
-    changed-tile share, the overflow rate, both fps, their ratio and CB's
-    agreement mIoU with dense (gated at CR_AGREEMENT), then the
-    interpolated break-even changed share. Every point's replay is held
-    bit for bit against the eager loop."""
-    from concurrent.futures import ThreadPoolExecutor
+    """scripts/torch_bench_changerate.py's sweep on the card: the flagship
+    at 720p over its seven points (clips from a clock seed), graphed CB
+    against graphed dense in alternating pairs on frames made before
+    timing; per point the stem's changed-tile share, the overflow rate,
+    both fps, their ratio, the agreement mIoU and pixel agreement with
+    dense and the GT-mIoU of both (recorded), gated on the repo's budget:
+    GT-mIoU(dense) - GT-mIoU(CB) <= 0.005 at every point (the twin's
+    ``gate``); then the interpolated break-even changed share. Every
+    point's replay is held bit for bit against the eager loop."""
     from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
-    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
-                                         workload_video_kwargs)
-    wl, cadence = scene_workload()
-    seed = int(time.time() * 1e3) % 100000
-
-    def frames(over):
-        video = SpriteVideo(SpriteVideoConfig(
-            height=H, width=W, noise_std=0.002, seed=seed,
-            **workload_video_kwargs("scene"), **over))
-        return [video.clip(T) for _ in range(CR_CHUNKS)]
-
-    t0 = time.perf_counter()
-    rows = []
+    cr = _load_script("torch_bench_changerate")
+    seed = cr.clock_seed()
     reset_launches()
-    # the numpy generator releases the interpreter lock in its heavy
-    # parts: the points' frames are made in parallel threads, each point
-    # timed once all of its frames are on the card
-    with ThreadPoolExecutor(len(CHANGERATE_POINTS)) as pool:
-        made = [pool.submit(frames, over) for _, over in CHANGERATE_POINTS]
-        for k, (label, over) in enumerate(CHANGERATE_POINTS):
-            chunks = [torch.from_numpy(c).cuda() for c in made[k].result()]
-            made[k] = None  # the host copy goes
-            rows.append(_changerate_point(torch, np, wl, cadence, label,
-                                          over, chunks))
-            del chunks
-            torch.cuda.empty_cache()
+    rec = cr.sweep(seed, H, W, T, CR_CHUNKS, CR_PAIRS,
+                   log=lambda m: print(m, flush=True))
     counts = launches()
-    pts = sorted((r["changed_tile_frac_layer0"], r["speedup"]) for r in rows)
-    break_even = None
-    for (x0, y0), (x1, y1) in zip(pts, pts[1:]):
-        if (y0 - 1.0) * (y1 - 1.0) <= 0 and y0 != y1:
-            break_even = x0 + (1.0 - y0) * (x1 - x0) / (y1 - y0)
-            break
+    rows = [{k: v for k, v in r.items() if k != "class_iou"}
+            for r in rec["rows"]]
+    low = {r["point"]: [(i + 1, c["cls"], c["iou"], c["cb_pixels"],
+                         c["dense_pixels"])
+                        for i, ch in enumerate(r["class_iou"]) for c in ch
+                        if c["iou"] is not None and c["iou"] < 0.9]
+           for r in rec["rows"]}
     emit("changerate", clip_seed=seed, chunks=CR_CHUNKS, T=T,
-         refresh_every_chunks=cadence, rows=rows,
-         break_even_changed_tile_frac=break_even,
-         seconds_with_frames=time.perf_counter() - t0, launches=counts,
+         refresh_every_chunks=rec["refresh_cadence_chunks"], rows=rows,
+         classes_below_0_9={k: v for k, v in low.items() if v},
+         break_even_changed_tile_frac=rec["break_even_changed_tile_frac"],
+         seconds_with_frames=rec["seconds_with_frames"], launches=counts,
          smi=nvidia_smi("name,power.limit"))
-    bad = [r["point"] for r in rows if r["agreement_miou"] < CR_AGREEMENT]
-    if bad:
-        raise AssertionError(f"changerate: agreement below {CR_AGREEMENT} "
-                             f"at {bad}")
+    if rec["points_over_budget"]:
+        raise AssertionError(f"changerate: GT-mIoU degradation over "
+                             f"{cr.GT_BUDGET} at "
+                             f"{rec['points_over_budget']}")
+    if not all(r["graph_identical_to_eager"] for r in rows):
+        raise AssertionError("changerate: a point skipped the eager check")
     missing = [k for k in PER_FRAME["flagship"] if not counts.get(k)]
     if missing:
         raise AssertionError(f"changerate: no launch of {missing}")
-
-
-def _changerate_point(torch, np, wl, cadence, label, over, chunks):
-    from cbinfer_tpu_torch.metrics import miou_labels
-    from cbinfer_tpu_torch.runner import _Graphs, scan_video, scan_video_jit
-    net, params, taus = wl.net, wl.params, wl.taus
-    out_u8 = _u8_map(torch)
-    run = scan_video_jit(net)
-    dense = _Graphs(1)
-    state = net.init_state()
-
-    def cb(i):
-        return run(params, chunks[i], state, thresholds=taus,
-                   refresh_start=i % cadence == 0, collect_stats="mean",
-                   out_map=out_u8)
-
-    def dn(i):
-        return dense.run(("dense",), lambda fs: torch.stack(
-            [out_u8(net.apply_dense(params, f)) for f in fs]), chunks[i])
-
-    # warm: a refresh and a steady chunk (eager, then captured), the dense
-    # chunk; then chunk 2 replayed against the eager loop from a copy
-    cb(0)
-    after0 = _clone_state(state)
-    cb(1)
-    dn(0)
-    s_eager = _clone_state(state)
-    eager = scan_video(net, params, chunks[2], s_eager, collect_stats="mean",
-                       thresholds=taus, out_map=out_u8)
-    graphed = no_sync(torch, lambda: cb(2))
-    _same_run(torch, eager, graphed, f"changerate {label}: graph vs eager")
-    del eager, graphed, s_eager
-    last = {}
-
-    def cb_unit(_):
-        _restore(state, after0)
-        last["cb"] = [cb(i) for i in range(1, CR_CHUNKS)]
-
-    def dense_unit(_):
-        last["dense"] = [dn(i) for i in range(1, CR_CHUNKS)]
-
-    frames = (CR_CHUNKS - 1) * T
-    series, host, ratio = _pairs(torch, ["cb", "dense", "dense", "cb"]
-                                 * (CR_PAIRS // 2),
-                                 {"cb": cb_unit, "dense": dense_unit},
-                                 frames)
-    agree = float(np.mean([miou_labels(c[0].cpu().numpy(),
-                                       d.cpu().numpy(), NUM_CLASSES)
-                           for c, d in zip(last["cb"], last["dense"])]))
-    stats = [c[2] for c in last["cb"]]
-    stem = [_first_cb_stats(s) for s in stats]
-    changed = float(np.mean([float(s["changed_tiles"] / s["n_tiles"])
-                             for s in stem]))
-    overflow = max(float(np.mean([float(d["overflow"]) for d in ds]))
-                   for ds in zip(*[[d for _, d in _layers(s) if d]
-                                   for s in stats]))
-    cb_ms, dn_ms = float(np.median(series["cb"])), \
-        float(np.median(series["dense"]))
-    row = dict(point=label, config={k: list(v) if isinstance(v, tuple)
-                                    else v for k, v in over.items()},
-               changed_tile_frac_layer0=changed, overflow_rate=overflow,
-               cb_fps=1e3 / cb_ms, dense_fps=1e3 / dn_ms,
-               speedup=float(np.median(ratio)),
-               speedup_spread=[min(ratio), max(ratio)],
-               agreement_miou=agree,
-               stem_computed_tiles=float(np.mean(
-                   [float(s["computed_tiles"]) for s in stem])),
-               stem_n_tiles=float(stem[0]["n_tiles"]),
-               ms_per_frame=series, host_cpu_ms_per_frame=host,
-               graph_identical_to_eager=True)
-    print(json.dumps({"changerate_point": row}), flush=True)
-    return row
 
 
 def dryrun_phase(torch):
@@ -3571,6 +3510,169 @@ def headline_phase(torch):
         raise AssertionError(f"headline: {row}")
 
 
+# ------------------ the measurement and accuracy twins ----------------------
+
+LAT_FRAMES = 32       # timed FrameStepper frames a model (the script: 96)
+LAT_MODELS = (("scene", "flagship"), ("seg", "seg"), ("pose", "pose"),
+              ("pose_graph", "pose_graph"))   # (workload, its path)
+LONGRUN_CHUNKS = 16   # chunks of the long stream (the script: 64)
+LONGRUN_WIN = 8       # chunks a window (the script's)
+FOOTAGE_FRAMES = 64   # frames of the .y4m (the script: 96)
+SWEEP_SEEDS = 1       # seeds of the pose and DAG sweeps (the scripts: 4)
+SWEEP_CHUNKS = 4      # chunks a sweep stream (the scripts')
+
+
+def _path_run(path, fn):
+    """``fn()`` with every launch counter from 0; fails unless each kernel
+    of ``PER_FRAME[path]`` launched. Returns (result, counts)."""
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    reset_launches()
+    out = fn()
+    counts = launches()
+    missing = [k for k in PER_FRAME[path] if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"{path}: no launch of {missing}")
+    return out, counts
+
+
+def _sum_counts(dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _finite(np, *xs):
+    return all(x is not None and bool(np.isfinite(x)) for x in xs)
+
+
+def latency_phase(torch, np):
+    """scripts/torch_bench_latency.py on scene, seg, pose and pose_graph at
+    720p, LAT_FRAMES timed frames each: wall p50/p95, the pipelined device
+    ms of CB and dense (64-frame windows), the step_chunk forms, the
+    refresh and the scan form. Gated: a row per model with finite times,
+    every kernel of the model's path launched."""
+    from cbinfer_tpu_torch.benchmark import measure_sync_overhead
+    mod = _load_script("torch_bench_latency")
+    rows, counts = [], {}
+    for name, path in LAT_MODELS:
+        row, counts[name] = _path_run(path, lambda: mod.bench(
+            name, H, W, LAT_FRAMES, log=lambda m: print(m, flush=True)))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    emit("latency", rows=rows, launches=_sum_counts(counts.values()),
+         launches_by_model=counts,
+         sync_overhead_ms=measure_sync_overhead() * 1e3)
+    keys = ("wall_ms_p50", "wall_ms_p95", "device_ms_pipelined",
+            "dense_ms_pipelined", "device_ms_chunk4", "device_ms_chunk8",
+            "refresh_ms_p50", "scan_ms_per_frame")
+    bad = [r["model"] for r in rows if not _finite(np, *(r[k] for k in keys))]
+    if [r["model"] for r in rows] != [m for m, _ in LAT_MODELS] or bad:
+        raise AssertionError(f"latency: rows {[r['model'] for r in rows]}, "
+                             f"times not finite at {bad}")
+
+
+def longrun_phase(torch, np):
+    """scripts/torch_bench_longrun.py: one flagship stream of
+    LONGRUN_CHUNKS chunks (the script's 64 cut; seed 424242, windows of
+    8): per window fps, GT-mIoU of CB and dense, device memory. Gated, as
+    the script's budget: the worst window's degradation <= 0.005."""
+    from cbinfer_tpu_torch import zoo
+    mod = _load_script("torch_bench_longrun")
+    wl, cadence = scene_workload()
+    rec, counts = _path_run("flagship", lambda: mod.longrun(
+        wl.net, wl.params, wl.taus, cadence, H, W, T, LONGRUN_CHUNKS,
+        LONGRUN_WIN, 424242, zoo.output_stride(wl, H, W),
+        log=lambda m: print(m, flush=True)))
+    emit("longrun", **rec, launches=counts)
+    if not rec["within_budget"]:
+        raise AssertionError(f"longrun: worst window degradation "
+                             f"{rec['worst_window_degradation']} over "
+                             f"{rec['gt_budget']}")
+
+
+def pose_graph_bench_phase(torch, np):
+    """scripts/torch_bench_pose_graph.py at its defaults (360x640, 12
+    frames x 2 chunks, a clock seed): the DAG's fps CB and dense, GT-PCK,
+    flop_reduction. Gated: finite fps, every kernel of its path
+    launched."""
+    mod = _load_script("torch_bench_pose_graph")
+    row, counts = _path_run("pose_graph", lambda: mod.bench(
+        360, 640, 12, 2, log=lambda m: print(m, flush=True)))
+    emit("pose_graph_bench", row=row, launches=counts)
+    if not _finite(np, row["cb_fps"], row["dense_fps"],
+                   row["flop_reduction"]):
+        raise AssertionError(f"pose_graph_bench: {row}")
+
+
+def profile_stages_phase(torch, np):
+    """scripts/torch_profile_stages.py on scene at 720p (2 chunks of 32):
+    per layer prefix the CB, dense and detect-only ms a frame. Gated: a
+    finite row per prefix, the flagship's kernels launched."""
+    mod = _load_script("torch_profile_stages")
+    rec, counts = _path_run("flagship", lambda: mod.profile(
+        "scene", H, W, T, 2, log=lambda m: print(m, flush=True)))
+    emit("profile_stages", **rec, launches=counts)
+    keys = ("cb_ms_total", "dense_ms_total", "detect_ms_total")
+    ks = [r["k"] for r in rec["rows"]]
+    if not ks or ks != list(range(1, len(ks) + 1)) or not all(
+            _finite(np, *(r[k] for k in keys)) for r in rec["rows"]):
+        raise AssertionError(f"profile_stages: rows {rec['rows']}")
+
+
+def footage_phase(torch, np):
+    """scripts/torch_real_footage_demo.py with FOOTAGE_FRAMES frames (the
+    script's 96 cut): the native generator's 720p clip through a .y4m,
+    read back, through the flagship, CB and dense fps, agreement, then the
+    CLI on the file. Gated: finite fps, the CLI's record, the flagship's
+    kernels launched."""
+    mod = _load_script("torch_real_footage_demo")
+    rec, counts = _path_run("flagship", lambda: mod.demo(
+        FOOTAGE_FRAMES, H, W, log=lambda m: print(m, flush=True)))
+    emit("footage", **rec, launches=counts)
+    if not (_finite(np, rec["cb_fps"], rec["dense_fps"])
+            and "miou_vs_dense" in rec["cli"]):
+        raise AssertionError(f"footage: {rec}")
+
+
+def sweeps_phase(torch, np):
+    """scripts/torch_pose_acc_sweep.py and torch_graph_acc_sweep.py at
+    720p with SWEEP_SEEDS seed (the scripts' 4 cut), the tuned vector
+    only, cadences 2 and 1, 4 chunks (T 12 pose, 16 the DAG): GT-PCK per
+    chunk of dense and CB, PCK against dense, the degradation. Gated: a
+    row per cadence, every kernel of each path launched."""
+    from cbinfer_tpu_torch import zoo
+    mod = _load_script("torch_pose_acc_sweep")
+    out = {}
+    for name, t in (("pose", 12), ("pose_graph", 16)):
+        wl = zoo.load(name, (H, W, 3))
+        rows, counts = _path_run(name, lambda: mod.sweep(
+            wl, H, W, t, SWEEP_CHUNKS, SWEEP_SEEDS, ("tuned",), (2, 1),
+            log=lambda m: print(m, flush=True)))
+        out[name] = dict(rows=rows, launches=counts, T=t)
+        if [r["cadence"] for r in rows] != [2, 1]:
+            raise AssertionError(f"sweeps {name}: rows {rows}")
+        del wl
+        torch.cuda.empty_cache()
+    emit("sweeps", **out,
+         launches=_sum_counts(o["launches"] for o in out.values()))
+
+
+def seg_repro_phase(torch, np):
+    """scripts/torch_repro_seg_acc.py at its defaults (seed 65601, bf16
+    caches, 2 chunks of 32 at 720p): per chunk dense and CB GT-mIoU and
+    the agreement. Gated: two finite rows, seg's kernels launched."""
+    mod = _load_script("torch_repro_seg_acc")
+    rec, counts = _path_run("seg", lambda: mod.repro(
+        log=lambda m: print(m, flush=True)))
+    emit("seg_repro", **rec, launches=counts)
+    if len(rec["rows"]) != 2 or not all(
+            _finite(np, r["miou_gt_dense"], r["miou_gt_cb"])
+            for r in rec["rows"]):
+        raise AssertionError(f"seg_repro: {rec['rows']}")
+
+
 def probe_dma_phase(torch, np):
     """scripts/torch_probe_dma_constraints.py's eleven cases on the card,
     the path of P1 and P2: each case's verdict (the card's encoder) beside
@@ -3702,7 +3804,10 @@ def emit_kernels():
                 "backends": RESULTS["backends"]["launches"],
                 "policy": RESULTS["policy"]["launches"],
                 "refresh": RESULTS["refresh"]["launches"],
-                "headline": RESULTS["headline"]["launches"]}
+                "headline": RESULTS["headline"]["launches"],
+                **{p: RESULTS[p]["launches"] for p in (
+                    "latency", "longrun", "pose_graph_bench",
+                    "profile_stages", "footage", "sweeps", "seg_repro")}}
     rows = []
     for k in KERNELS:
         if k.name in probe_rows:
