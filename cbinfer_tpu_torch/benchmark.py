@@ -20,6 +20,7 @@ frames themselves.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -281,6 +282,61 @@ def bench_network(net, params, clips: Sequence[torch.Tensor],
         change_rates=change_rate_histogram(stats),
         config=None if run_config is None else dataclasses.asdict(
             run_config))
+
+
+class ABArm:
+    """One form of a network in an interleaved same-process A/B (the
+    methodology of the JAX package's ``scripts/exp_*_ab.py``): its own
+    ``scan_video_jit`` runner and one state, reset in place from a
+    pristine copy before each rep, so each key keeps one graph. A rep is
+    a refresh-prolog chunk that warms the state (untimed), then the
+    steady chunks timed by CUDA events around their replays
+    (``device_ms``), with the collector off inside the window."""
+
+    def __init__(self, net, params, thresholds=None, out_map=None,
+                 collect_stats=False):
+        self.net, self.params, self.taus = net, params, thresholds
+        self.out_map, self.collect_stats = out_map, collect_stats
+        self.run = scan_video_jit(net)
+        self.state = net.init_state()
+        self._pristine = [t.clone() for t in _state_tensors(self.state)]
+
+    def chunk(self, frames, refresh=False):
+        """(outputs, stats) of one chunk from the arm's state."""
+        ys, _, stats = self.run(self.params, frames, self.state,
+                                thresholds=self.taus, refresh_start=refresh,
+                                collect_stats=self.collect_stats,
+                                out_map=self.out_map)
+        return ys, stats
+
+    def reset(self):
+        for t, s in zip(_state_tensors(self.state), self._pristine):
+            t.copy_(s)
+
+    def warm(self, chunks: Sequence[torch.Tensor]):
+        """The eager first call and the capture of the refresh and the
+        steady key, outside any timed window (a first call may build
+        kernels and sync)."""
+        self.reset()
+        self.chunk(chunks[0], refresh=True)
+        self.chunk(chunks[1])
+
+    def rep(self, chunks: Sequence[torch.Tensor]):
+        """(ms of ``chunks[1:]``, their (outputs, stats)) after a reset and
+        ``chunks[0]`` as the refresh prolog."""
+        self.reset()
+        self.chunk(chunks[0], refresh=True)
+        outs: List = []
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            ms = device_ms(lambda: outs.extend(
+                self.chunk(c) for c in chunks[1:]), chunks[0].device)
+        finally:
+            if gc_on:
+                gc.enable()
+        return ms, outs
 
 
 def make_clips(cfg: RunConfig, n: int = 3) -> List[torch.Tensor]:

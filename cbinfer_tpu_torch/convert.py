@@ -23,12 +23,14 @@ from .ops import flat4 as flat4_ops
 
 
 def dense_conv_on_feature(x, p, spec: ConvSpec, compute_dtype):
-    """Dense conv of a layer output that may be a padded Feature. A
-    pointwise conv runs straight on the padded storage and crops its small
-    output (cropping commutes with a 1x1 window) unless the storage has
-    pad channels; everything else crops first."""
+    """Dense conv of a layer output that may be a padded Feature. Under
+    ``network.POINTWISE_DOT`` a pointwise conv runs as a matmul straight on
+    the padded storage and crops its small output (cropping commutes with
+    a 1x1 window) unless the storage has pad channels; everything else,
+    and every conv with the gate off, crops first."""
     w, b = p
-    if (isinstance(x, L.Feature) and x.data.shape[-1] == x.c
+    if (network.POINTWISE_DOT
+            and isinstance(x, L.Feature) and x.data.shape[-1] == x.c
             and spec.kernel == (1, 1)
             and spec.stride == (1, 1) and spec.dilation == (1, 1)):
         y = network.pointwise_dot_conv(x.data, w, b, spec, compute_dtype)

@@ -40,6 +40,14 @@ re-detection at tau = -1 on 8-aligned maps); and pre-detection
 (``ConvSpec.fuse_next_detect`` on the PRODUCER: its fused kernel already
 ran this layer's detect, which rides in on ``DirtyHint.predetect``).
 
+Stage scopes: the regions the JAX package names with ``jax.named_scope``
+(``detect``, ``accept_hinted``, ``compact``, ``delta_kernel``,
+``patch_conv``, ``band_conv``, ``cached_conv``, ``out_pad``) are
+``torch.profiler.record_function`` ranges of the same names here
+(``stage``), so a profile attributes each launch to its stage. They are
+host-side only and opened only while a profiler records: no device op, no
+host sync, nothing inside a CUDA graph.
+
 Lane padding: the JAX package pads every channel dim to 128 on its
 ``"pallas"`` backend; the port stores logical widths (the delta conv
 kernels take any cin that is a multiple of 8 in bf16, 4 in float32). The
@@ -51,6 +59,7 @@ and a zero bias, and the layer's ``Feature`` crops them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -81,6 +90,16 @@ HINT_TILE = 8       # fixed tile size of inter-layer dirty hints
 BACKENDS = ("cuda", "patch_stem", "dense_cached", "torch", "band_cached",
             "dense_cached_flat")
 STEM_BACKENDS = ("band_cached", "dense_cached_flat")  # conv layers only
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def stage(name: str):
+    """The profiler range of one stage (the JAX package's ``named_scope``
+    of the same name), or nothing while no profiler records: a
+    ``record_function`` costs the host microseconds on every call."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SCOPE
 
 
 @dataclasses.dataclass
@@ -430,26 +449,32 @@ def _run_gated(spec, state: CBLayerState, x: torch.Tensor, g: TileGeometry,
     out on the returned hint. Returns (state, stats, out_hint)."""
     if forward:
         assert hint is not None
-        in_cache, n_detect = _accept_hinted(x, state.in_cache, hint, g, cfg)
-        mask = _forward_mask(hint.mask, g)
+        with stage("accept_hinted"):
+            in_cache, n_detect = _accept_hinted(x, state.in_cache, hint, g,
+                                                cfg)
+            mask = _forward_mask(hint.mask, g)
         # forwarding never inspects pixels; visited = hinted area
         n_pix = n_detect * (HINT_TILE * HINT_TILE)
     else:
         if tau is None:
             tau = spec.threshold
-        in_cache, mask, n_pix, n_detect = _detect_and_mask(
-            x, state.in_cache, tau, g, cfg, hint)
+        with stage("detect"):
+            in_cache, mask, n_pix, n_detect = _detect_and_mask(
+                x, state.in_cache, tau, g, cfg, hint)
     bounded = cfg.backend == "torch"
     capacity = cfg.tile.capacity(g.n_tiles) if bounded else g.n_tiles
-    comp = compact.compact_mask(mask, capacity)
+    with stage("compact"):
+        comp = compact.compact_mask(mask, capacity)
     predetect = overflow = None
-    if fused_fn is not None:
-        predetect = fused_fn(in_cache, comp.idx, comp.count, state.out_cache)
-    elif not bounded:
-        tile_fn(in_cache, comp.idx, comp.count, state.out_cache)
-    else:
-        overflow = _bounded_update(in_cache, comp, capacity, g,
-                                   state.out_cache, tile_fn, dense_fn)
+    with stage("delta_kernel"):
+        if fused_fn is not None:
+            predetect = fused_fn(in_cache, comp.idx, comp.count,
+                                 state.out_cache)
+        elif not bounded:
+            tile_fn(in_cache, comp.idx, comp.count, state.out_cache)
+        else:
+            overflow = _bounded_update(in_cache, comp, capacity, g,
+                                       state.out_cache, tile_fn, dense_fn)
     stats = {
         "changed_tiles": comp.count,
         "computed_tiles": (comp.count if overflow is None
@@ -546,24 +571,28 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
         # produces the hint chain (the cin=3 stem of this slice)
         if tau is None:
             tau = spec.threshold
-        storage, mask, n_pix, n_detect = _detect_and_mask(
-            x, state.in_cache, tau, g, cfg, hint)
-        if network.use_im2col(spec, w.shape[2]):
-            # the storage's zero margins ARE the SAME padding: read the
-            # padded window straight out of it, no pad copy
-            xp = storage[g.store_lo_h - g.pad_lo_h:
-                         g.store_lo_h + g.in_h + g.pad_hi_h,
-                         g.dx0:g.store_lo_w + g.in_w + g.pad_hi_w]
-            # the matmul writes straight into the cache where it can,
-            # sparing a full-map copy every frame
-            region = _out_region(state, g, compute_dtype)
-            y = network.im2col_conv(xp, w, b, spec, compute_dtype,
-                                    out=region)
-            if region is None:
+        with stage("detect"):
+            storage, mask, n_pix, n_detect = _detect_and_mask(
+                x, state.in_cache, tau, g, cfg, hint)
+        region = None
+        with stage("cached_conv"):
+            if network.use_im2col(spec, w.shape[2]):
+                # the storage's zero margins ARE the SAME padding: read the
+                # padded window straight out of it, no pad copy
+                xp = storage[g.store_lo_h - g.pad_lo_h:
+                             g.store_lo_h + g.in_h + g.pad_hi_h,
+                             g.dx0:g.store_lo_w + g.in_w + g.pad_hi_w]
+                # the matmul writes straight into the cache where it can,
+                # sparing a full-map copy every frame
+                region = _out_region(state, g, compute_dtype)
+                y = network.im2col_conv(xp, w, b, spec, compute_dtype,
+                                        out=region)
+            else:
+                y = network.dense_conv(storage_interior(storage, g), w, b,
+                                       spec, compute_dtype)
+        if region is None:
+            with stage("out_pad"):
                 _store_output(state, y, g)
-        else:
-            _store_output(state, network.dense_conv(
-                storage_interior(storage, g), w, b, spec, compute_dtype), g)
         stats = {
             "changed_tiles": mask.sum(dtype=torch.int32),
             "computed_tiles": g.n_tiles,
@@ -646,20 +675,23 @@ def _patch_stem_apply(state: CBLayerState, x: torch.Tensor, w, b,
     # the 8x8 cell mask the kernel emits IS the hint mask, and the window
     # of a tile made of whole cells (a stem tile, a configured tile) is the
     # union of its cells' windows, so its mask is the OR of theirs
-    storage, cell_mask, npix1 = stem_detect(x, state.in_cache, tau, g)
-    hint_mask = cell_mask > 0
-    n_pix = npix1[0]
-    mask = _or_cells(hint_mask, g.th // HINT_TILE, g.tw // HINT_TILE)
-    fine_mask = _or_cells(hint_mask, cfg.tile.tile_h // HINT_TILE,
-                          cfg.tile.tile_w // HINT_TILE)
+    with stage("detect"):
+        storage, cell_mask, npix1 = stem_detect(x, state.in_cache, tau, g)
+        hint_mask = cell_mask > 0
+        n_pix = npix1[0]
+        mask = _or_cells(hint_mask, g.th // HINT_TILE, g.tw // HINT_TILE)
+        fine_mask = _or_cells(hint_mask, cfg.tile.tile_h // HINT_TILE,
+                              cfg.tile.tile_w // HINT_TILE)
     g_hint = flat4_ops.cell_geometry(g)
     capacity = cfg.tile.capacity(g.n_tiles)
-    comp = compact.compact_mask(mask, capacity)
+    with stage("compact"):
+        comp = compact.compact_mask(mask, capacity)
     # past the capacity the kernel recomputes every tile: value-exact by
     # out_cache == f(in_cache), it only spends more compute
     overflow = comp.count > capacity
-    stem_conv(storage, comp.idx, comp.count, w, b, state.out_cache, g,
-              spec.activation, compute_dtype, capacity=capacity)
+    with stage("patch_conv"):
+        stem_conv(storage, comp.idx, comp.count, w, b, state.out_cache, g,
+                  spec.activation, compute_dtype, capacity=capacity)
     # stats on the CONFIGURED tile grid: one (8, 32) kernel tile is
     # tile_scale fine tiles, so effective_flops prices the wider recompute
     n_fine = fine_mask.numel()
@@ -717,14 +749,18 @@ def _band_apply(state: CBLayerState, x: torch.Tensor, w, b, g: TileGeometry,
     tiles downstream)."""
     if tau is None:
         tau = spec.threshold
-    storage, changed, n_pix, n_detect = _detect_xla(x, state.in_cache, tau,
-                                                    g, hint)
-    band_mask = detect.changed_tile_mask(changed, g)
+    with stage("detect"):
+        storage, changed, n_pix, n_detect = _detect_xla(
+            x, state.in_cache, tau, g, hint)
+        band_mask = detect.changed_tile_mask(changed, g)
     capacity = cfg.tile.capacity(g.n_tiles)
-    comp = compact.compact_mask(band_mask, capacity)
-    overflow = _bounded_update(storage, comp, capacity, g, state.out_cache,
-                               *_bounded_conv_fns(w, b, g, spec,
-                                                  compute_dtype))
+    with stage("compact"):
+        comp = compact.compact_mask(band_mask, capacity)
+    with stage("band_conv"):
+        overflow = _bounded_update(storage, comp, capacity, g,
+                                   state.out_cache,
+                                   *_bounded_conv_fns(w, b, g, spec,
+                                                      compute_dtype))
     in_shape = (g.in_h, g.in_w, g.cin)
     g_hint = conv_tile_geometry(in_shape, spec.kernel, spec.stride,
                                 spec.dilation, spec.padding, HINT_TILE,

@@ -121,6 +121,14 @@ def _activate(y: torch.Tensor, spec: ConvSpec) -> torch.Tensor:
     return torch.relu_(y)
 
 
+# The pointwise-conv-as-matmul gate (``cbinfer_tpu/network.py:77``), read
+# by ``convert.dense_conv_on_feature`` at each call, so a CUDA graph holds
+# the form it was captured under: True (the default) runs a trailing 1x1
+# conv of the CB path as one matmul on the layer's storage, False as
+# ``dense_conv`` on the cropped map. The dense baseline never reads it.
+POINTWISE_DOT = True
+
+
 def pointwise_dot_conv(x: torch.Tensor, w: torch.Tensor,
                        b: Optional[torch.Tensor], spec: ConvSpec,
                        compute_dtype=torch.float32) -> torch.Tensor:

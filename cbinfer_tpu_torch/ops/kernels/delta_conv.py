@@ -12,7 +12,8 @@ tile on the CUDA cores.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +33,42 @@ def channel_quantum(dtype) -> int:
     of the input channels, and n-tiles of 8 outputs in bf16 or 4-wide
     output vectors in float32. cin and cout must be multiples of it."""
     return 8 if dtype == torch.bfloat16 else 4
+
+
+# output pixels of one tile that the kernel computes in one block (the 64
+# rows of a wgmma tile in bf16); a coarser tile is launched as sub-tiles
+TILE_PIXELS = 64
+
+
+def _divisor_upto(n: int, cap: int) -> int:
+    return max(d for d in range(1, min(n, cap) + 1) if n % d == 0)
+
+
+def split_tiles(idx: torch.Tensor, count: torch.Tensor, g: TileGeometry
+                ) -> Tuple[torch.Tensor, torch.Tensor, TileGeometry]:
+    """The tile list of ``g`` as the list of its sub-tiles of at most 8x8
+    output pixels (each side the largest divisor of the tile's up to 8),
+    with the count on the device scaled and the launch geometry of the
+    sub-tiles. The same pixels from the same storage into the same out
+    cache: only the tile grid the kernel walks changes (its padded and
+    storage extents are ``g``'s). A listed tile's sub-tiles follow one
+    another, so the first ``count`` tiles are the first sub-tiles; a
+    sentinel id stays past the sub-grid."""
+    sth, stw = _divisor_upto(g.th, 8), _divisor_upto(g.tw, 8)
+    a, b = g.th // sth, g.tw // stw
+    (sh, sw), (dh, dw), (kh, kw) = g.stride, g.dilation, g.kernel
+    keff_h, keff_w = (kh - 1) * dh + 1, (kw - 1) * dw + 1
+    gs = dataclasses.replace(
+        g, th=sth, tw=stw, tiles_h=g.tiles_h * a, tiles_w=g.tiles_w * b,
+        n_tiles=g.n_tiles * a * b, win_h=(sth - 1) * sh + keff_h,
+        win_w=(stw - 1) * sw + keff_w, win_h_dma=(keff_h - 1) + sth * sh,
+        win_w_dma=((g.dx0 + keff_w - 1 + stw * sw + 7) // 8) * 8)
+    rows = (idx // g.tiles_w)[:, None] * a + torch.arange(
+        a, dtype=idx.dtype, device=idx.device)
+    cols = (idx % g.tiles_w)[:, None] * b + torch.arange(
+        b, dtype=idx.dtype, device=idx.device)
+    sub = rows[:, :, None] * gs.tiles_w + cols[:, None, :]
+    return sub.reshape(-1), count * (a * b), gs
 
 
 def delta_conv_plain(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -72,6 +109,8 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     if xp.device.type == "cpu" and out_cache.device.type == "cpu":
         return delta_conv_plain(xp, idx, w, b, out_cache, g, activation,
                                 compute_dtype, count=count)
+    if g.th * g.tw > TILE_PIXELS:
+        idx, count, g = split_tiles(idx, count, g)
     dtype = xp.dtype
     cin, cout = w.shape[2], w.shape[3]
     tensors = [xp, idx, w, out_cache, count] + ([b] if b is not None else [])
@@ -84,7 +123,7 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
             or tuple(xp.shape) != g.store_shape or cin != g.cin
             or tuple(out_cache.shape) != (g.out_h_pad, g.out_w_pad, cout)
             or cin % q or cout % q or xp.data_ptr() % 16
-            or g.th * g.tw > 64
+            or g.th * g.tw > TILE_PIXELS
             or (b is not None and (b.dtype != torch.float32
                                    or b.shape != (cout,)))
             or idx.dtype != torch.int32 or count.dtype != torch.int32

@@ -10,4 +10,4 @@ drives the three forms on n streams, the twin of the JAX package's
 
 from .dryrun import dryrun_multistream  # noqa: F401
 from .streams import (MultiStreamRunner, make_stream_mesh,  # noqa: F401
-                      shard_streams)
+                      replay_on_side_streams, shard_streams)

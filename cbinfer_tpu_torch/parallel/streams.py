@@ -229,3 +229,22 @@ class MultiStreamRunner:
     def graphs(self) -> List[List[dict]]:
         """Per stream, its live graphs (``runner._Graphs.info()``)."""
         return [scan.graphs.info() for scan in self.scans]
+
+
+def replay_on_side_streams(scans, params, clips, states, side, **kw):
+    """Each stream's ``scan_video_jit`` (``scans[s]``, its graphs in a pool
+    of their own) on ``clips[s]`` from ``states[s]``, replayed on a side
+    CUDA stream of its own (``side[s]``), the side streams joined to the
+    current one by events, ``kw`` the runner's keywords: not a runner form
+    yet, the measurement of one (the baseline of running the streams of a
+    wave concurrently). Returns [(outputs, stats)] by stream."""
+    main = torch.cuda.current_stream()
+    outs = []
+    for scan, clip, state, st in zip(scans, clips, states, side):
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            ys, _, stats = scan(params, clip, state, **kw)
+        outs.append((ys, stats))
+    for st in side:
+        main.wait_stream(st)
+    return outs

@@ -50,7 +50,10 @@ torch_eval_headline.py) in this process. Then the measurement and
 accuracy scripts' twins, each at a reduced depth (see their phases):
 latency per workload, a long stream, the DAG's headline row, the time
 per layer prefix, a .y4m file through the flagship, the pose and DAG
-accuracy sweeps and the seg repro.
+accuracy sweeps and the seg repro. Then the twins of the last reference
+scripts, each cut: many streams per card, the per-stage device trace,
+the tau, fused-detect, stats and pointwise A/Bs, mask forwarding, and the
+stem, output and tile variants.
 
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
@@ -236,6 +239,36 @@ Phases, each printing one JSON line:
               dense and CB GT-mIoU and agreement; gated: two finite rows
               Each of these seven counts its launches from 0 and fails
               unless every kernel of its path launched.
+  multistream_bench  scripts/torch_bench_multistream.py: S = 4 and 8
+              flagship streams at 720p, one timed chunk of 8 frames a
+              stream, 2 reps (the script: 2 chunks of 16, 3 reps): sequential,
+              runner gathered and not, side streams; gated: finite rates
+  profile_trace  scripts/torch_profile_trace.py on scene, seg, pose and
+              pose_graph, 12 frames each (the script: 24, pose 12):
+              per-stage device self time per frame of one
+              graph replay (by kernel name) and of the eager loop (by
+              stage scope); gated: the stage sums within 2% of the
+              device's busy time
+  tau_ab      scripts/torch_exp_tau_ab.py on the flagship, 2 chunks and 2
+              reps (the script: 4 and 3); gated: one graph per stats form
+  forward     scripts/torch_exp_forward.py on seg and pose, one timed
+              chunk (the script: 2); gated: every variant runs, finite
+              cb_fps and flop_reduction, the tile copy launched
+  fused_ab    scripts/torch_exp_fused_ab.py on pose and pose_graph, 3
+              chunks of 16 and 2 reps (the script: 6 of 32 and 5); gated:
+              the arms' outputs and stats equal
+  variants    scripts/torch_exp_variants.py, every mode, 2 chunks of 16
+              (the script: 32), 2 passes; gated: finite times, and only
+              the plain converter's cin = 3 stem refused (by the
+              full-map detect)
+  stats_ab    scripts/torch_exp_stats_ab.py on the flagship, 3 chunks and
+              2 reps (the script: 6 and 5); gated: the arms' outputs
+              bit-identical
+  pointwise_ab  scripts/torch_exp_pointwise_ab.py on the flagship, 3
+              chunks and 2 reps (the script: 6 and 5); gated: argmax
+              agreement >= 0.999, POINTWISE_DOT back at its default
+              These eight count their launches from 0 and fail unless
+              every kernel of their paths launched.
   check       each of the nine path kernels against its plain version on
               the inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -420,7 +453,14 @@ def main():
                      ("pose_graph_bench", pose_graph_bench_phase),
                      ("profile_stages", profile_stages_phase),
                      ("footage", footage_phase), ("sweeps", sweeps_phase),
-                     ("seg_repro", seg_repro_phase)):
+                     ("seg_repro", seg_repro_phase),
+                     ("multistream_bench", multistream_bench_phase),
+                     ("profile_trace", profile_trace_phase),
+                     ("tau_ab", tau_ab_phase), ("forward", forward_phase),
+                     ("fused_ab", fused_ab_phase),
+                     ("variants", variants_phase),
+                     ("stats_ab", stats_ab_phase),
+                     ("pointwise_ab", pointwise_ab_phase)):
         phase(name, fn, torch, np)
         torch.cuda.empty_cache()
     phase("check", check_kernels, torch, np, calls)
@@ -1778,6 +1818,11 @@ TILE_CONV_CASES = {
     "cin312_ragged90": (90, 64, 312, 256, 3, 1, 1, (8, 8), 3),
     # seg's dilated context conv at its widths, on a 180-row map
     "dilation2_cin256": (180, 64, 256, 256, 3, 2, 1, (8, 8), 1),
+    # tiles of more than 64 output pixels (the tile sweep of
+    # scripts/torch_exp_variants.py): launched as their 8x8 sub-tiles
+    "tile8x16": (24, 64, 32, 64, 3, 1, 1, (8, 16), None),
+    "tile16x16_ragged": (44, 72, 64, 128, 3, 1, 1, (16, 16), None),
+    "tile16x32_cout256": (40, 96, 128, 256, 3, 1, 1, (16, 32), None),
 }
 
 
@@ -2818,23 +2863,6 @@ def _restore(dst_state, src_state):
             a.out_cache.copy_(b.out_cache)
 
 
-def side_stream_chunk(torch, scans, params, clips, states, side, **kw):
-    """Each stream's ``scan_video_jit`` (``scans[s]``, its graphs in a pool
-    of their own) on ``clips[s]``, replayed on a side CUDA stream of its
-    own, the side streams joined to the current one by events: not a
-    runner form, the evidence for one. Returns [(outputs, stats)]."""
-    main = torch.cuda.current_stream()
-    outs = []
-    for scan, clip, state, st in zip(scans, clips, states, side):
-        st.wait_stream(main)
-        with torch.cuda.stream(st):
-            ys, _, stats = scan(params, clip, state, **kw)
-        outs.append((ys, stats))
-    for st in side:
-        main.wait_stream(st)
-    return outs
-
-
 def _pairs(torch, order, units, frames):
     """Time the units in ``order`` (each a fn of its pair index), CUDA
     events around each: per kind the ms per frame, and in each pair the
@@ -2888,7 +2916,9 @@ def multistream_phase(torch, np):
 
 
 def _multistream_run(torch, np, wl, chunks, S, cadence):
-    from cbinfer_tpu_torch.parallel import MultiStreamRunner, make_stream_mesh
+    from cbinfer_tpu_torch.parallel import (MultiStreamRunner,
+                                            make_stream_mesh,
+                                            replay_on_side_streams)
     from cbinfer_tpu_torch.runner import scan_video_jit
     net, params, taus = wl.net, wl.params, wl.taus
     out_u8 = _u8_map(torch)
@@ -2938,7 +2968,7 @@ def _multistream_run(torch, np, wl, chunks, S, cadence):
     ref_states = [_clone_state(st) for st in states]
     for st, sn in zip(states, snap):
         _restore(st, sn)
-    got = side_stream_chunk(torch, alone, params,
+    got = replay_on_side_streams(alone, params,
                             [chunks[1][s] for s in range(S)], states, side,
                             thresholds=taus, collect_stats="mean",
                             out_map=out_u8)
@@ -2958,8 +2988,8 @@ def _multistream_run(torch, np, wl, chunks, S, cadence):
     units = {"runner": lambda i: runner.run_clip(chunk(i)[:S])[0],
              "back_to_back": b2b,
              "in_order": b2b,
-             "side_streams": lambda i: side_stream_chunk(
-                 torch, alone, params, [chunk(i)[s] for s in range(S)],
+             "side_streams": lambda i: replay_on_side_streams(
+                 alone, params, [chunk(i)[s] for s in range(S)],
                  states, side, thresholds=taus, collect_stats="mean",
                  out_map=out_u8)}
     frames = S * T
@@ -3673,6 +3703,181 @@ def seg_repro_phase(torch, np):
         raise AssertionError(f"seg_repro: {rec['rows']}")
 
 
+# ------------- the last reference scripts' twins (queue E) -----------------
+
+MSB_STREAMS = (4, 8)  # streams per card (the script's)
+MSB_T = 8             # frames a chunk per stream (the script: 16)
+EXP_CHUNKS = 3        # chunks of the A/Bs: the first warms, 2 timed
+EXP_REPS = 2          # interleaved reps (the scripts: 3 or 5)
+EXP_T = 16            # frames a chunk of the fused A/B and the variants
+                      # (the scripts: 32)
+TRACE_T = 12          # traced frames a model (the script: 24, pose 12)
+TRACE_MODELS = (("scene", "flagship"), ("seg", "seg"),
+                ("pose", "pose_unfused"), ("pose_graph", "pose_graph"))
+TRACE_TOL = 0.02      # stage self-time sums against device busy time
+POINTWISE_AGREE = 0.999   # argmax agreement, bf16 conv against matmul
+# the configurations a kernel refuses on the card, with the kernel: the
+# plain converter's cin = 3 stem as a CB conv on the kernel path (B7 takes
+# an even channel count, B2 a multiple of 8; the converters put a
+# small-cin stem on patch_stem or dense_cached)
+VARIANTS_REFUSED = {"stem=cb_banded": "detect_full"}
+
+
+def multistream_bench_phase(torch, np):
+    """scripts/torch_bench_multistream.py at 720p, S = 4 and 8 flagship
+    streams, one timed chunk of MSB_T frames a stream, 2 reps (the
+    script's 2 chunks of 16 and 3 reps cut): the sequential, runner
+    (gathered and not) and side-stream arms. Gated: finite rates, the
+    flagship's kernels launched."""
+    mod = _load_script("torch_bench_multistream")
+    rec, counts = _path_run("flagship", lambda: mod.run(
+        MSB_STREAMS, H, W, MSB_T, 1, EXP_REPS,
+        log=lambda m: print(m, flush=True)))
+    emit("multistream_bench", **rec, launches=counts)
+    keys = ("sequential_fps_per_chip", "batched_fps_per_chip",
+            "batched_nogather_fps_per_chip", "side_streams_fps_per_chip")
+    if [r["streams"] for r in rec["rows"]] != list(MSB_STREAMS) or not all(
+            _finite(np, *(r[k] for k in keys)) for r in rec["rows"]):
+        raise AssertionError(f"multistream_bench: {rec['rows']}")
+
+
+def profile_trace_phase(torch, np):
+    """scripts/torch_profile_trace.py on scene, seg, pose and pose_graph at
+    720p (TRACE_T frames; the script: 24, 12 for the pose models): per
+    stage the device self time
+    per frame of one graph replay (by kernel name) and of the eager loop
+    (by stage scope). Gated: every row's stage sum within TRACE_TOL of the
+    device's busy time, each path's kernels launched."""
+    mod = _load_script("torch_profile_trace")
+    rows, counts = {}, {}
+    for name, path in TRACE_MODELS:
+        got, counts[name] = _path_run(path, lambda: mod.trace(
+            name, H, W, TRACE_T, log=lambda m: print(m, flush=True)))
+        rows.update(got)
+        torch.cuda.empty_cache()
+    emit("profile_trace", stages=rows, launches=_sum_counts(counts.values()),
+         launches_by_model=counts)
+    bad = {k: r["stage_sum_over_busy"] for k, r in rows.items()
+           if not _finite(np, r["stage_sum_over_busy"])
+           or abs(r["stage_sum_over_busy"] - 1.0) > TRACE_TOL}
+    if len(rows) != 2 * len(TRACE_MODELS) or bad:
+        raise AssertionError(f"profile_trace: stage sums off the busy "
+                             f"time: {bad}")
+
+
+def tau_ab_phase(torch, np):
+    """scripts/torch_exp_tau_ab.py on the flagship: the tuned vector and
+    four flat ones over one chunk after the cold start, EXP_REPS reps (the
+    script's 3 chunks and 3 reps cut), plus the untimed stats pass. Gated:
+    one graph per stats form for every vector, finite rates."""
+    mod = _load_script("torch_exp_tau_ab")
+    wl, _ = scene_workload()
+    rec, counts = _path_run("flagship", lambda: mod.tau_ab(
+        wl, "scene", H, W, T, EXP_REPS, EXP_CHUNKS - 1,
+        log=lambda m: print(m, flush=True)))
+    emit("tau_ab", **rec, launches=counts)
+    if rec["graph_captures"] != 2 or len(rec["rows"]) != 5 or not all(
+            _finite(np, r["best_fps"]) for r in rec["rows"]):
+        raise AssertionError(f"tau_ab: {rec['graph_captures']} graphs, "
+                             f"rows {rec['rows']}")
+
+
+def forward_phase(torch, np):
+    """scripts/torch_exp_forward.py on seg and pose at 720p, one timed
+    chunk (the script's 2 cut): base, fwd_deep and fwd_all, cb_fps and
+    flop_reduction. Gated: each variant runs (a refusal names its layer
+    and fails here: every map of these nets is on the kernels' gate),
+    finite numbers, the path's kernels and the tile copy launched."""
+    mod = _load_script("torch_exp_forward")
+    out, counts = {}, {}
+    for name, path in (("seg", "seg"), ("pose", "pose_unfused")):
+        rec, counts[name] = _path_run(path, lambda: mod.forward(
+            name, H, W, T, 1, log=lambda m: print(m, flush=True)))
+        out[name] = rec
+        bad = {k: v for k, v in rec["variants"].items()
+               if "refused" in v or not _finite(np, v["cb_fps"],
+                                                v["flop_reduction"])}
+        if bad or not counts[name].get("accept_tiles"):
+            raise AssertionError(f"forward {name}: {bad}, launches "
+                                 f"{counts[name]}")
+        torch.cuda.empty_cache()
+    emit("forward", **out, launches=_sum_counts(counts.values()),
+         launches_by_model=counts)
+
+
+def fused_ab_phase(torch, np):
+    """scripts/torch_exp_fused_ab.py on pose and pose_graph at 720p, 2
+    timed chunks of EXP_T frames after the refresh chunk, EXP_REPS reps
+    (the script's 5 chunks of 32 and 5 reps cut). Gated: the arms'
+    outputs and stats equal, each path's kernels launched."""
+    from cbinfer_tpu_torch import zoo
+    mod = _load_script("torch_exp_fused_ab")
+    out, counts = {}, {}
+    for name in ("pose", "pose_graph"):
+        wl = zoo.load(name, (H, W, 3))
+        rec, counts[name] = _path_run(name, lambda: mod.fused_ab(
+            wl, name, H, W, EXP_T, EXP_REPS, EXP_CHUNKS,
+            log=lambda m: print(m, flush=True)))
+        out[name] = rec
+        if not rec["outputs_identical"]:
+            raise AssertionError(f"fused_ab {name}: the arms differ")
+        del wl
+        torch.cuda.empty_cache()
+    emit("fused_ab", **out, launches=_sum_counts(counts.values()),
+         launches_by_model=counts)
+
+
+def variants_phase(torch, np):
+    """scripts/torch_exp_variants.py, every mode, at 720p with chunks of
+    EXP_T frames (the script's 32 cut), 2 passes: the stem policies, the
+    bounded
+    "torch" stem, the output forms and the tile sizes. Gated: finite
+    times for every configuration but those of VARIANTS_REFUSED, which
+    must be refused by their kernel; the flagship's kernels launched."""
+    mod = _load_script("torch_exp_variants")
+    rec, counts = _path_run("flagship", lambda: mod.variants(
+        mod.MODES, H, W, EXP_T, 2, 2, log=lambda m: print(m, flush=True)))
+    emit("variants", **rec, launches=counts)
+    refused = {k: v["kernel"] for k, v in rec["refused"].items()}
+    if refused != VARIANTS_REFUSED or not all(
+            _finite(np, v) for v in rec["ms_per_frame"].values()):
+        raise AssertionError(f"variants: refused {rec['refused']}")
+
+
+def stats_ab_phase(torch, np):
+    """scripts/torch_exp_stats_ab.py on the flagship: collect_stats="mean"
+    against False, 2 timed chunks after the refresh chunk, EXP_REPS reps
+    (the script's 5 and 5 cut). Gated: the arms' outputs bit-identical."""
+    mod = _load_script("torch_exp_stats_ab")
+    wl, _ = scene_workload()
+    rec, counts = _path_run("flagship", lambda: mod.stats_ab(
+        wl, "scene", H, W, T, EXP_REPS, EXP_CHUNKS,
+        log=lambda m: print(m, flush=True)))
+    emit("stats_ab", **rec, launches=counts)
+    if not rec["outputs_identical"]:
+        raise AssertionError("stats_ab: the arms' outputs differ")
+
+
+def pointwise_ab_phase(torch, np):
+    """scripts/torch_exp_pointwise_ab.py on the flagship: the classifier as
+    F.conv2d (POINTWISE_DOT False) against the matmul (True), CB and
+    dense, 2 timed chunks, EXP_REPS reps (the script's 5 and 5 cut).
+    Gated: the arms' class maps agree on POINTWISE_AGREE of the pixels,
+    the flag is back at its default."""
+    from cbinfer_tpu_torch import network
+    mod = _load_script("torch_exp_pointwise_ab")
+    wl, _ = scene_workload()
+    rec, counts = _path_run("flagship", lambda: mod.pointwise_ab(
+        wl, "scene", H, W, T, EXP_REPS, EXP_CHUNKS,
+        log=lambda m: print(m, flush=True)))
+    emit("pointwise_ab", **rec, launches=counts)
+    if rec["argmax_agreement"] < POINTWISE_AGREE \
+            or network.POINTWISE_DOT is not True:
+        raise AssertionError(f"pointwise_ab: agreement "
+                             f"{rec['argmax_agreement']}, flag "
+                             f"{network.POINTWISE_DOT}")
+
+
 def probe_dma_phase(torch, np):
     """scripts/torch_probe_dma_constraints.py's eleven cases on the card,
     the path of P1 and P2: each case's verdict (the card's encoder) beside
@@ -3807,7 +4012,10 @@ def emit_kernels():
                 "headline": RESULTS["headline"]["launches"],
                 **{p: RESULTS[p]["launches"] for p in (
                     "latency", "longrun", "pose_graph_bench",
-                    "profile_stages", "footage", "sweeps", "seg_repro")}}
+                    "profile_stages", "footage", "sweeps", "seg_repro",
+                    "multistream_bench", "profile_trace", "tau_ab",
+                    "forward", "fused_ab", "variants", "stats_ab",
+                    "pointwise_ab")}}
     rows = []
     for k in KERNELS:
         if k.name in probe_rows:

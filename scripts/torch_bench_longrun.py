@@ -22,10 +22,13 @@ span, never inside it. Per window:
                         (a graphed dense chunk, untimed) against the
                         video's labels, from per-class counts summed over
                         the window; degradation = dense - CB
-  memory_*_mib          device memory allocated after the window, and
-                        its peak within the window; graphs live and
-                        captured so far (a leak or a growing graph pool
-                        would show here)
+  memory_*_mib          device memory allocated after the window once
+                        its frames, labels and outputs are freed and the
+                        collector has run (``memory_allocated_mib``, with
+                        the live blocks), while they are still held
+                        (``memory_with_window_mib``), and the peak within
+                        the window; graphs live and captured so far (a
+                        leak or a growing graph pool would show here)
 
 Then the first, last, least and most fps, their drift, and the worst
 window's degradation against the repo's 0.5% budget.
@@ -38,6 +41,7 @@ calls.
 """
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -132,13 +136,21 @@ def longrun(net, params, taus, cadence, H=720, W=1280, T=32, chunks=64,
                    "graphs_live": len(run.graphs.info()),
                    "graph_captures": run.graphs.captures}
             if cuda:
-                row["memory_allocated_mib"] = \
+                # the stream's own memory: read once the window's frames,
+                # labels and outputs are gone and the collector has run
+                row["memory_with_window_mib"] = \
                     torch.cuda.memory_allocated() / MIB
                 row["memory_peak_mib"] = \
                     torch.cuda.max_memory_allocated() / MIB
+            del staged, outs, window, iu, f, lab, ys, maps, i, u
+            gc.collect()
+            if cuda:
+                row["memory_allocated_mib"] = \
+                    torch.cuda.memory_allocated() / MIB
+                row["memory_blocks"] = torch.cuda.memory_stats().get(
+                    "active.all.current", 0)
             windows.append(row)
             log(json.dumps(row))
-            del staged, outs
     fps = [w["cb_fps"] for w in windows]
     degs = [w["degradation"] for w in windows]
     return {

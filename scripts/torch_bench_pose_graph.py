@@ -4,7 +4,8 @@
 
     python3 scripts/torch_bench_pose_graph.py [--sizes 360x640,720x1280]
         [--frames 12] [--chunks 2] [--tau T] [--seed S]
-        [--device cuda|cpu] [--width-mult N] [--out PATH]
+        [--device cuda|cpu] [--width-mult N] [--ckpt NPZ]
+        [--tau-json PATH] [--out PATH]
 
 ``zoo.load("pose_graph")`` (the OpenPose DAG: trained weights, tuned
 taus, its backend policy) at each size of ``--sizes`` (default the
@@ -18,6 +19,9 @@ their ratio, the effective-FLOP reduction over every timed chunk
 (refresh frames included), PCK of CB against dense, and with trained
 weights GT-PCK of both at alpha 0.05 and 0.02, and the overflow frames.
 The clips come from ``--seed`` (default the clock, as the reference's).
+Each row also names its weights and tau files and keeps the mean computed
+tiles per CB node; ``--ckpt`` and ``--tau-json`` take another checkpoint
+and tau file of the same architecture (an older one, to compare).
 
 Writes ``{"rows": [...]}`` with the reference's ``pose_graph`` row keys
 (plus the seed, the device and the card's name and power limit) to
@@ -27,6 +31,7 @@ reference's ``RESULTS.json`` is never written. ``bench`` is what
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -51,11 +56,19 @@ from cbinfer_tpu_torch.video import (SpriteVideo,  # noqa: E402
 
 
 def bench(H=360, W=640, T=12, chunks=2, tau=None, seed=None,
-          device="cuda", width=None, log=print):
-    """One row at H x W (the module docstring's fields)."""
+          device="cuda", width=None, ckpt=None, tau_json=None, log=print):
+    """One row at H x W (the module docstring's fields). ``ckpt`` and
+    ``tau_json`` replace the shipped weights and tau file (an older
+    checkpoint of the same architecture, say)."""
     dev = resolve_device(device)
     cfg = zoo.default_pipeline_config(device)
-    wl = zoo.load("pose_graph", (H, W, 3), cfg, tau=tau, width=width)
+    entry = zoo.REGISTRY["pose_graph"]
+    zoo.REGISTRY["pose_graph"] = dataclasses.replace(
+        entry, npz=ckpt or entry.npz, tau_json=tau_json or entry.tau_json)
+    try:
+        wl = zoo.load("pose_graph", (H, W, 3), cfg, tau=tau, width=width)
+    finally:
+        zoo.REGISTRY["pose_graph"] = entry
     for msg in wl.warnings:
         log(f"pose_graph: WARNING {msg}")
     net, params = wl.net, wl.params
@@ -119,6 +132,9 @@ def bench(H=360, W=640, T=12, chunks=2, tau=None, seed=None,
     ef = effective_flops_view(NetView.from_nodes(wl.specs, (H, W, 3)),
                               concat_stats(stats), cfg.tile.tile_h,
                               cfg.tile.tile_w)
+    computed = {n: float(np.mean([float(_np(cs[n]["computed_tiles"]))
+                                  for cs in stats]))
+                for n in stats[0] if stats[0][n]}
     row = {
         "model": "pose_graph", "resolution": f"{H}x{W}",
         "topology": "backbone -> 2 stages x {PAF, heatmap}, concat DAG",
@@ -132,6 +148,9 @@ def bench(H=360, W=640, T=12, chunks=2, tau=None, seed=None,
         "overflow_frames": overflows, "backend": cfg.backend,
         "backend_policy": wl.policy_source,
         "seed": seed, "frames_timed": frames, "device": str(dev),
+        "weights_file": os.path.relpath(ckpt or entry.npz, REPO),
+        "tau_file": os.path.relpath(tau_json or entry.tau_json, REPO),
+        "computed_tiles_per_layer": computed,
         **({"card": card()} if dev.type == "cuda" else {}),
     }
     log(json.dumps(row))
@@ -147,6 +166,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--width-mult", type=int, default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="weights npz instead of the shipped one")
+    ap.add_argument("--tau-json", default=None,
+                    help="tau file instead of the shipped one")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     rows = []
@@ -154,6 +177,7 @@ def main(argv=None):
         H, W = (int(x) for x in size.split("x"))
         rows.append(bench(H, W, args.frames, args.chunks, args.tau,
                           args.seed, args.device, args.width_mult,
+                          args.ckpt, args.tau_json,
                           log=lambda m: print(m, flush=True)))
         if rows[-1]["device"] != "cpu":
             torch.cuda.empty_cache()

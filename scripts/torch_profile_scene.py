@@ -82,8 +82,11 @@ def kernel_table(prof, n_frames, top):
     """Device-busy ms per frame (union of kernel intervals), device
     activities (kernels, copies, fills) per frame, the top kernels, and
     the port's own kernels."""
+    # a record_function range (the layers' stage scopes) also shows on the
+    # device's timeline, spanning its kernels: not an activity of its own
     kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:

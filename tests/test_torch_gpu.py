@@ -1321,6 +1321,7 @@ def test_side_stream_replays_equal_in_order_on_card(cuda):
     """Each stream's graphs (a pool per stream) replayed on a side CUDA
     stream of its own, joined by events: outputs, stats and caches equal
     the in-order replays from the same states, bit for bit."""
+    from cbinfer_tpu_torch.parallel import replay_on_side_streams
     from cbinfer_tpu_torch.runner import scan_video_jit
     net, params = _stream_net(cuda)
     chunks = _stream_chunks(cuda)
@@ -1335,9 +1336,9 @@ def test_side_stream_replays_equal_in_order_on_card(cuda):
     for st, sn in zip(states, snap):
         chip_smoke._restore(st, sn)
     side = [torch.cuda.Stream() for _ in range(3)]
-    got = chip_smoke.side_stream_chunk(torch, scans, params,
-                                       [chunks[2][s] for s in range(3)],
-                                       states, side)
+    got = replay_on_side_streams(scans, params,
+                                 [chunks[2][s] for s in range(3)], states,
+                                 side)
     torch.cuda.synchronize()
     for s in range(3):
         chip_smoke._same_run(torch, (got[s][0], states[s], got[s][1]),
@@ -1479,3 +1480,24 @@ def test_band_stem_equals_dense_cached_within_bf16_ulps_on_card(cuda):
     assert chip_smoke._ulps(torch, a, b) <= 1
     for key in ("changed_tiles", "changed_pixels", "detect_tiles"):
         assert sa[key].tolist() == sb[key].tolist(), key
+
+
+def test_plain_converter_cin3_stem_is_refused_on_card(cuda):
+    """The plain converter's stem as a CB conv on the kernel path (the
+    variants twin's ``stem=cb_banded``): the full-map detect (B7) refuses
+    its 3 channels (it takes an even count) and nothing falls back to
+    another route; the converters put a small-cin stem on ``patch_stem``
+    or ``dense_cached`` instead."""
+    from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
+    from cbinfer_tpu_torch.convert import convert
+    from cbinfer_tpu_torch.models import get_model
+    from cbinfer_tpu_torch.network import init_params
+    from cbinfer_tpu_torch.runner import scan_video
+    specs = get_model("scene", num_classes=8, width=8)
+    net = convert(specs, (64, 128, 3), PipelineConfig(
+        tile=TileConfig(8, 8, 0.375), backend="cuda",
+        compute_dtype="bfloat16", cache_dtype="bfloat16", device="cuda"))
+    params = init_params(specs, (64, 128, 3), seed=0, device=cuda,
+                         dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="detect_full"):
+        scan_video(net, params, torch.rand((2, 64, 128, 3), device=cuda))
