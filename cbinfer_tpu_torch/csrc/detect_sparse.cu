@@ -30,12 +30,12 @@
 //   (cb_launch_after_fill): the loads and the accept need nothing of it,
 //   the mask marks and the atomic wait for it.
 //
-// Clamped bottom edge: the last hint row starts at H - 8 when H % 8 != 0,
-// so it overlaps the row above, which another block may be updating at the
-// same time. Each block therefore touches only the rows it owns
-// (y >= 8 * hint_row): cache writes, mask cells and npix. That is exact: a
-// pixel outside every dirty tile was not recomputed by the producer, so its
-// diff is <= tau and it is never accepted or marked.
+// Ragged edges: the hint grid is cdiv(H, 8) x cdiv(W, 8), so the last hint
+// row and column may hold fewer than 8 rows or pixels of the map (any H and
+// W, fewer than 8 rows too). A warp skips a row at or past H, and the lanes
+// of a pixel at or past W load, compare and write nothing (they still take
+// part in the shuffles). Nothing past the logical map is read or written,
+// and each block touches only its own tile's pixels.
 #include "cb_detect.cuh"
 
 namespace {
@@ -70,23 +70,24 @@ __device__ __forceinline__ float unit_absdiff(uint4 a, uint4 b) {
                fmaxf(word_absdiff<T>(a.z, b.z), word_absdiff<T>(a.w, b.w)));
 }
 
-// One tile row of 8 pixels: x at xr, the storage at sr, each pixel `up`
-// load units of type U long. Lane = 4 * pixel + j; lane j of a pixel takes
-// its units j, j + 4, ... NV of them per batch. Returns 1 on the first lane
-// of each changed pixel, else 0.
+// One tile row of 8 pixels, the first `npx` of them inside the map: x at
+// xr, the storage at sr, each pixel `up` load units of type U long. Lane =
+// 4 * pixel + j; lane j of a pixel takes its units j, j + 4, ... NV of them
+// per batch. Returns 1 on the first lane of each changed pixel, else 0.
 template <typename T, typename U, int NV>
 __device__ __forceinline__ int detect_row(const T* __restrict__ xr,
                                           T* __restrict__ sr, int up,
-                                          float* __restrict__ mask,
+                                          int npx, float* __restrict__ mask,
                                           float tau, const CbTileGrid& grid,
                                           int y, int x0, int lane) {
   const int p = lane >> 2;
   const int j = lane & 3;
+  const bool inside = p < npx;
   const U* __restrict__ xu = reinterpret_cast<const U*>(xr) + p * up;
   U* __restrict__ su = reinterpret_cast<U*>(sr) + p * up;
   U xv[NV], cv[NV];
   float m = 0.f;
-  for (int b = j; b < up; b += 4 * NV) {
+  for (int b = j; b < (inside ? up : 0); b += 4 * NV) {
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const int u = b + 4 * k;
@@ -101,7 +102,7 @@ __device__ __forceinline__ int detect_row(const T* __restrict__ xr,
   }
   m = fmaxf(m, __shfl_xor_sync(kFull, m, 1));
   m = fmaxf(m, __shfl_xor_sync(kFull, m, 2));
-  if (!(m > tau)) return 0;
+  if (!inside || !(m > tau)) return 0;
   if (up <= 4 * NV) {  // one batch: the x of every unit is in registers
 #pragma unroll
     for (int k = 0; k < NV; ++k)
@@ -122,12 +123,13 @@ detect_sparse_kernel(const T* __restrict__ x, T* __restrict__ st,
                      const int* __restrict__ idx,
                      const int* __restrict__ count, float* __restrict__ mask,
                      int* __restrict__ npix, int cap,
-                     const float* __restrict__ tau_p, int hint_tiles_w,
-                     int up, CbDetectArgs a) {
+                     const float* __restrict__ tau_p, int W, int up,
+                     CbDetectArgs a) {
   __shared__ int s_n[8];
   const float tau = __ldg(tau_p);  // once per thread, not per pixel
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int hint_tiles_w = (W + 7) / 8;
   // blockIdx.x < gridDim.x <= cap: the first index loads beside the count
   int i = blockIdx.x;
   int t = __ldg(idx + i);
@@ -138,13 +140,13 @@ detect_sparse_kernel(const T* __restrict__ x, T* __restrict__ st,
     const int t_next = next < cap ? __ldg(idx + next) : 0;
     const int hi = t / hint_tiles_w;
     const int hj = t - hi * hint_tiles_w;
-    const int y = min(hi * 8, a.H - 8) + warp;  // one tile row per warp
-    if (y >= hi * 8) {  // own rows only (see the note at the top)
+    const int y = hi * 8 + warp;  // one tile row per warp
+    if (y < a.H) {  // the last hint row may be partial
       const T* xr = x + (long long)y * a.x_row + (long long)hj * 8 * a.C;
       T* sr = st + (long long)(y + a.slo_h) * a.s_row +
               (long long)(a.slo_w + hj * 8) * a.C;
-      local += detect_row<T, U, NV>(xr, sr, up, mask, tau, a.grid, y, hj * 8,
-                                    lane);
+      local += detect_row<T, U, NV>(xr, sr, up, min(8, W - hj * 8), mask,
+                                    tau, a.grid, y, hj * 8, lane);
     }
     i = next;
     t = t_next;
@@ -164,8 +166,7 @@ detect_sparse_kernel(const T* __restrict__ x, T* __restrict__ st,
 template <typename T, typename U>
 int launch(const void* x, void* st, const int* idx, const int* count,
            float* mask, int* npix, int cap, int grid, const float* tau,
-           int hint_tiles_w, int up, const CbDetectArgs& a,
-           cudaStream_t s) {
+           int W, int up, const CbDetectArgs& a, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* stt = static_cast<T*>(st);
   const int per_lane = (up + 3) / 4;  // units of a lane in one batch
@@ -176,14 +177,14 @@ int launch(const void* x, void* st, const int* idx, const int* count,
                                 : &detect_sparse_kernel<T, U, 8>;
   const cudaError_t err =
       cb_launch_after_fill(kernel, grid, 256, s, xt, stt, idx, count, mask,
-                           npix, cap, tau, hint_tiles_w, up, a);
+                           npix, cap, tau, W, up, a);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>
 int launch_type(const void* x, void* st, const int* idx, const int* count,
                 float* mask, int* npix, int cap, int grid, const float* tau,
-                int hint_tiles_w, const CbDetectArgs& a, cudaStream_t s) {
+                int W, const CbDetectArgs& a, cudaStream_t s) {
   // 16-byte units where every pixel starts 16-byte aligned (all offsets
   // are multiples of C elements), else 4-byte units
   const int bytes = a.C * (int)sizeof(T);
@@ -191,18 +192,19 @@ int launch_type(const void* x, void* st, const int* idx, const int* count,
                    && reinterpret_cast<uintptr_t>(st) % 16 == 0;
   if (vec)
     return launch<T, uint4>(x, st, idx, count, mask, npix, cap, grid, tau,
-                            hint_tiles_w, bytes / 16, a, s);
+                            W, bytes / 16, a, s);
   return launch<T, unsigned>(x, st, idx, count, mask, npix, cap, grid, tau,
-                             hint_tiles_w, bytes / 4, a, s);
+                             W, bytes / 4, a, s);
 }
 
 }  // namespace
 
-// cap: entries of idx; grid: blocks to launch (1 <= grid <= cap).
+// cap: entries of idx; grid: blocks to launch (1 <= grid <= cap). idx holds
+// ids on the cdiv(H, 8) x cdiv(W, 8) hint grid.
 extern "C" int cb_detect_sparse(
     const void* x, void* storage, const int* idx, const int* count,
     float* mask, int* npix, int cap, int grid, const float* tau, int dtype,
-    int H, int C, int hint_tiles_w, long long x_row, long long s_row,
+    int H, int C, int W, long long x_row, long long s_row,
     int slo_h, int slo_w, int tiles_h, int tiles_w, int step_h, int step_w,
     int pad_lo_h, int pad_lo_w, int win_h, int win_w, void* stream) {
   CbDetectArgs a{H,     C,     x_row,
@@ -214,9 +216,9 @@ extern "C" int cb_detect_sparse(
   if (grid < 0 || grid > cap) return (int)cudaErrorInvalidValue;
   if (dtype == CB_BF16)
     return launch_type<__nv_bfloat16>(x, storage, idx, count, mask, npix, cap,
-                                      grid, tau, hint_tiles_w, a, s);
+                                      grid, tau, W, a, s);
   if (dtype == CB_F32)
     return launch_type<float>(x, storage, idx, count, mask, npix, cap, grid,
-                              tau, hint_tiles_w, a, s);
+                              tau, W, a, s);
   return (int)cudaErrorInvalidValue;
 }

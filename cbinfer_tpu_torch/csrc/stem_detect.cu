@@ -32,6 +32,11 @@
 //   marks, in its own cell row and the rows above and below (a pixel of
 //   the first and last map row of a cell reaches the next cell row).
 // - npix: one atomic per block after a block sum.
+// - A finer cell (FINE: a cell of 4, 2 or 1 pixels, for a configured tile
+//   that is not whole 8x8 cells): each changed pixel marks the cells whose
+//   window (rows [cell*i - 1, cell*i + cell + 1)) holds it, by plain
+//   same-value stores after the wait. The loads, the accept and the count
+//   are the 8x8 path's; that path is unchanged.
 // - Launched to overlap the wrapper's one fill of mask and npix
 //   (cb_launch_after_fill): the loads and the accept need nothing of it;
 //   the marks and the atomic come after cb_wait_prior_grid.
@@ -88,9 +93,10 @@ struct StemDetectArgs {
   long long s_row;   // elements between rows of the storage
   int slo_h, slo_w;  // interior origin inside the storage
   int cells_h, cells_w, bw;  // the 8x8 cell grid; blocks over a cell row
+  CbTileGrid fine;   // the mask's grid of FINE cells (3x3 SAME windows)
 };
 
-template <typename T, int C, bool VEC>
+template <typename T, int C, bool VEC, bool FINE>
 __global__ void __launch_bounds__(256)
 stem_detect_kernel(const float* __restrict__ x, T* __restrict__ st,
                    float* __restrict__ mask, int* __restrict__ npix,
@@ -146,6 +152,22 @@ stem_detect_kernel(const float* __restrict__ x, T* __restrict__ st,
       }
     }
   }
+  if constexpr (FINE) {
+    const int n = __reduce_add_sync(kFull, __popc(bits));
+    if (lane == 0) s_n[warp] = n;
+    __syncthreads();
+    cb_wait_prior_grid();  // mask and npix are the fill's
+#pragma unroll
+    for (int p = 0; p < kPix; ++p)
+      if (bits >> p & 1) cb_mark_tiles(mask, a.fine, r, cb * kPix + p);
+    if (threadIdx.x == 0) {
+      int s = 0;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += s_n[w];
+      if (s) atomicAdd(npix, s);
+    }
+    return;
+  }
   // this row's marks on cells cb0 - 1 .. cb0 + 32 (bit j: cell cb0 - 1 + j):
   // a changed pixel marks its own cell, its first column the cell to the
   // left, its last column the cell to the right
@@ -191,8 +213,11 @@ int launch_c(const float* x, void* st, float* mask, int* npix,
              const float* tau, bool vec, int grid, const StemDetectArgs& a,
              cudaStream_t s) {
   // launched to overlap the wrapper's fill of mask and npix
-  auto kernel = vec ? &stem_detect_kernel<T, C, true>
-                    : &stem_detect_kernel<T, C, false>;
+  const bool fine = a.fine.step_h != 8;
+  auto kernel = vec ? (fine ? &stem_detect_kernel<T, C, true, true>
+                            : &stem_detect_kernel<T, C, true, false>)
+                    : (fine ? &stem_detect_kernel<T, C, false, true>
+                            : &stem_detect_kernel<T, C, false, false>);
   const cudaError_t err = cb_launch_after_fill(
       kernel, grid, 256, s, x, static_cast<T*>(st), mask, npix, tau, a);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
@@ -213,21 +238,25 @@ int launch_type(const float* x, void* st, float* mask, int* npix,
 
 }  // namespace
 
-// The stem's 3x3 SAME window on the 8x8 cell grid: H and W multiples of 8.
-// vec16: the frame, the storage's row starts and its interior origin are
-// 16-byte aligned (16-byte loads). bw: blocks over a cell row (the
+// The stem's 3x3 SAME window on the grid of cells of `cell` (8, 4, 2 or 1)
+// pixels: H and W multiples of 8; mask is (H / cell, W / cell). vec16: the
+// frame, the storage's row starts and its interior origin are 16-byte
+// aligned (16-byte loads). bw: blocks over a row of 8x8 cells (the
 // wrapper's block_plan, cdiv(W / 8, 32)); the grid is bw * H / 8.
 extern "C" int cb_stem_detect(const float* x, void* storage, float* mask,
                               int* npix, const float* tau, int dtype, int H,
                               int W, int C, long long s_row, int slo_h,
-                              int slo_w, int vec16, int bw, void* stream) {
+                              int slo_w, int vec16, int bw, int cell,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H <= 0 || W <= 0) return 0;
   const int cells_w = W / 8;
   if (H % 8 || W % 8 || bw <= 0 || bw * 32 < cells_w ||
-      (bw - 1) * 32 >= cells_w)
+      (bw - 1) * 32 >= cells_w || cell <= 0 || 8 % cell)
     return (int)cudaErrorInvalidValue;
-  StemDetectArgs a{W, s_row, slo_h, slo_w, H / 8, cells_w, bw};
+  StemDetectArgs a{W,       s_row, slo_h, slo_w, H / 8, cells_w, bw,
+                   {H / cell, W / cell, cell, cell, 1, 1, cell + 2,
+                    cell + 2}};
   const int grid = bw * (H / 8);
   if (dtype == CB_BF16)
     return launch_type<__nv_bfloat16>(x, storage, mask, npix, tau, C, vec16,

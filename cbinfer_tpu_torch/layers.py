@@ -51,10 +51,14 @@ host sync, nothing inside a CUDA graph.
 Lane padding: the JAX package pads every channel dim to 128 on its
 ``"pallas"`` backend; the port stores logical widths (the delta conv
 kernels take any cin that is a multiple of 8 in bf16, 4 in float32). The
-one exception is the out cache of a ``"cuda"`` conv whose cout is off that
-grid (``stored_features``): the kernels store whole output vectors, so the
-cache keeps zero channels up to the grid, computed on zero weight columns
-and a zero bias, and the layer's ``Feature`` crops them.
+exceptions are the caches of a ``"cuda"`` layer off that grid: a conv's
+out cache whose cout is off it (``stored_features``) keeps zero channels
+up to the grid, computed on zero weight columns and a zero bias, and the
+layer's ``Feature`` crops them; an input cache whose width is off it (the
+3-channel stem, a pool's or a conv's input from such a producer;
+``cache_channels``) keeps zero channels up to the grid, which the
+full-map detect never reads or writes, the other kernels read as zeros,
+and the delta conv multiplies by zero weight rows.
 """
 
 from __future__ import annotations
@@ -158,6 +162,25 @@ def _unwrap(x):
     return x, x.shape[0], x.shape[1], x.shape[2]
 
 
+def _unwrap_stored(x, c_store: int):
+    """``_unwrap``, except that a padded Feature whose data is ``c_store``
+    channels wide (a ``"cuda"`` layer's input storage) passes whole, its
+    zero channels included, with no crop."""
+    if isinstance(x, Feature) and x.data.shape[-1] == c_store:
+        return x.data, x.h, x.w, x.c
+    return _unwrap(x)
+
+
+def _to_width(x: torch.Tensor, c: int, h: int, w: int) -> torch.Tensor:
+    """``x`` as wide as a ``"cuda"`` layer's input storage of ``c``
+    channels, as the hinted kernels read it: itself, or (a raw input off
+    the channel grid, such as a DAG's concat) its logical map with zero
+    channels appended, one copy a frame."""
+    if x.shape[-1] == c:
+        return x
+    return F.pad(x[:h, :w], (0, c - x.shape[-1]))
+
+
 def _layer_cfg(spec, cfg: PipelineConfig) -> PipelineConfig:
     """Apply the spec's per-layer backend override to the pipeline cfg."""
     if spec.backend is not None and spec.backend != cfg.backend:
@@ -205,24 +228,37 @@ def cache_channels(spec, in_c: int, cfg: PipelineConfig) -> Tuple[int, int]:
     it, and the cost model (``metrics.effective_cost_view``) prices the
     detect traffic at the first, so the two cannot drift apart. The input
     storage keeps the logical width (the JAX package pads it to 128 lanes
-    on its ``"pallas"`` backend); a conv's out cache has
-    ``stored_features``, a pool's the input's width."""
+    on its ``"pallas"`` backend), except that of a ``"cuda"`` layer,
+    which is rounded up to the tile convs' ``channel_quantum`` (on every
+    device, as ``stored_features``: 3 -> 8 in bf16, 4 in float32); a
+    conv's out cache has ``stored_features``, a pool's its input storage's
+    width. A padded producer's out cache is then exactly as wide as its
+    ``"cuda"`` consumer's input storage, and passes to it whole
+    (``_unwrap_stored``): the zero channels of both agree."""
+    lcfg = _layer_cfg(spec, cfg)
+    if lcfg.backend == "cuda":
+        q = channel_quantum(network.torch_dtype(lcfg.cache_dtype))
+        in_c = -(-in_c // q) * q
     if isinstance(spec, ConvSpec):
         return in_c, stored_features(spec, cfg)
     return in_c, in_c
 
 
-def _padded_params(w: torch.Tensor, b: Optional[torch.Tensor], cout: int):
-    """``(w, b)`` with zero output channels up to ``cout``: made at the
-    first use and kept on ``w`` (anew if ``w`` or ``b`` was written in place
-    since), so every frame hands the kernel the same tensors."""
-    if w.shape[3] == cout:
+def _padded_params(w: torch.Tensor, b: Optional[torch.Tensor], cout: int,
+                   cin: Optional[int] = None):
+    """``(w, b)`` with zero input channels up to ``cin`` and zero output
+    channels up to ``cout``: made at the first use and kept on ``w`` (anew
+    if ``w`` or ``b`` was written in place since), so every frame hands the
+    kernel the same tensors."""
+    cin = w.shape[2] if cin is None else cin
+    if w.shape[2:] == (cin, cout):
         return w, b
-    key = (w._version, None if b is None else (b.data_ptr(), b._version))
+    key = (w._version, cin, cout,
+           None if b is None else (b.data_ptr(), b._version))
     got = getattr(w, "_cb_padded", None)
     if got is None or got[0] != key:
-        wp = w.new_zeros(tuple(w.shape[:3]) + (cout,))
-        wp[..., :w.shape[3]] = w
+        wp = w.new_zeros(tuple(w.shape[:2]) + (cin, cout))
+        wp[:, :, :w.shape[2], :w.shape[3]] = w
         bp = None
         if b is not None:
             bp = b.new_zeros((cout,))
@@ -256,9 +292,9 @@ def cb_layer_init(spec, in_shape: Tuple[int, int, int], cfg: PipelineConfig
                                 device=dev),
             out_cache=out_cache)
     margin = NEG_FILL if isinstance(spec, PoolSpec) else 0.0
-    return CBLayerState(
-        in_cache=make_storage(g, detect.COLD_START_FILL, margin, dtype, dev),
-        out_cache=out_cache)
+    in_cache = make_storage(g, detect.COLD_START_FILL, margin, dtype, dev)
+    in_cache[..., in_shape[2]:] = 0  # channels past the input: zero
+    return CBLayerState(in_cache=in_cache, out_cache=out_cache)
 
 
 # ----------------------------- dirty hints ----------------------------------
@@ -328,12 +364,8 @@ def _accept_hinted(x: torch.Tensor, in_cache: torch.Tensor, hint: DirtyHint,
         torch.where(pix[..., None], x[:H, :W].to(interior.dtype), interior,
                     out=interior)
         return in_cache, hint.mask.sum(dtype=torch.int32)
-    if g.in_h < HINT_TILE or g.in_w % HINT_TILE:
-        raise NotImplementedError(
-            "a forward-hint conv needs a map of at least 8 rows and "
-            f"8-aligned columns (the tile copy kernel); got "
-            f"{(g.in_h, g.in_w)}")
     dcomp = compact.compact_mask(hint.mask, hint.mask.numel())
+    x = _to_width(x, in_cache.shape[-1], g.in_h, g.in_w)
     storage = accept_tiles(x.to(in_cache.dtype), in_cache, dcomp.idx,
                            dcomp.count, g)
     return storage, dcomp.count
@@ -372,10 +404,12 @@ def _detect_and_mask(x: torch.Tensor, in_cache: torch.Tensor, tau,
     detect_tiles). ``"cuda"`` layers run the sparse detect kernel over the
     producer's hint, or the full-map detect kernel where there is none
     (after a dense layer); ``"dense_cached"`` layers detect the full map
-    with torch ops. The JAX package's gate for the full-map kernel also
-    asks for an 8-aligned map and 128-lane channels, rules of its band
-    sweep with no counterpart on the card (the CUDA kernel clips at the
-    map's edge), so those conditions are dropped."""
+    with torch ops. The JAX package's gates for its two detect kernels
+    also ask for an 8-aligned map (the sparse one: 8 rows and 8-aligned
+    columns) and 128-lane channels, and send other maps to XLA ops; these
+    are rules of Mosaic's windows with no counterpart on the card (both
+    CUDA kernels take the map's partial edge tiles), so they are dropped
+    and every map goes through the kernels, with the same results."""
     if hint is not None and hint.predetect is not None:
         # the producer's fused kernel already ran THIS layer's detect on
         # the tiles it computed, into this very cache
@@ -388,11 +422,8 @@ def _detect_and_mask(x: torch.Tensor, in_cache: torch.Tensor, tau,
             storage, maskf, npix = detect_full(x, in_cache, tau, g)
             return (storage, maskf > 0.5, npix[0],
                     cdiv(H, HINT_TILE) * cdiv(W, HINT_TILE))
-        if H < HINT_TILE or W % HINT_TILE:
-            raise NotImplementedError(
-                "a hinted 'cuda' layer needs a map of at least 8 rows and "
-                f"8-aligned columns (the sparse detect kernel); got {(H, W)}")
         dcomp = compact.compact_mask(hint.mask, hint.mask.numel())
+        x = _to_width(x, in_cache.shape[-1], H, W)
         storage, maskf, npix = detect_sparse(x, in_cache, tau, dcomp.idx,
                                              dcomp.count, g)
         return storage, maskf > 0.5, npix[0], dcomp.count
@@ -514,13 +545,17 @@ def fuse_next_gate(spec, spec2, in_shape: Tuple[int, int, int],
     return fuse_gate(g, g2)
 
 
-def _conv_prep(params, x, spec: ConvSpec, cfg: PipelineConfig):
-    """Unwrap the (possibly padded) Feature; returns (x, w, b, g)."""
+def _conv_prep(params, x, spec: ConvSpec, cfg: PipelineConfig,
+               cin_store: Optional[int] = None):
+    """Unwrap the (possibly padded) Feature; returns (x, w, b, g), ``g``
+    over an input storage of ``cin_store`` channels where given (a
+    ``"cuda"`` conv's input cache, ``cache_channels``), else of x's."""
     w, b = params
-    x, H, W, xc = _unwrap(x)
+    x, H, W, xc = (_unwrap(x) if cin_store is None
+                   else _unwrap_stored(x, cin_store))
     if w.shape[2] != xc:
         raise ValueError(f"weights {tuple(w.shape)} for {xc} input channels")
-    return x, w, b, _geometry(spec, (H, W, xc), cfg)
+    return x, w, b, _geometry(spec, (H, W, cin_store or xc), cfg)
 
 
 def _store_output(state: CBLayerState, y: torch.Tensor,
@@ -554,7 +589,9 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
     pipe_cfg = cfg
     cfg = _layer_cfg(spec, cfg)
     compute_dtype = network.torch_dtype(cfg.compute_dtype)
-    x, w, b, g = _conv_prep(params, x, spec, cfg)
+    x, w, b, g = _conv_prep(
+        params, x, spec, cfg,
+        state.in_cache.shape[-1] if cfg.backend == "cuda" else None)
 
     if cfg.backend == "patch_stem":
         return _patch_stem_apply(state, x, w, b, g, spec, cfg, compute_dtype,
@@ -608,7 +645,7 @@ def cb_conv_apply(params, state: CBLayerState, x, spec: ConvSpec,
     if cfg.backend == "torch":
         tile_fn, dense_fn = _bounded_conv_fns(w, b, g, spec, compute_dtype)
     else:
-        w, b = _padded_params(w, b, state.out_cache.shape[-1])
+        w, b = _padded_params(w, b, state.out_cache.shape[-1], g.cin)
 
         def tile_fn(storage, idx, count, out_cache):
             delta_conv(storage, idx, w, b, out_cache, g, spec.activation,
@@ -666,22 +703,21 @@ def _patch_stem_apply(state: CBLayerState, x: torch.Tensor, w, b,
                               spec.dilation, spec.padding, spec.activation):
         raise ValueError(f"patch_stem does not support {spec} on {(H, W, xc)}")
     x = x[:H, :W, :xc]
-    if cfg.tile.tile_h % HINT_TILE or cfg.tile.tile_w % HINT_TILE:
-        # the JAX package detects such grids per pixel with XLA ops; the
-        # stem detect kernel emits 8x8 cells only
-        raise NotImplementedError(
-            "patch_stem needs a configured tile that is a multiple of the "
-            f"8x8 cell, got {(cfg.tile.tile_h, cfg.tile.tile_w)}")
-    # the 8x8 cell mask the kernel emits IS the hint mask, and the window
-    # of a tile made of whole cells (a stem tile, a configured tile) is the
-    # union of its cells' windows, so its mask is the OR of theirs
+    # the kernel's cell mask: the 8x8 hint mask itself, or, for a
+    # configured tile that is not whole 8x8 cells, a finer one (the JAX
+    # package detects such grids per pixel with XLA ops). The window of a
+    # tile made of whole cells (a hint tile, a stem tile, a configured
+    # tile) is the union of its cells' windows, so its mask is the OR of
+    # theirs
+    th, tw = cfg.tile.tile_h, cfg.tile.tile_w
+    c = flat4_ops.mask_cell(th, tw)
     with stage("detect"):
-        storage, cell_mask, npix1 = stem_detect(x, state.in_cache, tau, g)
-        hint_mask = cell_mask > 0
+        storage, cell_mask, npix1 = stem_detect(x, state.in_cache, tau, g, c)
+        cells = cell_mask > 0
         n_pix = npix1[0]
-        mask = _or_cells(hint_mask, g.th // HINT_TILE, g.tw // HINT_TILE)
-        fine_mask = _or_cells(hint_mask, cfg.tile.tile_h // HINT_TILE,
-                              cfg.tile.tile_w // HINT_TILE)
+        hint_mask = _or_cells(cells, HINT_TILE // c, HINT_TILE // c)
+        mask = _or_cells(cells, g.th // c, g.tw // c)
+        fine_mask = _or_cells(cells, th // c, tw // c)
     g_hint = flat4_ops.cell_geometry(g)
     capacity = cfg.tile.capacity(g.n_tiles)
     with stage("compact"):
@@ -818,8 +854,8 @@ def cb_conv_refresh(params, state: CBLayerState, x, spec: ConvSpec,
     x = x[:g.in_h, :g.in_w]
     if cfg.backend == "dense_cached_flat":
         state.in_cache.view(g.in_h, g.in_w, g.cin).copy_(x)
-    else:
-        storage_interior(state.in_cache, g).copy_(x)
+    else:  # a padded input cache keeps its zero channels
+        storage_interior(state.in_cache, g)[..., :g.cin].copy_(x)
     y = network.dense_conv(x.to(compute_dtype), w, b, spec, compute_dtype)
     _store_output(state, y, g)
     tile_scale = 1
@@ -836,13 +872,14 @@ def cb_pool_refresh(state: CBLayerState, x, spec: PoolSpec,
     input cache stays a placeholder; the padded storage is then transient."""
     cfg = _layer_cfg(spec, cfg)
     x, H, W, c = _unwrap(x)
-    g = _geometry(spec, (H, W, c), cfg)
+    g = _geometry(spec, (H, W, state.out_cache.shape[-1]), cfg)
     if spec.elide_in_cache:
         storage = make_storage(g, 0.0, NEG_FILL, state.out_cache.dtype,
                                x.device)
+        storage[..., c:] = 0
     else:
         storage = state.in_cache
-    storage_interior(storage, g).copy_(x[:H, :W])
+    storage_interior(storage, g)[..., :c].copy_(x[:H, :W])
     state.out_cache.copy_(dense_pool(storage, g))
     return (Feature(state.out_cache, g.out_h, g.out_w, c), state,
             _full_stats(g), _full_hint(g, x.device))
@@ -873,8 +910,10 @@ def cb_pool_apply(state: CBLayerState, x, spec: PoolSpec,
     """One frame through a change-based max-pool layer. Returns
     (y: Feature, state, stats, out_hint)."""
     cfg = _layer_cfg(spec, cfg)
-    x, H, W, c = _unwrap(x)
-    g = _geometry(spec, (H, W, c), cfg)
+    c_store = state.out_cache.shape[-1]  # the input storage's width
+    x, H, W, c = (_unwrap_stored(x, c_store) if cfg.backend == "cuda"
+                  else _unwrap(x))
+    g = _geometry(spec, (H, W, c_store), cfg)
     if (spec.forward_hint and hint is not None
             and fused_pool_gate(spec, g, cfg)):
         # forward-hint mode: one fused kernel over the producer's dirty
@@ -884,6 +923,7 @@ def cb_pool_apply(state: CBLayerState, x, spec: PoolSpec,
         hm = hint.mask
         pair = hm[:, 0::2] | hm[:, 1::2]
         dcomp = compact.compact_mask(pair, pair.numel())
+        x = _to_width(x, c_store, H, W)
         _, maskf = detect_pool_fused(x, state.out_cache, dcomp.idx,
                                      dcomp.count, g, hint_h=HINT_TILE,
                                      hint_w=2 * HINT_TILE)

@@ -37,10 +37,20 @@ def supports(in_shape: Tuple[int, int, int], kernel, stride, dilation,
             and activation in (None, "relu"))
 
 
-def cell_geometry(g: TileGeometry) -> TileGeometry:
-    """The stem's geometry on the 8x8 cell grid (the gate fixes SAME)."""
+def cell_geometry(g: TileGeometry, cell: int = CELL) -> TileGeometry:
+    """The stem's geometry on the grid of ``cell`` x ``cell`` cells (the
+    8x8 hint grid by default; the gate fixes SAME)."""
     return conv_tile_geometry((g.in_h, g.in_w, g.cin), g.kernel, g.stride,
-                              g.dilation, "SAME", CELL, CELL)
+                              g.dilation, "SAME", cell, cell)
+
+
+def mask_cell(tile_h: int, tile_w: int) -> int:
+    """The stem detect's cell for a configured tile: the largest of 8, 4,
+    2 and 1 that divides both sides, so the configured tile, the 8x8 hint
+    tile and the (8, 32) stem tile are each whole cells, and each one's
+    window (3x3 SAME) the union of its cells' windows."""
+    return next(c for c in (CELL, 4, 2, 1)
+                if tile_h % c == 0 and tile_w % c == 0)
 
 
 def detect_accept_flat4(x: torch.Tensor, storage: torch.Tensor, tau,

@@ -5,7 +5,9 @@ source (``csrc/accept_tiles.cu``) carries the design note: bytes bound the
 kernel on the H100 (a pure copy of the hinted 8x8xC tiles), a grid sized to
 the card walks (tile, part) pairs up to the device-side count with every
 load of a thread in flight before its stores, and the clamped bottom tile
-may overlap the row above because both blocks write the same bytes.
+may overlap the row above because both blocks write the same bytes. The
+last hint row and column may be partial (any map size): nothing past the
+logical map is read or written.
 """
 
 from __future__ import annotations
@@ -38,16 +40,20 @@ def accept_tiles_plain(x: torch.Tensor, storage: torch.Tensor,
                        idx: torch.Tensor, count: torch.Tensor,
                        g: TileGeometry) -> torch.Tensor:
     """Plain PyTorch version (same signature and result as the kernel):
-    copies the listed 8x8 tiles, the bottom one clamped to ``H - 8``, into
-    the interior of ``storage`` in place."""
+    copies the listed 8x8 tiles, the bottom one clamped to ``H - 8`` on a
+    map of at least 8 rows, into the interior of ``storage`` in place; the
+    pixels of a tile past the map (a map of fewer than 8 rows, the partial
+    last column) are not copied."""
     H, W = g.in_h, g.in_w
     ids = tile_ids(idx, count)
-    hw = W // HINT
-    oy = torch.clamp(ids // hw * HINT, max=H - HINT)
+    hw = cdiv(W, HINT)
+    oy = torch.clamp(ids // hw * HINT, max=max(H - HINT, 0))
     ox = ids % hw * HINT
     ar = torch.arange(HINT, device=x.device)
-    rows = (oy[:, None] + ar)[:, :, None]
-    cols = (ox[:, None] + ar)[:, None, :]
+    rows = (oy[:, None] + ar)[:, :, None].expand(-1, HINT, HINT)
+    cols = (ox[:, None] + ar)[:, None, :].expand(-1, HINT, HINT)
+    inside = (rows < H) & (cols < W)
+    rows, cols = rows[inside], cols[inside]
     storage[rows + g.store_lo_h, cols + g.store_lo_w] = \
         x[rows, cols].to(storage.dtype)
     return storage
@@ -79,9 +85,13 @@ def _strides(x: torch.Tensor, storage: torch.Tensor, g: TileGeometry):
 def unit_bytes(x: torch.Tensor, storage: torch.Tensor,
                g: TileGeometry) -> int:
     """B9's load unit: 16 bytes where both pointers and every row start of
-    a tile (in x and in the storage) are 16-byte aligned, else 4."""
+    a tile (in x and in the storage) are 16-byte aligned and a pixel is
+    whole units (so the partial last column of a ragged map ends on a
+    unit), else 4."""
+    pixel = storage.shape[-1] * storage.element_size()
     return 4 if any(v % 16 for v in (x.data_ptr(), storage.data_ptr(),
-                                     *_strides(x, storage, g))) else 16
+                                     *_strides(x, storage, g), pixel)) \
+        else 16
 
 
 def _fn():
@@ -101,14 +111,12 @@ def accept_tiles(x: torch.Tensor, storage: torch.Tensor, idx: torch.Tensor,
     x: (>=H, >=W, C) producer output (may be its padded out cache; logical
     dims come from ``g``). storage: this layer's padded input cache,
     UPDATED IN PLACE (the JAX package donates and aliases it). idx/count:
-    compacted ids on the 8x8 hint grid of the logical input, ``count`` a
-    device int32 scalar. On the card x and the storage share their dtype:
-    anything else raises (no silent conversion). Returns the storage.
+    compacted ids on the 8x8 hint grid of the logical input
+    (``cdiv(H, 8) x cdiv(W, 8)``: any map size), ``count`` a device int32
+    scalar. On the card x and the storage share their dtype: anything else
+    raises (no silent conversion). Returns the storage.
     """
     H, W = g.in_h, g.in_w
-    if W % HINT or H < HINT:
-        raise ValueError(f"accept_tiles needs W % 8 == 0 and H >= 8, "
-                         f"got {(H, W)}")
     if x.device.type == "cpu" and storage.device.type == "cpu":
         return accept_tiles_plain(x, storage, idx, count, g)
     C = storage.shape[-1]
@@ -122,7 +130,7 @@ def accept_tiles(x: torch.Tensor, storage: torch.Tensor, idx: torch.Tensor,
             or tuple(storage.shape) != g.store_shape[:2] + (C,)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
             or count.numel() != 1
-            or idx.numel() > cdiv(H, HINT) * (W // HINT)):
+            or idx.numel() > cdiv(H, HINT) * cdiv(W, HINT)):
         raise ValueError(
             f"accept_tiles: unsupported operands x{tuple(x.shape)} "
             f"{x.dtype} storage{tuple(storage.shape)} {storage.dtype} "
@@ -137,7 +145,7 @@ def accept_tiles(x: torch.Tensor, storage: torch.Tensor, idx: torch.Tensor,
                      BLOCKS_PER_SM)
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     err = _fn()(x.data_ptr(), storage.data_ptr(), idx.data_ptr(),
-                count.data_ptr(), idx.numel(), grid, H, W // HINT, x_row,
+                count.data_ptr(), idx.numel(), grid, H, W, x_row,
                 s_row, s_origin, tile_row, int(unit == 16), parts, per, upt,
                 stream)
     check(err, "accept_tiles")

@@ -4,7 +4,10 @@ Replaces ``cbinfer_tpu/ops/pallas/detect.py::detect_full_pallas``. The CUDA
 source (``csrc/detect_full.cu``) carries the design note: bytes bound it on
 the H100 (x and the cache are read once each); 8-row x 32-pixel blocks in
 any order, one warp per row, the per-pixel step shared with the sparse
-detect kernel.
+detect kernel. An x with fewer channels than the storage, or an odd
+count (the 3-channel stem, whose input cache a ``"cuda"`` conv stores at
+the tile convs' channel grid), takes one lane per pixel and compares its
+own channels only.
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ KERNEL = Kernel(name="detect_full", route="cuda",
 def detect_full_plain(x: torch.Tensor, storage: torch.Tensor, tau,
                       g: TileGeometry):
     """Plain PyTorch version (same signature and results as the kernel):
-    ``x`` cast to the cache dtype first, the full-map detect, the windowed
-    OR onto the layer's out-tile grid. Updates ``storage`` in place;
-    returns (storage, mask f32 (tiles_h, tiles_w), npix int32 (1,))."""
-    interior = storage_interior(storage, g)
+    ``x`` cast to the cache dtype first, the full-map detect on x's
+    channels (the storage's channels past them are left alone), the
+    windowed OR onto the layer's out-tile grid. Updates ``storage`` in
+    place; returns (storage, mask f32 (tiles_h, tiles_w), npix int32
+    (1,))."""
+    interior = storage_interior(storage, g)[..., :x.shape[-1]]
     xi = x[:g.in_h, :g.in_w].to(storage.dtype)
     new, changed = detect_ops.detect_and_update(xi, interior, tau)
     interior.copy_(new)
@@ -42,7 +47,7 @@ def _fn():
     f = library("detect_full").cb_detect_full
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 5 + [i] * 4 + [ll, ll] + [i] * 10 + [vp]
+        f.argtypes = [vp] * 5 + [i] * 5 + [ll, ll] + [i] * 10 + [vp]
         f.restype = ctypes.c_int
     return f
 
@@ -51,8 +56,10 @@ def detect_full(x: torch.Tensor, storage: torch.Tensor, tau,
                 g: TileGeometry):
     """Detect + accept + dilate over the whole input map.
 
-    x: (>=H, >=W, C) current input (only logical coordinates are read),
-    compared in the cache dtype. storage: this layer's padded input cache
+    x: (>=H, >=W, cx) current input (only logical coordinates are read),
+    compared in the cache dtype; cx <= C, any count (the storage's
+    channels past cx are neither read nor written). storage: this layer's
+    padded input cache of C channels
     (conv: zero margins; pool: the finite "-inf" fill), UPDATED IN PLACE
     (the JAX package donates and aliases it). tau: a host number or a 0-d
     float32 tensor on the card, which the kernel reads at run time (a
@@ -64,8 +71,8 @@ def detect_full(x: torch.Tensor, storage: torch.Tensor, tau,
     if not (x.is_cuda and storage.is_cuda):
         raise ValueError("detect_full: tensors must all be on the card")
     x = x.to(storage.dtype)  # the JAX kernel compares in the cache dtype
-    C = storage.shape[-1]
-    if (storage.dtype not in DTYPE_CODE or x.shape[-1] != C or C % 2
+    C, cx = storage.shape[-1], x.shape[-1]
+    if (storage.dtype not in DTYPE_CODE or not 1 <= cx <= C
             or x.shape[0] < H or x.shape[1] < W
             or tuple(storage.shape) != g.store_shape[:2] + (C,)
             or not x.is_contiguous() or not storage.is_contiguous()):
@@ -80,9 +87,9 @@ def detect_full(x: torch.Tensor, storage: torch.Tensor, tau,
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     err = _fn()(x.data_ptr(), storage.data_ptr(), mask.data_ptr(),
                 npix.data_ptr(), tau.data_ptr(), DTYPE_CODE[storage.dtype],
-                H, W, C, x.shape[1] * C, storage.shape[1] * C, g.store_lo_h,
-                g.store_lo_w, g.tiles_h, g.tiles_w, g.th * sh, g.tw * sw,
-                g.pad_lo_h, g.pad_lo_w, g.win_h, g.win_w, stream)
+                H, W, C, cx, x.shape[1] * cx, storage.shape[1] * C,
+                g.store_lo_h, g.store_lo_w, g.tiles_h, g.tiles_w, g.th * sh,
+                g.tw * sw, g.pad_lo_h, g.pad_lo_w, g.win_h, g.win_w, stream)
     check(err, "detect_full")
     KERNEL.launches += 1
     return storage, mask, npix

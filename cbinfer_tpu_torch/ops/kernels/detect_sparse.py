@@ -4,8 +4,9 @@ Replaces ``cbinfer_tpu/ops/pallas/detect.py::detect_sparse``. The CUDA
 source (``csrc/detect_sparse.cu``) carries the design note: bytes bound
 the kernel on the H100 (it reads x and the cache once per visited tile and
 writes the accepted pixels), a grid sized to the card walks the
-device-side count, a warp holds a whole tile row in flight, and each block
-touches only its own rows so the clamped bottom edge cannot race.
+device-side count, a warp holds a whole tile row in flight, and the last
+hint row and column may be partial (any map size): nothing past the
+logical map is read or written.
 """
 
 from __future__ import annotations
@@ -37,11 +38,11 @@ def detect_sparse_plain(x: torch.Tensor, storage: torch.Tensor, tau,
     Updates ``storage`` in place; returns (storage, mask f32
     (tiles_h, tiles_w), npix int32 (1,))."""
     H, W = g.in_h, g.in_w
-    hh, hw = cdiv(H, HINT), W // HINT
+    hh, hw = cdiv(H, HINT), cdiv(W, HINT)
     hm = torch.zeros(hh * hw, dtype=torch.bool, device=x.device)
     hm[tile_ids(idx, count)] = True
-    # a pixel belongs to the hint tile of its own row: the clamped last
-    # hint row owns rows [8*hi, H) only
+    # a pixel belongs to the hint tile that holds it: the last hint row
+    # and column own what is left of the map
     pix = hm.view(hh, hw).repeat_interleave(HINT, 0).repeat_interleave(
         HINT, 1)[:H, :W]
     interior = storage_interior(storage, g)
@@ -71,14 +72,12 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
     cache; only logical coordinates are read). storage: this layer's
     padded input cache, UPDATED IN PLACE (the JAX package donates and
     aliases it). idx/count: compacted ids on the 8x8 hint grid of the
-    input, ``count`` a device int32 scalar. tau: a host number or a 0-d
-    float32 tensor on the card, read by the kernel at run time. Returns
-    (storage, mask f32 (tiles_h, tiles_w), npix int32 (1,)).
+    input (``cdiv(H, 8) x cdiv(W, 8)``: any map size), ``count`` a device
+    int32 scalar. tau: a host number or a 0-d float32 tensor on the card,
+    read by the kernel at run time. Returns (storage, mask f32 (tiles_h,
+    tiles_w), npix int32 (1,)).
     """
     H, W = g.in_h, g.in_w
-    if W % HINT or H < HINT:
-        raise ValueError(f"detect_sparse needs W % 8 == 0 and H >= 8, "
-                         f"got {(H, W)}")
     if x.device.type == "cpu" and storage.device.type == "cpu":
         return detect_sparse_plain(x, storage, tau, idx, count, g)
     x = x.to(storage.dtype)  # the JAX kernel compares in the cache dtype
@@ -91,7 +90,7 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
             or tuple(storage.shape) != g.store_shape[:2] + (C,)
             or idx.dtype != torch.int32 or count.dtype != torch.int32
             or count.numel() != 1
-            or idx.numel() > cdiv(H, HINT) * (W // HINT)
+            or idx.numel() > cdiv(H, HINT) * cdiv(W, HINT)
             or x.data_ptr() % 4 or storage.data_ptr() % 4):
         raise ValueError(
             f"detect_sparse: unsupported operands x{tuple(x.shape)} "
@@ -113,7 +112,7 @@ def detect_sparse(x: torch.Tensor, storage: torch.Tensor, tau,
     err = _fn()(x.data_ptr(), storage.data_ptr(), idx.data_ptr(),
                 count.data_ptr(), mask.data_ptr(), npix.data_ptr(),
                 idx.numel(), grid, tau.data_ptr(),
-                DTYPE_CODE[storage.dtype], H, C, W // HINT, x.shape[1] * C,
+                DTYPE_CODE[storage.dtype], H, C, W, x.shape[1] * C,
                 storage.shape[1] * C, g.store_lo_h, g.store_lo_w, g.tiles_h,
                 g.tiles_w, g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w,
                 g.win_h, g.win_w, stream)

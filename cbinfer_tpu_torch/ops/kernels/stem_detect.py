@@ -6,7 +6,9 @@ carries the design note: bytes bound it on the H100 (the float32 frame and
 the cache are read once); a thread holds the loads of one cell's row of 8
 pixels in flight and compares the UNROUNDED input, a block of 8 warps owns
 32 cells and dilates the 8x8 cell mask with at most one store per cell it
-marks, and the kernel's launch overlaps the one fill of mask and npix. The
+marks (a finer cell, for a configured tile that is not whole 8x8 cells:
+one store per cell a changed pixel reaches), and the kernel's launch
+overlaps the one fill of mask and npix. The
 cache is the port's padded HWC stem storage, not the reference's flat4
 buffer (``ops/flat4.py``).
 """
@@ -29,14 +31,16 @@ KERNEL = Kernel(name="stem_detect", route="cuda",
 
 
 def stem_detect_plain(x: torch.Tensor, storage: torch.Tensor, tau,
-                      g: TileGeometry):
+                      g: TileGeometry, cell: int = flat4.CELL):
     """Plain PyTorch version (same signature and results as the kernel):
     the per-pixel detect of ``flat4.detect_accept_flat4`` plus the windowed
-    OR onto the 8x8 cell grid. Updates ``storage`` in place; returns
-    (storage, cell mask f32 (H/8, W/8), npix int32 (1,))."""
+    OR onto the grid of ``cell`` x ``cell`` cells. Updates ``storage`` in
+    place; returns (storage, cell mask f32 (H/cell, W/cell), npix int32
+    (1,))."""
     storage, changed, n_pix = flat4.detect_accept_flat4(
         x[:g.in_h, :g.in_w], storage, tau, g)
-    mask = detect_ops.changed_tile_mask(changed, flat4.cell_geometry(g))
+    mask = detect_ops.changed_tile_mask(changed,
+                                        flat4.cell_geometry(g, cell))
     return storage, mask.float(), n_pix.reshape(1)
 
 
@@ -64,13 +68,13 @@ def _fn():
     f = library("stem_detect").cb_stem_detect
     if f.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = [vp] * 5 + [i] * 4 + [ll] + [i] * 4 + [vp]
+        f.argtypes = [vp] * 5 + [i] * 4 + [ll] + [i] * 5 + [vp]
         f.restype = ctypes.c_int
     return f
 
 
 def stem_detect(x: torch.Tensor, storage: torch.Tensor, tau,
-                g: TileGeometry):
+                g: TileGeometry, cell: int = flat4.CELL):
     """Detect + accept + dilate over the whole stem input.
 
     x: (H, W, cin <= 3) frame, compared as float32 WITHOUT rounding to the
@@ -78,14 +82,16 @@ def stem_detect(x: torch.Tensor, storage: torch.Tensor, tau,
     ``g``, the (8, 32)-tile stem geometry), UPDATED IN PLACE (the JAX
     package donates and aliases its flat4 buffer). tau: a host number or
     a 0-d float32 tensor on the card, read by the kernel at run time;
-    tau < 0 marks every pixel. Returns (storage, cell mask f32 (H/8,
-    W/8): the 8x8 cells whose 3x3 SAME window holds a changed pixel, npix
-    int32 (1,))."""
+    tau < 0 marks every pixel. cell: 8 (the hint grid), or 4, 2 or 1 for
+    a configured tile that is not whole 8x8 cells (``flat4.mask_cell``).
+    Returns (storage, cell mask f32 (H/cell, W/cell): the cells whose 3x3
+    SAME window holds a changed pixel, npix int32 (1,))."""
     H, W, C = g.in_h, g.in_w, g.cin
-    if H % flat4.CELL or W % flat4.CELL:
-        raise ValueError(f"stem_detect needs an 8-aligned map, got {(H, W)}")
+    if H % flat4.CELL or W % flat4.CELL or cell not in (8, 4, 2, 1):
+        raise ValueError(f"stem_detect needs an 8-aligned map and a cell "
+                         f"of 8, 4, 2 or 1, got {(H, W)}, cell {cell}")
     if x.device.type == "cpu" and storage.device.type == "cpu":
-        return stem_detect_plain(x, storage, tau, g)
+        return stem_detect_plain(x, storage, tau, g, cell)
     if not (x.is_cuda and storage.is_cuda):
         raise ValueError("stem_detect: tensors must all be on the card")
     # no-ops for the contiguous float32 frames of the video path
@@ -101,7 +107,7 @@ def stem_detect(x: torch.Tensor, storage: torch.Tensor, tau,
             f"storage{tuple(storage.shape)} {storage.dtype} for {g}")
     tau = detect_ops.tau_on(tau, storage.device)
     # mask and npix are two views of one buffer: one fill per call
-    ch, cw = H // flat4.CELL, W // flat4.CELL
+    ch, cw = H // cell, W // cell
     out = torch.zeros((ch * cw + 1,), dtype=torch.int32,
                       device=storage.device)
     mask = out[:ch * cw].view(torch.float32).view(ch, cw)
@@ -114,7 +120,7 @@ def stem_detect(x: torch.Tensor, storage: torch.Tensor, tau,
     err = _fn()(x.data_ptr(), storage.data_ptr(), mask.data_ptr(),
                 npix.data_ptr(), tau.data_ptr(), DTYPE_CODE[storage.dtype], H,
                 W, C, s_row, g.store_lo_h, g.store_lo_w, int(vec),
-                block_plan(H, W)[0], stream)
+                block_plan(H, W)[0], cell, stream)
     check(err, "stem_detect")
     KERNEL.launches += 1
     return storage, mask, npix

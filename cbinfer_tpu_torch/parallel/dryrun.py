@@ -3,17 +3,19 @@
 ``n_devices`` mesh, three sub-runs, each asserting the output shapes and
 that frame 0, a cold start, computes every tile.
 
-  1. the scene flagship (w32, 32x64) with the JAX package's plain-backend
-     stem (``dense_cached``), one frame per stream through ``net.apply``
-     on the stream's device: the twin of its vmapped apply;
-  2. the exact flagship (the sparse ``patch_stem`` stem, the kernel path)
-     through ``MultiStreamRunner.run_clip``, two frames per stream;
-  3. the OpenPose DAG ``pose_graph`` (w8) through the same runner.
+  1. the scene flagship (w32, 32x64, 4x4 tiles) with the JAX package's
+     plain-backend stem (``dense_cached``), one frame per stream through
+     ``net.apply`` on the stream's device: the twin of its vmapped apply;
+  2. the exact flagship (the sparse ``patch_stem`` stem, the kernel path,
+     8x8 tiles) through ``MultiStreamRunner.run_clip``, two frames per
+     stream;
+  3. the OpenPose DAG ``pose_graph`` (w8, 32x64, 4x4 tiles) through the
+     same runner.
 
-Every sub-run uses 8x8 tiles: the port's kernels take nothing finer (the
-JAX package's dry run uses 4x4 on its plain path). The DAG runs at 64x128,
-not 32x64: its three pools would leave maps of 4x8, below the 8 rows the
-sparse detect kernel needs.
+The tiles and sizes are the JAX package's dry run's: on the card the
+4x4 tiles run the stem detect at cells of 4 and the pools re-detecting,
+and the DAG's three pools leave maps of 4x8, which the sparse detect takes
+as partial hint tiles.
 
     python -c "from cbinfer_tpu_torch.parallel import dryrun_multistream as d; d(1)"
 
@@ -37,15 +39,15 @@ from .streams import (MultiStreamRunner, make_stream_mesh, on_device,
                       shard_streams, stream_state)
 
 H, W = 32, 64
-GRAPH_H, GRAPH_W = 64, 128
 
 
-def pipeline_config(device) -> PipelineConfig:
-    """The sub-runs' pipeline: 8x8 tiles, capacity 0.5, bf16 on the card
-    (float32 on the CPU), on ``device``."""
+def pipeline_config(device, tile: int = 8) -> PipelineConfig:
+    """The sub-runs' pipeline: ``tile`` x ``tile`` tiles, capacity 0.5,
+    bf16 on the card (float32 on the CPU), on ``device``."""
     dtype = "bfloat16" if torch.device(device).type == "cuda" else "float32"
-    return PipelineConfig(tile=TileConfig(8, 8, 0.5), compute_dtype=dtype,
-                          cache_dtype=dtype, device=str(device))
+    return PipelineConfig(tile=TileConfig(tile, tile, 0.5),
+                          compute_dtype=dtype, cache_dtype=dtype,
+                          device=str(device))
 
 
 def _first_cb(stats):
@@ -67,7 +69,7 @@ def dryrun_multistream(n_devices: int, device="cuda") -> Dict[str, tuple]:
     ``n_devices`` devices of ``device``'s kind (raises if the machine has
     fewer); returns each sub-run's output shape."""
     mesh = make_stream_mesh(n_devices, device)
-    cfg = pipeline_config(mesh[0])
+    cfg, cfg4 = pipeline_config(mesh[0]), pipeline_config(mesh[0], 4)
     dtype = torch.bfloat16 if mesh[0].type == "cuda" else torch.float32
     streams = len(mesh)
     specs = get_model("scene", num_classes=8, width=32)
@@ -75,7 +77,7 @@ def dryrun_multistream(n_devices: int, device="cuda") -> Dict[str, tuple]:
     shapes = {}
 
     # 1: the plain-backend stem, one frame per stream through net.apply
-    net = convert_flagship(specs, (H, W, 3), cfg,
+    net = convert_flagship(specs, (H, W, 3), cfg4,
                            extra_overrides={0: "dense_cached"})
     replicas = shard_streams(mesh, params, batched=False)
     x = np.random.default_rng(0).random((streams, H, W, 3), np.float32)
@@ -111,14 +113,10 @@ def dryrun_multistream(n_devices: int, device="cuda") -> Dict[str, tuple]:
 
     # 3: the concat DAG through the same runner
     nodes, out = pose_graph(width=8)
-    netg = convert_graph_flagship(nodes, (GRAPH_H, GRAPH_W, 3), cfg,
-                                  output=out)
-    paramsg = init_graph_params(nodes, (GRAPH_H, GRAPH_W, 3), 2, mesh[0],
-                                dtype)
-    clipg = np.random.default_rng(1).random(
-        (streams, 2, GRAPH_H, GRAPH_W, 3), np.float32)
+    netg = convert_graph_flagship(nodes, (H, W, 3), cfg4, output=out)
+    paramsg = init_graph_params(nodes, (H, W, 3), 2, mesh[0], dtype)
     runner_g = MultiStreamRunner(netg, paramsg, n_streams=streams, mesh=mesh)
-    ysg, statsg = runner_g.run_clip(clipg)
+    ysg, statsg = runner_g.run_clip(clip)
     if tuple(ysg.shape[:2]) != (streams, 2):
         raise AssertionError(f"pose_graph: ys {tuple(ysg.shape)}")
     _cold_start(statsg, "pose_graph")

@@ -53,7 +53,10 @@ per layer prefix, a .y4m file through the flagship, the pose and DAG
 accuracy sweeps and the seg repro. Then the twins of the last reference
 scripts, each cut: many streams per card, the per-stage device trace,
 the tau, fused-detect, stats and pointwise A/Bs, mask forwarding, and the
-stem, output and tile variants.
+stem, output and tile variants. Last, the geometries the JAX package runs
+through XLA ops where its Pallas gates do not hold: an imported 5-stage
+CNN at 480x640 and 1080x1920 (maps of 15x20 and 33x60), the plain
+converter's 3-channel CB stem, and the flagship at 4x4 tiles.
 
 Phases, each printing one JSON line:
   card        the card's name and power limit (nvidia-smi), torch and CUDA
@@ -175,7 +178,9 @@ Phases, each printing one JSON line:
               0.9 in a chunk; the break-even changed share
   dryrun      parallel.dryrun_multistream over the machine's cards: the
               plain-stem flagship, the kernel path and the pose_graph DAG
-              through the runner, one stream per card
+              through the runner, one stream per card, at the JAX
+              package's dry run's 32x64 and 4x4 tiles (the kernel path:
+              8x8)
   train       scripts/torch_train.py's scene recipe (w128, 8 classes,
               192x256, batch 4, 16 videos, 600 steps, seed 0): ms/step,
               seconds of data and of steps, the first and last 20-step mean
@@ -258,9 +263,9 @@ Phases, each printing one JSON line:
               chunks of 16 and 2 reps (the script: 6 of 32 and 5); gated:
               the arms' outputs and stats equal
   variants    scripts/torch_exp_variants.py, every mode, 2 chunks of 16
-              (the script: 32), 2 passes; gated: finite times, and only
-              the plain converter's cin = 3 stem refused (by the
-              full-map detect)
+              (the script: 32), 2 passes; gated: finite times, nothing
+              refused, the full-map detect launched (the plain
+              converter's cin = 3 stem)
   stats_ab    scripts/torch_exp_stats_ab.py on the flagship, 3 chunks and
               2 reps (the script: 6 and 5); gated: the arms' outputs
               bit-identical
@@ -269,6 +274,24 @@ Phases, each printing one JSON line:
               agreement >= 0.999, POINTWISE_DOT back at its default
               These eight count their launches from 0 and fail unless
               every kernel of their paths launched.
+  geometries  (i) the probe net (an nn.Sequential of five conv3x3 + ReLU +
+              MaxPool2 stages, widths 64-128-256-256-256, a 3x3 and a 1x1
+              to 8, seeded) through specs_from_torch and convert_flagship
+              at 480x640 and 1080x1920 (hinted layers on 15x20 and 33x60
+              maps); (ii) the plain convert of the 720p scene net (its
+              3-channel CB stem through the full-map detect and the delta
+              conv); (iii) the 720p scene flagship at 4x4 tiles (the stem
+              detect at cells of 4, re-detecting pools): per part a
+              32-frame chunk of the scene profile and its frames played
+              backwards, launches (PER_FRAME derived from the net) over a
+              steady chunk, flop_reduction, eager ms/frame, replays equal
+              to the eager loop bit for bit, graphed CB against graphed
+              dense ms/frame in pairs, CB at tau = -1 against dense
+              (gated: logits within 0.03 of the largest, argmax agreement
+              >= 0.999 on the trained scene net, >= 0.99 on the
+              random-weight probe net, whose near-tied classes flip on
+              bf16 rounding, the import phase's bound), and one steady
+              frame's kernel calls for the check phase
   check       each of the nine path kernels against its plain version on
               the inputs its path gave it on one steady-state frame, plus
               count = 0, all-dirty lists (for the sparse detect, both
@@ -282,7 +305,10 @@ Phases, each printing one JSON line:
               tau2 = tuned, -1 and 1e9, listed tiles and every tile); the
               synthetic tile-conv cases (TILE_CONV_CASES: clusters of 1-8
               blocks, cin/cout off the 16-channel grid, dilation, stride,
-              small tiles, ragged maps, counts 0, 1 and capacity)
+              small tiles, ragged maps, counts 0, 1 and capacity); the
+              geometries phase's calls the same way (ragged maps for the
+              sparse detect, a 3-channel x for the full-map detect, cells
+              of 4 for the stem detect)
   kernels     every kernel: launches, ms per launch, plain ms, bound ms
               (P1 and P2: their first accepted case's, with library_ms);
               B1, B3 and B4 carry the launch floor (one fill of their
@@ -293,6 +319,7 @@ The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line; without CUDA it exits 2 at once.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -463,6 +490,8 @@ def main():
                      ("pointwise_ab", pointwise_ab_phase)):
         phase(name, fn, torch, np)
         torch.cuda.empty_cache()
+    calls += phase("geometries", geometries_phase, torch, np)
+    torch.cuda.empty_cache()
     phase("check", check_kernels, torch, np, calls)
     emit_kernels()
     seconds["total"] = round(time.perf_counter() - t0, 1)
@@ -1902,6 +1931,164 @@ def check_tile_conv(torch, np, name):
     return report
 
 
+# The geometries the JAX package sends to XLA ops and the port through its
+# kernels: name -> (kernel, H, W, channels (B2: cin; B7: x's), dtype,
+# extra: B1 the layer ("conv" or "pool"), B7 the storage's channels, B2
+# cout, B4 the cell)
+GEOMETRY_CASES = {
+    "B1_ragged_15x20_c256": ("detect_sparse", 15, 20, 256, "bf16", "conv"),
+    "B1_ragged_33x60_c256": ("detect_sparse", 33, 60, 256, "bf16", "conv"),
+    "B1_ragged_5x10_pool_f32": ("detect_sparse", 5, 10, 64, "f32", "pool"),
+    "B9_ragged_33x60_c256": ("accept_tiles", 33, 60, 256, "bf16", None),
+    "B9_ragged_4x12_c6_f32": ("accept_tiles", 4, 12, 6, "f32", None),
+    "B7_cin3_720x1280": ("detect_full", 720, 1280, 3, "bf16", 8),
+    "B7_cin5_37x70_f32": ("detect_full", 37, 70, 5, "f32", 8),
+    "B2_cin3_720x1280": ("delta_conv", 720, 1280, 3, "bf16", 128),
+    "B2_cin3_44x72_f32": ("delta_conv", 44, 72, 3, "f32", 24),
+    "B4_cell4_720x1280": ("stem_detect", 720, 1280, 3, "bf16", 4),
+    "B4_cell2_64x128_f32": ("stem_detect", 64, 128, 3, "f32", 2),
+}
+
+
+def check_geometry_case(torch, np, name):
+    """One GEOMETRY_CASES case on the card against the kernel's plain
+    version on the same inputs: B1, B9, B7 and B4 bit for bit (storage,
+    mask, npix) at a listed subset and every tile (B1, B9), at tau 0.1 and
+    -1 (B1, B7, B4), and a count of 0 a no-op; B7's channels past x and
+    B9's pixels past the map untouched; B2 on an input cache of 8 (float32:
+    4) channels with zero weight rows past cin within 2e-2 of the plain
+    version over the unpadded 3 channels. Raises AssertionError; returns a
+    summary."""
+    from cbinfer_tpu_torch import layers as L
+    from cbinfer_tpu_torch.ops.delta_conv import storage_interior
+    from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
+    from cbinfer_tpu_torch.ops.kernels import accept as KA
+    from cbinfer_tpu_torch.ops.kernels import delta_conv as KC
+    from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
+    from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
+    from cbinfer_tpu_torch.ops.kernels import stem_detect as KSD
+    kernel, Hm, Wm, C, dts, extra = GEOMETRY_CASES[name]
+    dt = torch.bfloat16 if dts == "bf16" else torch.float32
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(Hm * 7 + Wm)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    rep = dict(case=name, kernel=kernel, map=[Hm, Wm], channels=C,
+               dtype=dts)
+    ok = True
+    if kernel in ("detect_sparse", "accept_tiles"):
+        pool = extra == "pool"
+        g = conv_tile_geometry(
+            (Hm, Wm, C), (2, 2) if pool else (3, 3), (2, 2) if pool
+            else (1, 1), (1, 1), "VALID" if pool else "SAME", 8, 8)
+        hh, hw = -(-Hm // 8), -(-Wm // 8)
+        st0 = torch.full(g.store_shape[:2] + (C,), L.NEG_FILL if pool
+                         else 0.0, dtype=dt, device=dev)
+        prev = rand(Hm, Wm, C).to(dt)
+        storage_interior(st0, g).copy_(prev)
+        x = torch.zeros(Hm + 3, Wm + 5, C, dtype=dt, device=dev)
+        x[:Hm, :Wm] = prev + (torch.rand(Hm, Wm, 1, device=dev,
+                                         generator=gen) < 0.4) * 0.5
+        sub = (torch.rand(hh * hw, device=dev, generator=gen) < 0.5)
+        sub[-1] = True  # the partial corner tile
+        lists = []
+        for m in (sub, torch.ones_like(sub)):
+            ids = torch.nonzero(m).flatten().to(torch.int32)
+            idx = torch.full((hh * hw,), hh * hw, dtype=torch.int32,
+                             device=dev)
+            idx[:ids.numel()] = ids
+            lists.append((idx, torch.tensor(ids.numel(), dtype=torch.int32,
+                                            device=dev)))
+        if kernel == "detect_sparse":
+            for (idx, count), tau in ((lists[0], 0.1), (lists[1], 0.1),
+                                      (lists[1], -1.0), (lists[0], -1.0)):
+                a = KD.detect_sparse(x, st0.clone(), tau, idx, count, g)
+                b = KD.detect_sparse_plain(x, st0.clone(), tau, idx, count,
+                                           g)
+                ok = ok and same(a, b)
+            a = KD.detect_sparse(x, st0.clone(), 0.1, lists[1][0], zero, g)
+            ok = ok and torch.equal(a[0], st0) and not a[1].any()
+        else:
+            for idx, count in lists:
+                a = KA.accept_tiles(x, st0.clone(), idx, count, g)
+                b = KA.accept_tiles_plain(x, st0.clone(), idx, count, g)
+                ok = ok and torch.equal(a, b)
+            # every tile: the interior is x, the margins untouched
+            out = st0.clone()
+            storage_interior(out, g).copy_(x[:Hm, :Wm])
+            ok = ok and torch.equal(a, out) and torch.equal(
+                KA.accept_tiles(x, st0.clone(), lists[1][0], zero, g), st0)
+        rep.update(tiles=hh * hw, listed=int(lists[0][1]))
+    elif kernel == "detect_full":
+        g = conv_tile_geometry((Hm, Wm, extra), (3, 3), (1, 1), (1, 1),
+                               "SAME", 8, 8)
+        st0 = torch.zeros(g.store_shape, dtype=dt, device=dev)
+        prev = rand(Hm, Wm, C).to(dt)
+        storage_interior(st0, g)[..., :C] = prev
+        x = (prev.float() + (torch.rand(Hm, Wm, 1, device=dev,
+                                        generator=gen) < 0.3) * 0.5)
+        for tau in (0.1, -1.0):
+            a = KDF.detect_full(x, st0.clone(), tau, g)
+            b = KDF.detect_full_plain(x, st0.clone(), tau, g)
+            ok = (ok and same(a, b)
+                  and not storage_interior(a[0], g)[..., C:].any())
+        rep.update(storage_channels=extra, npix=int(a[2]))
+    elif kernel == "delta_conv":
+        q = KC.channel_quantum(dt)
+        cs, cout = -(-C // q) * q, extra
+        g3 = conv_tile_geometry((Hm, Wm, C), (3, 3), (1, 1), (1, 1),
+                                "SAME", 8, 8)
+        g = conv_tile_geometry((Hm, Wm, cs), (3, 3), (1, 1), (1, 1),
+                               "SAME", 8, 8)
+        xp3 = torch.zeros(g3.store_shape, dtype=dt, device=dev)
+        storage_interior(xp3, g3).copy_(rand(Hm, Wm, C).to(dt))
+        xp = torch.zeros(g.store_shape, dtype=dt, device=dev)
+        xp[..., :C] = xp3
+        w3 = (rand(3, 3, C, cout) * 0.3).to(dt)
+        b = rand(cout)
+        w, _ = L._padded_params(w3, b, cout, cs)
+        out0 = rand(g.out_h_pad, g.out_w_pad, cout).to(dt)
+        n = g.n_tiles
+        idx = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+        err = 0.0
+        for c in (n // 3, n):
+            count = torch.tensor(c, dtype=torch.int32, device=dev)
+            a = KC.delta_conv(xp, idx, w, b, out0.clone(), g, "relu", dt,
+                              count=count)
+            p = KC.delta_conv_plain(xp3, idx, w3, b, out0.clone(), g3,
+                                    "relu", dt, count=count)
+            err = max(err, float((a.float() - p.float()).abs().max()))
+            ok = ok and torch.allclose(a.float(), p.float(), rtol=2e-2,
+                                       atol=2e-2)
+        ok = ok and torch.equal(KC.delta_conv(
+            xp, idx, w, b, out0.clone(), g, "relu", dt, count=zero), out0)
+        rep.update(storage_channels=cs, cout=cout, max_abs_err=err)
+    else:  # stem_detect at a finer cell
+        g = conv_tile_geometry((Hm, Wm, C), (3, 3), (1, 1), (1, 1), "SAME",
+                               8, 32)
+        st0 = torch.zeros(g.store_shape, dtype=dt, device=dev)
+        prev = torch.rand(Hm, Wm, C, device=dev, generator=gen)
+        storage_interior(st0, g).copy_(prev.to(dt))
+        x = prev + (torch.rand(Hm, Wm, 1, device=dev, generator=gen)
+                    < 0.01) * 0.5
+        for tau in (0.1, -1.0):
+            a = KSD.stem_detect(x, st0.clone(), tau, g, extra)
+            b = KSD.stem_detect_plain(x, st0.clone(), tau, g, extra)
+            ok = ok and same(a, b) and tuple(a[1].shape) == (
+                Hm // extra, Wm // extra)
+        ok = ok and bool((a[1] == 1).all()) and int(a[2]) == Hm * Wm
+        rep.update(cell=extra)
+    if not ok:
+        raise AssertionError(f"geometry case {name}: {rep}")
+    rep["equal_to_plain"] = True
+    return rep
+
+
 def check_kernels(torch, np, calls):
     import torch.nn.functional as F
     from cbinfer_tpu_torch import network
@@ -1926,6 +2113,8 @@ def check_kernels(torch, np, calls):
     for case in TILE_CONV_CASES:
         checks.append(dict(kernel="delta_conv+delta_conv_detect",
                            **check_tile_conv(torch, np, case)))
+    for case in GEOMETRY_CASES:
+        checks.append(check_geometry_case(torch, np, case))
 
     def acc(path, name, ms, pms, bound, by, err):
         p = per.setdefault((path, name), dict(
@@ -1962,7 +2151,9 @@ def check_kernels(torch, np, calls):
             marked=int(mk.sum()), of=mk.numel()))
         ms, pms = _time_pair(torch, lambda: mod_fn(x, st, tau, g),
                              lambda: plain_fn(x, sp, tau, g), st, sp, st0)
-        es, C = st0.element_size(), st0.shape[-1]
+        # x's channels: a cin-3 stem's storage holds zero channels past
+        # them, which the detect neither reads nor writes
+        es, C = st0.element_size(), x.shape[-1]
         nbytes = (g.in_h * g.in_w * C * (x.element_size() + es)
                   + int(nk) * C * es + mk.numel() * 4 + 4)
         err = float((st.float() - sp.float()).abs().max())
@@ -1982,8 +2173,9 @@ def check_kernels(torch, np, calls):
             s0 = st0.clone()
             _, m0, n0 = KD.detect_sparse(x, s0, tau, idx, zero, g)
             ok0 = torch.equal(s0, st0) and not m0.any() and int(n0) == 0
-            # all hint tiles dirty, the clamped bottom row included
-            n_hint = -(-g.in_h // 8) * (g.in_w // 8)
+            # all hint tiles dirty, a partial last row and column included
+            hw_ = -(-g.in_w // 8)
+            n_hint = -(-g.in_h // 8) * hw_
             ia = torch.arange(n_hint, dtype=torch.int32, device="cuda")
             ca = torch.tensor(n_hint, dtype=torch.int32, device="cuda")
             xa = x.clone()
@@ -1997,6 +2189,7 @@ def check_kernels(torch, np, calls):
             fail_unless(ok and ok0 and oka, dict(
                 kernel=name, path=path, call=li, exact=ok, count0_noop=ok0,
                 all_dirty_exact=oka, clamped=g.in_h % 8 != 0,
+                ragged=g.in_h < 8 or g.in_w % 8 != 0, map=[g.in_h, g.in_w],
                 pool_geometry=g.stride != (1, 1), count=int(count),
                 npix=int(nk), grid=_grid(KD, idx),
                 all_dirty_above_grid=n_hint > _grid(KD, ia)))
@@ -2007,8 +2200,8 @@ def check_kernels(torch, np, calls):
             c = int(count)
             hm = torch.zeros(n_hint, dtype=torch.bool, device="cuda")
             hm[idx[:c].long()] = True
-            own = int(hm.view(-1, g.in_w // 8).repeat_interleave(8, 0)
-                      [:g.in_h].sum()) * 8
+            own = int(hm.view(-1, hw_).repeat_interleave(8, 0)
+                      .repeat_interleave(8, 1)[:g.in_h, :g.in_w].sum())
             C, es = st0.shape[-1], st0.element_size()
             nbytes = (2 * own * C * es + int(nk) * C * es
                       + g.tiles_h * g.tiles_w * 4 + c * 4 + 8)
@@ -2092,9 +2285,11 @@ def check_kernels(torch, np, calls):
                       + g.tiles_h * g.tiles_w * 4 + c * 4)
             acc(path, name, ms, pms, *_bound_ms(0.0, nbytes), err)
         elif name == "stem_detect":
-            x, st0, tau, g = args
-            full_detect(KSD.stem_detect, KSD.stem_detect_plain, name, path,
-                        li, x, st0, tau, g)
+            x, st0, tau, g, *cell = args  # the cell: 8, or 4 at 4x4 tiles
+            full_detect(
+                lambda *a: KSD.stem_detect(*a, *cell),
+                lambda *a: KSD.stem_detect_plain(*a, *cell), name, path, li,
+                x, st0, tau, g)
         elif name == "detect_full":
             x, st0, tau, g = args
             full_detect(KDF.detect_full, KDF.detect_full_plain, name, path,
@@ -2325,7 +2520,7 @@ def check_kernels(torch, np, calls):
             ok = torch.equal(sk, sp)
             ok0 = torch.equal(KA.accept_tiles(x, st0.clone(), idx, zero, g),
                               st0)
-            n_hint = -(-g.in_h // 8) * (g.in_w // 8)
+            n_hint = -(-g.in_h // 8) * -(-g.in_w // 8)
             ia = torch.arange(n_hint, dtype=torch.int32, device="cuda")
             ca = torch.tensor(n_hint, dtype=torch.int32, device="cuda")
             sa = KA.accept_tiles(x, st0.clone(), ia, ca, g)
@@ -2448,6 +2643,214 @@ def check_kernels(torch, np, calls):
     emit("check", calls=checks)
     RESULTS["_per_kernel"] = per
     RESULTS["_context"] = context
+
+
+# ------------------------------- geometries ----------------------------------
+# what the JAX package runs through XLA ops where its Pallas gates do not
+# hold, through the port's kernels at full size: ragged maps, a 3-channel
+# CB stem, tiles finer than the 8x8 cell
+
+GEOM_WIDTHS = (64, 128, 256, 256, 256)  # the probe net's five stages
+GEOM_SIZES = ((480, 640), (1080, 1920))  # its maps end at 15x20, 33x60
+GEOM_TILE = (4, 4)    # the flagship's configured tile in part (iii)
+GEOM_PAIRS = 2        # timed (graphed CB, graphed dense) pairs a part
+
+
+def probe_module(torch, widths=GEOM_WIDTHS, classes=NUM_CLASSES, seed=0):
+    """The probe net: five stages of conv3x3 + ReLU + MaxPool2 at
+    ``widths``, a 3x3 at the last width, a 1x1 to ``classes``, from a
+    seeded generator (tests/test_torch_geometries.py runs it narrower)."""
+    nn = torch.nn
+    gen = torch.Generator().manual_seed(seed)
+    layers, c = [], 3
+    for w in widths:
+        conv = nn.Conv2d(c, w, 3, padding=1)
+        nn.init.kaiming_normal_(conv.weight, nonlinearity="relu",
+                                generator=gen)
+        nn.init.normal_(conv.bias, std=0.05, generator=gen)
+        layers += [conv, nn.ReLU(), nn.MaxPool2d(2)]
+        c = w
+    conv = nn.Conv2d(c, c, 3, padding=1)
+    head = nn.Conv2d(c, classes, 1)
+    for m in (conv, head):
+        nn.init.kaiming_normal_(m.weight, generator=gen)
+        nn.init.zeros_(m.bias)
+    return nn.Sequential(*layers, conv, nn.ReLU(), head).eval()
+
+
+def _geometry_run(torch, np, name, net, params, taus, chunks, tile,
+                  agree_bound):
+    """One part of the geometries phase: a refresh chunk, then a steady
+    chunk eagerly with the launch counters from 0 (PER_FRAME[name], derived
+    from the converted net, times T) and its stats (flop_reduction); the
+    replays of scan_video_jit against the eager loop bit for bit (outputs,
+    stats, caches) under the host-sync check; GEOM_PAIRS timed pairs of a
+    replayed chunk and a graphed dense chunk; at tau = -1 CB's logits
+    against dense's (gated: the largest |diff| over the largest |dense|
+    within TAU_MINUS_ONE_REL, the argmax agreeing on ``agree_bound`` of
+    the pixels); one more steady frame with every kernel call recorded
+    for the check phase. Returns (record, calls)."""
+    from cbinfer_tpu_torch import metrics
+    from cbinfer_tpu_torch.network import out_shapes
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
+    from cbinfer_tpu_torch.runner import _Graphs, scan_video, scan_video_jit
+
+    def argmax(y):
+        return y.argmax(-1).to(torch.uint8)
+    PER_FRAME[name] = per_frame_launches(net)
+    h, w = net.in_shape[:2]
+    state = net.init_state()
+    scan_video(net, params, chunks[0], state, thresholds=taus,
+               refresh_start=True, out_map=argmax)
+    torch.cuda.synchronize()
+    reset_launches()
+    (ys, _, stats), eager_ms, _ = timed(torch, lambda: scan_video(
+        net, params, chunks[1], state, thresholds=taus, collect_stats=True,
+        out_map=argmax))
+    counts = launches()
+    expect_launches(name, counts, T)
+    flops = metrics.effective_flops(stats, net.specs, net.in_shape, *tile)
+    # the graphs against the eager loop, from two copies of the state
+    s_eager, s_graph = _clone_state(state), _clone_state(state)
+    run = scan_video_jit(net)
+    for i, ch in enumerate((chunks[0], chunks[1], chunks[0])):
+        eager = scan_video(net, params, ch, s_eager, collect_stats=True,
+                           thresholds=taus, out_map=argmax)
+        graphed = no_sync(torch, lambda: run(
+            params, ch, s_graph, thresholds=taus, collect_stats=True,
+            out_map=argmax))
+        _same_run(torch, eager, graphed, f"{name}: graph vs eager, chunk {i}")
+    info = run.graphs.info()
+    _graph_launches(name, info, [(T, False)])
+    replays = sum(g["replays"] for g in info)
+    if replays < 1:
+        raise AssertionError(f"{name}: no replay: {info}")
+    del eager, graphed, s_eager
+    dense_graphs = _Graphs(1)
+
+    def dense_chunk(ch):
+        return dense_graphs.run(("dense",), lambda fs: torch.stack(
+            [argmax(net.apply_dense(params, f)) for f in fs]), ch)
+
+    def cb_chunk(ch):
+        return run(params, ch, s_graph, thresholds=taus,
+                   collect_stats=False, out_map=argmax)[0]
+    dense_chunk(chunks[0])
+    cb_chunk(chunks[1])
+    cb_chunk(chunks[0])
+    series = {"graph": [], "dense": []}
+    for i, kind in enumerate(["graph", "dense", "dense", "graph"]
+                             * (GEOM_PAIRS // 2)):
+        ch = chunks[(i // 2 + 1) % 2]
+        fn = (lambda: no_sync(torch, lambda: cb_chunk(ch))) \
+            if kind == "graph" else (lambda: dense_chunk(ch))
+        series[kind].append(timed(torch, fn)[1] / T)
+    # tau = -1: every tile recomputed by the kernels, against dense
+    minus = [-1.0] * len(taus)
+    cb = scan_video(net, params, chunks[1], net.init_state(),
+                    thresholds=minus, refresh_start=True,
+                    collect_stats=False)[0][1:].float()
+    dense = torch.stack([net.apply_dense(params, f)
+                         for f in chunks[1][1:]]).float()
+    rel = float((cb - dense).abs().max() / dense.abs().max())
+    agree = float((cb.argmax(-1) == dense.argmax(-1)).float().mean())
+    del cb, dense
+    # one more steady frame, its kernel calls recorded
+    ctx = types.SimpleNamespace(wl=types.SimpleNamespace(params=params))
+    calls = capture_frame(torch, ctx, name, net, taus, _clone_state(state),
+                          None, tuple(out_shapes(net.specs,
+                                                 net.in_shape)[-1]),
+                          frame=chunks[0][T // 2])
+    g_ms = float(np.median(series["graph"]))
+    d_ms = float(np.median(series["dense"]))
+    rec = dict(map=[h, w], tile=list(tile),
+               backends=[getattr(sp, "backend", None) for sp in net.specs],
+               maps=[list(sh[:2]) for sh in [net.in_shape]
+                     + out_shapes(net.specs, net.in_shape)],
+               launches=counts, per_frame=PER_FRAME[name], steady_frames=T,
+               cb_eager_ms_per_frame=eager_ms / T,
+               graph_ms_per_frame=g_ms, dense_graph_ms_per_frame=d_ms,
+               graph_vs_dense=d_ms / g_ms, ms_per_frame=series,
+               flop_reduction=flops["flop_reduction"],
+               replays_identical_to_eager=replays,
+               tau_minus_one_rel_err=rel,
+               tau_minus_one_argmax_agreement=agree,
+               tau_minus_one_bounds=[TAU_MINUS_ONE_REL, agree_bound])
+    if not (rel <= TAU_MINUS_ONE_REL and agree >= agree_bound):
+        raise AssertionError(f"{name}: at tau = -1 against dense: rel err "
+                             f"{rel}, argmax agreement {agree}")
+    del run, s_graph, dense_graphs
+    torch.cuda.empty_cache()
+    return rec, calls
+
+
+def geometries_phase(torch, np):
+    """(i) The probe net (probe_module: widths 64-128-256-256-256) as a user
+    imports it (specs_from_torch, convert_flagship) at 480x640 and
+    1080x1920: its hinted layers on ragged maps (15x20, 33x60) through the
+    sparse detect; (ii) the plain convert of the 720p scene net (w128,
+    trained weights, the shipped taus), every layer CB: its 3-channel stem
+    through the full-map detect and the delta conv (an input cache of 8
+    channels); (iii) the 720p scene flagship at 4x4 tiles: the stem detect
+    at cells of 4, the pools re-detecting. Each part: _geometry_run on a
+    32-frame chunk of the scene video profile and the same frames played
+    backwards (the clip continues where the chunk ends). Returns the
+    kernel calls of one steady frame of each part."""
+    from cbinfer_tpu_torch import zoo
+    from cbinfer_tpu_torch.convert import (convert, convert_flagship,
+                                           num_cb_layers, specs_from_torch)
+    from cbinfer_tpu_torch.video import (SpriteVideo, SpriteVideoConfig,
+                                         workload_video_kwargs)
+
+    def clip(h, w):
+        frames = torch.from_numpy(SpriteVideo(SpriteVideoConfig(
+            height=h, width=w, n_sprites=4, sprite_size=48, speed=4.0,
+            noise_std=0.002, seed=0, **workload_video_kwargs("scene")))
+            .clip(T)).cuda()
+        return [frames, frames.flip(0)]
+    cfg = zoo.default_pipeline_config()
+    parts, calls = {}, []
+    module = probe_module(torch).cuda()
+    specs, params = specs_from_torch(module, device="cuda",
+                                     dtype=torch.bfloat16)
+    for h, w in GEOM_SIZES:
+        net = convert_flagship(specs, (h, w, 3), cfg)
+        taus = [IMPORT_TAU] * num_cb_layers(net.specs)
+        name = f"geom_probe_{h}x{w}"
+        # random weights: near-tied classes flip on bf16 rounding, so the
+        # argmax bound is the imported net's against float32 (import)
+        parts[name], c = _geometry_run(torch, np, name, net, params, taus,
+                                       clip(h, w), (8, 8),
+                                       IMPORT_DENSE_AGREE)
+        calls += c
+    del module, specs, params
+    wl, _ = scene_workload()
+    chunks = clip(H, W)
+    net = convert(wl.specs, (H, W, 3), cfg)
+    if net.specs[0].backend is not None or num_cb_layers(net.specs) != 7:
+        raise AssertionError(f"geometries: not the plain convert: "
+                             f"{net.specs[0]}")
+    taus = list(wl.taus) + [wl.taus[-1]]
+    parts["geom_cin3_stem"], c = _geometry_run(
+        torch, np, "geom_cin3_stem", net, wl.params, taus, chunks, (8, 8),
+        TAU_MINUS_ONE_AGREE)
+    calls += c
+    tile = dataclasses.replace(cfg.tile, tile_h=GEOM_TILE[0],
+                               tile_w=GEOM_TILE[1])
+    net = convert_flagship(wl.specs, (H, W, 3),
+                           dataclasses.replace(cfg, tile=tile))
+    parts["geom_tiles4x4"], c = _geometry_run(
+        torch, np, "geom_tiles4x4", net, wl.params, list(wl.taus), chunks,
+        GEOM_TILE, TAU_MINUS_ONE_AGREE)
+    calls += c
+    want = {"geom_cin3_stem": "detect_full", "geom_tiles4x4": "stem_detect",
+            **{f"geom_probe_{h}x{w}": "detect_sparse" for h, w in GEOM_SIZES}}
+    for name, kernel in want.items():
+        if not parts[name]["launches"].get(kernel):
+            raise AssertionError(f"{name}: {kernel} never launched")
+    emit("geometries", parts=parts, smi=nvidia_smi("name,power.limit"),
+         probe_tau=IMPORT_TAU)
+    return calls
 
 
 # ------------------------- the workflow of slice 10 --------------------------
@@ -3127,8 +3530,8 @@ def changerate_phase(torch, np):
 
 def dryrun_phase(torch):
     """parallel.dryrun_multistream over every card of the machine: the
-    plain-stem flagship, the kernel path and the pose_graph DAG, one
-    stream per card."""
+    plain-stem flagship (4x4 tiles), the kernel path and the pose_graph
+    DAG (4x4 tiles, 32x64), one stream per card."""
     from cbinfer_tpu_torch.graph import convert_graph_flagship
     from cbinfer_tpu_torch.models.pose import pose_graph
     from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
@@ -3140,8 +3543,8 @@ def dryrun_phase(torch):
     counts = launches()
     nodes, out = pose_graph(width=8)
     dag = per_frame_launches(convert_graph_flagship(
-        nodes, (dryrun.GRAPH_H, dryrun.GRAPH_W, 3),
-        dryrun.pipeline_config(torch.device("cuda", 0)), output=out))
+        nodes, (dryrun.H, dryrun.W, 3),
+        dryrun.pipeline_config(torch.device("cuda", 0), 4), output=out))
     expected = set(PER_FRAME["flagship"]) | set(dag)
     missing = sorted(k for k in expected if not counts.get(k))
     emit("dryrun", devices=n, shapes={k: list(v) for k, v in shapes.items()},
@@ -3716,11 +4119,10 @@ TRACE_MODELS = (("scene", "flagship"), ("seg", "seg"),
                 ("pose", "pose_unfused"), ("pose_graph", "pose_graph"))
 TRACE_TOL = 0.02      # stage self-time sums against device busy time
 POINTWISE_AGREE = 0.999   # argmax agreement, bf16 conv against matmul
-# the configurations a kernel refuses on the card, with the kernel: the
-# plain converter's cin = 3 stem as a CB conv on the kernel path (B7 takes
-# an even channel count, B2 a multiple of 8; the converters put a
-# small-cin stem on patch_stem or dense_cached)
-VARIANTS_REFUSED = {"stem=cb_banded": "detect_full"}
+# the configurations a kernel refuses on the card, with the kernel: none
+# (the plain converter's cin = 3 stem, "stem=cb_banded", runs the full-map
+# detect and the delta conv on an input cache of 8 channels)
+VARIANTS_REFUSED = {}
 
 
 def multistream_bench_phase(torch, np):
@@ -3833,14 +4235,16 @@ def variants_phase(torch, np):
     bounded
     "torch" stem, the output forms and the tile sizes. Gated: finite
     times for every configuration but those of VARIANTS_REFUSED, which
-    must be refused by their kernel; the flagship's kernels launched."""
+    must be refused by their kernel; the flagship's kernels launched, and
+    the full-map detect (the plain converter's 3-channel stem)."""
     mod = _load_script("torch_exp_variants")
     rec, counts = _path_run("flagship", lambda: mod.variants(
         mod.MODES, H, W, EXP_T, 2, 2, log=lambda m: print(m, flush=True)))
     emit("variants", **rec, launches=counts)
     refused = {k: v["kernel"] for k, v in rec["refused"].items()}
-    if refused != VARIANTS_REFUSED or not all(
-            _finite(np, v) for v in rec["ms_per_frame"].values()):
+    if (refused != VARIANTS_REFUSED or not counts.get("detect_full")
+            or not all(_finite(np, v)
+                       for v in rec["ms_per_frame"].values())):
         raise AssertionError(f"variants: refused {rec['refused']}")
 
 
@@ -4015,7 +4419,9 @@ def emit_kernels():
                     "profile_stages", "footage", "sweeps", "seg_repro",
                     "multistream_bench", "profile_trace", "tau_ab",
                     "forward", "fused_ab", "variants", "stats_ab",
-                    "pointwise_ab")}}
+                    "pointwise_ab")},
+                **{p: r["launches"]
+                   for p, r in RESULTS["geometries"]["parts"].items()}}
     rows = []
     for k in KERNELS:
         if k.name in probe_rows:

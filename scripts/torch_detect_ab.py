@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Same-call A/B of the list-walking kernels (B1 ``cb_detect_sparse``, B3
 ``cb_pool_fused``, B8 ``cb_delta_pool``, B5 ``cb_stem_conv``, B9
-``cb_accept_tiles``) and of the stem's full-map detect (B4
-``cb_stem_detect``) built from two or more source trees, on one card, in
-turns.
+``cb_accept_tiles``) and of the full-map detects (B4 ``cb_stem_detect``,
+B7 ``cb_detect_full``) built from two or more source trees, on one card,
+in turns.
 
     mkdir -p build/parent
     git archive d4b4d4c cbinfer_tpu_torch | tar -x -C build/parent
@@ -11,9 +11,15 @@ turns.
         --csrc build/parent/cbinfer_tpu_torch/csrc --csrc cbinfer_tpu_torch/csrc
 
 Each ``--csrc`` directory holds ``detect_sparse.cu``, ``pool_fused.cu``,
-``delta_pool.cu``, ``stem_conv.cu``, ``accept_tiles.cu`` and
-``stem_detect.cu`` (and the headers they include). Two C interfaces of
-each are known, and each tree gets its own: one block per list entry up to
+``delta_pool.cu``, ``stem_conv.cu``, ``accept_tiles.cu``,
+``stem_detect.cu`` and ``detect_full.cu`` (and the headers they include).
+Each tree's interface is read from its sources: tau a float or a device
+pointer (B1, B4, B7); B1 and B9 given the map's width (ragged maps) or the
+hint grid's; B4 given its mask's cell or not; B7 given x's channel count
+or not. A case that needs what a tree lacks (a ragged map, a cell of 4, a
+narrow x) runs on the trees that have it only. Of the walkers, two C
+interfaces of each are known, and each tree gets its own: one block per
+list entry up to
 the capacity, or per tile for B5 (a grid of ``n_blocks``), or a grid sized
 to the card that walks the list (``walk_grid`` with the ``BLOCKS_PER_SM``
 of the tree's own ``../ops/kernels/*.py`` where it has them, else this
@@ -27,7 +33,9 @@ with nvcc (sm_90a) and run on the same seeded bf16 inputs at the
 steady-frame shapes and list lengths that ``chip_smoke.py`` records on the
 scene flagship, on ``hintless``, on pose and on ``pose_fwd``, plus one
 all-tiles case each (for B5 the capacity overflow, which walks every tile;
-for B4 tau = -1, which marks every pixel): per-launch device ms by CUDA
+for B4 tau = -1, which marks every pixel), B7 on ``hintless``'s first
+pool, and the geometries of ragged maps, a 3-channel stem and a cell of
+4: per-launch device ms by CUDA
 events, L2 flushed, the outputs restored and the mask and npix zeroed
 before each launch, the trees taking turns (A B .. B A) for ``--rounds``
 rounds; ``ms_per_launch`` is the kernel alone, ``ms_per_call`` the kernel
@@ -59,6 +67,7 @@ from cbinfer_tpu_torch.ops import flat4  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import sm_count, walk_grid  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import accept as KA  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP  # noqa: E402
+from cbinfer_tpu_torch.ops.kernels import detect_full as KDF  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import pool_fused as KP  # noqa: E402
 from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC  # noqa: E402
@@ -68,9 +77,10 @@ from cbinfer_tpu_torch.ops.kernels.build import ARCH, nvcc_path  # noqa: E402
 TAU = 0.15  # the scene net's tuned taus
 NEG_FILL = -3.0e38  # a pool storage's margin (layers.NEG_FILL)
 STEM_CAPACITY = 0.375  # of the stem tiles, as the paths configure it
-# (kernel, case, map, channels (B5: cout), the layer's geometry, listed
-# entries; for B5 past the capacity an overflow, which walks every tile;
-# for B4 the changed pixels of the frame pair, -1 for tau = -1)
+# (kernel, case, map, channels (B5: cout; B7 narrow: x's), the layer's
+# geometry, listed entries; for B5 past the capacity an overflow, which
+# walks every tile; for B4 and B7 the changed pixels of the frame pair, -1
+# for tau = -1[, what a tree must take to run the case])
 CASES = [
     ("B1", "flagship 360x640 C128 (spec 2)", (360, 640), 128, "conv", 62),
     ("B1", "flagship 180x320 C256 (spec 4)", (180, 320), 256, "conv", 31),
@@ -104,10 +114,24 @@ CASES = [
     ("B4", "flagship 720x1280x3 steady frame", (720, 1280), 3, "full", 1794),
     ("B4", "pose 720x1280x3 steady frame", (720, 1280), 3, "full", 5116),
     ("B4", "tau = -1 720x1280x3", (720, 1280), 3, "full", -1),
+    ("B7", "hintless 720x1280 C128 (spec 1)", (720, 1280), 128, "fullmap",
+     46080),
+    ("B7", "tau = -1 720x1280 C128", (720, 1280), 128, "fullmap", -1),
+    ("B1", "probe 15x20 C256 (480x640, ragged)", (15, 20), 256, "conv", 6,
+     "ragged"),
+    ("B1", "probe 33x60 C256 (1080p, ragged)", (33, 60), 256, "conv", 20,
+     "ragged"),
+    ("B9", "all tiles 33x60 C256 (ragged)", (33, 60), 256, "accept", 40,
+     "ragged"),
+    ("B4", "flagship 720x1280x3 at cells of 4", (720, 1280), 3, "full4",
+     1794, "cell4"),
+    ("B7", "cin-3 stem 720x1280x3 (storage 8)", (720, 1280), 3, "narrow",
+     46080, "narrow"),
 ]
 WRAPPERS = {"B1": ("detect_sparse", KD), "B3": ("pool_fused", KP),
             "B8": ("delta_pool", KDP), "B5": ("stem_conv", KSC),
-            "B9": ("accept_tiles", KA), "B4": ("stem_detect", KSD)}
+            "B9": ("accept_tiles", KA), "B4": ("stem_detect", KSD),
+            "B7": ("detect_full", KDF)}
 
 
 def _constant(csrc, wrapper, name, default):
@@ -131,13 +155,25 @@ class Tree:
              "B8": r"int cap,\s+int grid",
              "B5": r"int n_tiles,\s+int capacity",
              "B9": r"int cap,\s+int grid", "B4": r"int vec16,\s+int bw"}
+    # phrases of the interfaces that take a geometry: a case needing one
+    # runs on the trees whose source has it
+    TAKES = {("B1", "ragged"): r"int C,\s+int W,",
+             ("B9", "ragged"): r"int H,\s+int W,",
+             ("B4", "cell4"): r"int bw,\s+int cell",
+             ("B7", "narrow"): r"int C,\s+int cx,"}
 
     def __init__(self, csrc, out_dir, tag):
         self.walks, self.per_sm, procs, libs = {}, {}, [], {}
+        self.tau_ptr, self.takes = {}, {}
         for kind, (name, mod) in WRAPPERS.items():
             with open(os.path.join(csrc, f"{name}.cu")) as f:
                 src = f.read()
-            self.walks[kind] = bool(re.search(self.WALKS[kind], src))
+            self.walks[kind] = bool(kind in self.WALKS
+                                    and re.search(self.WALKS[kind], src))
+            self.tau_ptr[kind] = bool(re.search(r"const float\* tau", src))
+            for (k, need), phrase in self.TAKES.items():
+                if k == kind:
+                    self.takes[need] = bool(re.search(phrase, src))
             if kind == "B5":  # takes its channel split from the caller
                 self.split = bool(re.search(r"int cc,\s+int lanes", src))
             wrapper = mod.__name__.rsplit(".", 1)[1] + ".py"
@@ -159,10 +195,12 @@ class Tree:
 
         def grid(kind):
             return [i, i] if self.walks[kind] else [i]
+
+        def tau(kind):
+            return [vp if self.tau_ptr[kind] else ctypes.c_float]
         self.fn = {
-            "B1": ("cb_detect_sparse", [vp] * 6 + grid("B1")
-                   + [ctypes.c_float] + [i] * 4 + [ll, ll] + [i] * 10
-                   + [vp]),
+            "B1": ("cb_detect_sparse", [vp] * 6 + grid("B1") + tau("B1")
+                   + [i] * 4 + [ll, ll] + [i] * 10 + [vp]),
             "B3": ("cb_pool_fused", [vp] * 5 + grid("B3") + [i] * 7
                    + [ll, ll, vp]),
             "B8": ("cb_delta_pool", [vp] * 4 + grid("B8") + [i] * 10
@@ -172,8 +210,12 @@ class Tree:
             "B9": ("cb_accept_tiles", [vp] * 4 + grid("B9") + [i, i]
                    + [ll] * 3 + [i, i] + [i] * (3 * self.walks["B9"])
                    + [vp]),
-            "B4": ("cb_stem_detect", [vp] * 4 + [ctypes.c_float] + [i] * 4
-                   + [ll] + [i] * (4 if self.walks["B4"] else 10) + [vp]),
+            "B4": ("cb_stem_detect", [vp] * 4 + tau("B4") + [i] * 4
+                   + [ll] + [i] * (4 if self.walks["B4"] else 10)
+                   + [i] * self.takes["cell4"] + [vp]),
+            "B7": ("cb_detect_full", [vp] * 4 + tau("B7")
+                   + [i] * (4 + self.takes["narrow"]) + [ll, ll] + [i] * 10
+                   + [vp]),
         }
         for kind, (name, argtypes) in self.fn.items():
             f = getattr(ctypes.CDLL(libs[kind]), name)
@@ -203,9 +245,33 @@ def make_case(kind, hw, C, geom, n, gen):
     bf = torch.bfloat16
     dev = "cuda"
     case = {}
-    if geom == "full":  # B4: a float32 frame pair, the bf16 stem cache
+    if geom in ("fullmap", "narrow"):  # B7: x against the layer's cache
+        if geom == "fullmap":  # a 2x2 pool's storage, "-inf" margins
+            g = conv_tile_geometry((h, w, C), (2, 2), (2, 2), (1, 1),
+                                   "VALID", 8, 8)
+            cs, fill = C, NEG_FILL
+        else:  # a cin-3 conv's storage at the channel grid, zero margins
+            g = conv_tile_geometry((h, w, 8), (3, 3), (1, 1), (1, 1),
+                                   "SAME", 8, 8)
+            cs, fill = 8, 0.0
+        prev = torch.randn(h, w, C, device=dev, generator=gen).to(bf)
+        x = prev.clone()
+        if n > 0:  # n pixels move by 0.5 on every channel
+            moved = torch.randperm(h * w, device=dev, generator=gen)[:n]
+            x.view(-1, C)[moved] += 0.5
+        st = torch.full(g.store_shape[:2] + (cs,), fill, dtype=bf,
+                        device=dev)
+        st[g.store_lo_h:g.store_lo_h + h, g.store_lo_w:g.store_lo_w + w,
+           C:] = 0
+        st[g.store_lo_h:g.store_lo_h + h, g.store_lo_w:g.store_lo_w + w,
+           :C] = prev
+        case.update(x=x, st=st, g=g, cap=h * w,
+                    tau=TAU if n >= 0 else -1.0, idx=None, count=None)
+        return case
+    if geom in ("full", "full4"):  # B4: a float32 frame pair, the stem cache
         g = conv_tile_geometry((h, w, C), (3, 3), (1, 1), (1, 1), "SAME",
                                8, 32)
+        case["cell"] = cell = 4 if geom == "full4" else flat4.CELL
         prev = torch.rand(h, w, C, device=dev, generator=gen).to(bf).float()
         # sensor noise below tau on every pixel, n pixels moved above it
         x = prev + (torch.rand(h, w, C, device=dev, generator=gen) - 0.5) \
@@ -218,22 +284,21 @@ def make_case(kind, hw, C, geom, n, gen):
            g.store_lo_w:g.store_lo_w + w] = prev.to(bf)
         case.update(x=x, st=st, g=g, cap=h * w,
                     tau=TAU if n >= 0 else -1.0,
-                    mask_hw=(h // flat4.CELL, w // flat4.CELL),
-                    idx=None, count=None)
+                    mask_hw=(h // cell, w // cell), idx=None, count=None)
         return case
     if geom == "accept":  # B9: the producer's padded out cache
         g = conv_tile_geometry((h, w, C), (1, 1), (1, 1), (1, 1), "SAME",
                                8, 8)
-        cap = -(-h // 8) * (w // 8)
+        cw = -(-w // 8)
+        cap = -(-h // 8) * cw
         x = torch.randn(g.out_h_pad, g.out_w_pad, C, device=dev,
                         generator=gen).to(bf)
         st = torch.randn(g.store_shape[:2] + (C,), device=dev,
                          generator=gen).to(bf)
         # every tile, or the clamped bottom row's first and last tile
         # among those listed
-        bottom = torch.tensor([cap - w // 8, cap - 1], device=dev)
-        rest = torch.randperm(cap - w // 8, device=dev,
-                              generator=gen)[:n - 2]
+        bottom = torch.tensor([cap - cw, cap - 1], device=dev)
+        rest = torch.randperm(cap - cw, device=dev, generator=gen)[:n - 2]
         idx = (torch.arange(cap, device=dev) if n == cap
                else torch.cat([rest, bottom]).sort().values).to(torch.int32)
         idx = torch.cat([idx, torch.full((cap - n,), cap, dtype=torch.int32,
@@ -263,7 +328,7 @@ def make_case(kind, hw, C, geom, n, gen):
                                    "VALID", 8, 8)
         listed = n
         if kind == "B1":
-            cap = -(-h // 8) * (w // 8)
+            cap = -(-h // 8) * -(-w // 8)
             prev = torch.randn(h, w, C, device=dev, generator=gen)
             # a quarter of the pixels move by 0.05..0.5 on every channel
             move = (torch.rand(h, w, 1, device=dev, generator=gen) < 0.25) \
@@ -309,7 +374,7 @@ def main():
     ap.add_argument("--csrc", action="append", required=True)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="B1,B3,B8,B5,B9,B4",
+    ap.add_argument("--kernels", default="B1,B3,B8,B5,B9,B4,B7",
                     help="comma-separated kernels whose cases run")
     ap.add_argument("--flush", choices=("write", "read"), default="write",
                     help="evict L2 before each launch by writing 64 MiB "
@@ -329,8 +394,21 @@ def main():
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     kinds = args.kernels.split(",")
-    for kind, name, hw, C, geom, n in CASES:
-        if kind not in kinds:
+    taus = {}
+
+    def tau_arg(tree, kind, v):
+        """tau as the tree's kernel takes it: a float, or the address of a
+        float32 on the card."""
+        if not tree.tau_ptr[kind]:
+            return v
+        if v not in taus:
+            taus[v] = torch.full((), v, dtype=torch.float32, device="cuda")
+        return taus[v].data_ptr()
+
+    for kind, name, hw, C, geom, n, *need in CASES:
+        active = [j for j, t in enumerate(trees)
+                  if not need or t.takes[need[0]]]
+        if kind not in kinds or not active:
             continue
         gen = torch.Generator(device="cuda").manual_seed(0)
         case = make_case(kind, hw, C, geom, n, gen)
@@ -357,7 +435,9 @@ def main():
                 err = fn(
                     x.data_ptr(), st.data_ptr(), idx.data_ptr(),
                     count.data_ptr(), mask.data_ptr(), npix.data_ptr(),
-                    *tree.grid(kind, cap), TAU, 1, g.in_h, C, g.in_w // 8,
+                    *tree.grid(kind, cap), tau_arg(tree, kind, TAU), 1,
+                    g.in_h, C,
+                    g.in_w if tree.takes["ragged"] else g.in_w // 8,
                     x.shape[1] * C, st.shape[1] * C, g.store_lo_h,
                     g.store_lo_w, g.tiles_h, g.tiles_w, g.th * sh,
                     g.tw * sw, g.pad_lo_h, g.pad_lo_w, g.win_h, g.win_w,
@@ -381,7 +461,9 @@ def main():
                 err = fn(
                     x.data_ptr(), st.data_ptr(), idx.data_ptr(),
                     count.data_ptr(), *tree.grid(kind, cap, walk[tree][0]),
-                    g.in_h, g.in_w // 8, x_row, s_row,
+                    g.in_h,
+                    g.in_w if tree.takes["ragged"] else g.in_w // 8,
+                    x_row, s_row,
                     g.store_lo_h * s_row + g.store_lo_w * C * 2, 8 * C * 2,
                     1, *split, stream)
             elif kind == "B4":
@@ -393,10 +475,23 @@ def main():
                         KSD.block_plan(g.in_h, g.in_w)[0]]
                 else:  # the cell grid's window: 8x8 cells, 3x3 SAME
                     plan = [mh, mw, 8, 8, 1, 1, 10, 10]
+                cell = [case["cell"]] if tree.takes["cell4"] else []
                 err = fn(
                     x.data_ptr(), st.data_ptr(), mask.data_ptr(),
-                    npix.data_ptr(), case["tau"], 1, g.in_h, g.in_w, C,
-                    s_row, g.store_lo_h, g.store_lo_w, *plan, stream)
+                    npix.data_ptr(), tau_arg(tree, kind, case["tau"]), 1,
+                    g.in_h, g.in_w, C, s_row, g.store_lo_h, g.store_lo_w,
+                    *plan, *cell, stream)
+            elif kind == "B7":
+                sh, sw = g.stride
+                cs = st.shape[-1]
+                cx = [C] if tree.takes["narrow"] else []
+                err = fn(
+                    x.data_ptr(), st.data_ptr(), mask.data_ptr(),
+                    npix.data_ptr(), tau_arg(tree, kind, case["tau"]), 1,
+                    g.in_h, g.in_w, cs, *cx, x.shape[1] * C,
+                    st.shape[1] * cs, g.store_lo_h, g.store_lo_w, g.tiles_h,
+                    g.tiles_w, g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w,
+                    g.win_h, g.win_w, stream)
             else:  # B5
                 n_tiles = [g.n_tiles] if tree.walks[kind] else []
                 split = list(KSC.lane_split(C)) if tree.split else []
@@ -419,7 +514,7 @@ def main():
                 out.zero_()
             else:
                 mask.zero_()
-                if kind in ("B1", "B4"):
+                if kind in ("B1", "B4", "B7"):
                     npix.zero_()
 
         def restore():
@@ -427,7 +522,7 @@ def main():
             out.zero_()
 
         outs = []
-        for j in range(len(trees)):
+        for j in active:
             restore()
             launch(j)
             torch.cuda.synchronize()
@@ -452,9 +547,11 @@ def main():
         elif kind == "B9":
             sp = KA.accept_tiles_plain(x, st0.clone(), idx, count, g)
             plain = torch.equal(outs[0][0], sp)
-        elif kind == "B4":
-            sp, mp, pp = KSD.stem_detect_plain(x, st0.clone(), case["tau"],
-                                               g)
+        elif kind in ("B4", "B7"):
+            sp, mp, pp = (
+                KSD.stem_detect_plain(x, st0.clone(), case["tau"], g,
+                                      case["cell"]) if kind == "B4"
+                else KDF.detect_full_plain(x, st0.clone(), case["tau"], g))
             plain = (torch.equal(outs[0][0], sp) and torch.equal(
                 outs[0][1], mp) and torch.equal(outs[0][2], pp))
             changed = int(pp)
@@ -491,13 +588,15 @@ def main():
                 return (KSD.block_plan(g.in_h, g.in_w)[1]
                         if tree.walks[kind]
                         else -(-g.in_w // 32) * -(-g.in_h // 8))
+            if kind == "B7":
+                return -(-g.in_w // 32) * -(-g.in_h // 8)
             if kind == "B9":
                 return tree.grid(kind, cap, walk[tree][0])[-1]
             return tree.grid(kind, cap, walk)[-1]
 
-        order = list(range(len(trees)))
-        series = {c: [] for c in args.csrc}
-        calls = {c: [] for c in args.csrc}
+        order = active
+        series = {args.csrc[j]: [] for j in active}
+        calls = {args.csrc[j]: [] for j in active}
         for r in range(args.rounds):
             for j in (order if r % 2 == 0 else order[::-1]):
                 series[args.csrc[j]].append(time_one(j, False))
@@ -506,7 +605,7 @@ def main():
             "kernel": kind, "case": name, "flush": args.flush,
             "channels": C, "listed": n,
             "of": cap, "changed_pixels": changed,
-            "grids": [grid_of(t) for t in trees],
+            "grids": [grid_of(trees[j]) for j in active],
             "bit_identical_to_first": same, "first_equals_plain": plain,
             "max_ulps": ulps, "ms_per_launch": series,
             "ms_per_call": calls}), flush=True)

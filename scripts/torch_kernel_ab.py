@@ -13,10 +13,12 @@ are known, and each tree gets the adapter of its own: the one-block-per-
 tile mma.sync kernels (HWIO weights), and the cluster/wgmma kernels (a
 tree whose ``cb_conv.cuh`` uses wgmma: weights packed and the launch plan
 made by the tree's own ``../ops/conv_plan.py`` where it has one, else by
-this checkout's). Every tree's kernels are
+this checkout's; B6's tau2 a float or, where the tree's source reads it
+from device memory, a pointer). Every tree's kernels are
 built with nvcc (sm_90a) and run on the same seeded bf16 inputs at the
 720p paths' shapes and tile counts (the pose net's 90-, 180-, 360- and
-720-row maps, the scene flagship's 180-row map): per-launch device ms by
+720-row maps, the scene flagship's 180-row map, the plain converter's
+3-channel stem on its 8-channel input cache): per-launch device ms by
 CUDA events, L2 flushed, the caches restored and B6's mask and count
 zeroed (the wrapper's work) before each launch, the
 trees taking turns (A B .. B A) for ``--rounds`` rounds. Each case also
@@ -32,6 +34,7 @@ import ctypes
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -53,6 +56,8 @@ CASES = [
     ("B2", "pose 360x640 3x3 128->128", (360, 640), 128, 128, 3, None, 591),
     ("B2", "pose 180x320 3x3 256->256", (180, 320), 256, 256, 3, None, 97),
     ("B2", "pose 90x160 1x1 256->56", (90, 160), 256, 56, 1, None, 26),
+    ("B2", "cin-3 stem 720x1280 3x3 8->128 (cin padded)", (720, 1280), 8,
+     128, 3, None, 1440),
     ("B6", "pose 360x640 3x3 64->128", (360, 640), 64, 128, 3, 3, 602),
     ("B6", "pose 180x320 3x3 128->256", (180, 320), 128, 256, 3, 3, 306),
     ("B6", "pose 180x320 3x3 256->256", (180, 320), 256, 256, 3, 3, 190),
@@ -81,6 +86,9 @@ class Tree:
         plan = [i] * 6 if self.wgmma else []
         libs = {}
         procs = []
+        with open(os.path.join(csrc, "delta_conv_detect.cu")) as f:
+            # B6 reads tau2 from device memory (a pointer) or takes a float
+            self.tau_ptr = bool(re.search(r"const float\* tau2", f.read()))
         for name in ("delta_conv", "delta_conv_detect"):
             so = os.path.join(out_dir, f"lib{name}_{tag}.so")
             procs.append(subprocess.Popen(
@@ -95,7 +103,8 @@ class Tree:
         self.b2.argtypes = [vp] * 6 + [i] * 16 + [ll, ll, i, i] + plan + [vp]
         self.b2.restype = i
         self.b6 = ctypes.CDLL(libs["delta_conv_detect"]).cb_delta_conv_detect
-        self.b6.argtypes = ([vp] * 9 + [i] * 14 + [ll, ll, i, i, fl, i, ll]
+        self.b6.argtypes = ([vp] * 9 + [i] * 14 + [ll, ll, i, i]
+                            + [vp if self.tau_ptr else fl, i, ll]
                             + [i] * 10 + plan + [vp])
         self.b6.restype = i
 
@@ -147,6 +156,7 @@ def main():
             mask = torch.zeros((g2.tiles_h, g2.tiles_w), device="cuda")
             npix = torch.zeros((1,), dtype=torch.int32, device="cuda")
         ops = [t.weights_and_plan(wt, g, kind == "B6") for t in trees]
+        tau2 = torch.full((), 0.05, dtype=torch.float32, device="cuda")
 
         def launch(j):
             tree, (wk, plan) = trees[j], ops[j]
@@ -162,7 +172,8 @@ def main():
                               npix.data_ptr(), n, 1, cin, cout, k, k, 1, 1,
                               1, 1, g.win_h, g.win_w, g.dx0, g.tiles_w,
                               xp.shape[1] * cin, g.out_w_pad * cout, 1, 1,
-                              0.05, g.out_h, nc.shape[1] * cout,
+                              tau2.data_ptr() if tree.tau_ptr else 0.05,
+                              g.out_h, nc.shape[1] * cout,
                               g2.store_lo_h, g2.store_lo_w, g2.tiles_h,
                               g2.tiles_w, g2.th, g2.tw, g2.pad_lo_h,
                               g2.pad_lo_w, g2.win_h, g2.win_w, *plan, stream)

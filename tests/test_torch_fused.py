@@ -103,11 +103,17 @@ def test_accept_tiles_count_zero_and_checks():
     assert torch.equal(accept_tiles(x, st.clone(), idx, zero, g), st)
     assert torch.equal(accept_tiles_plain(x, st.clone(), idx, zero, g), st)
     assert launches()["accept_tiles"] == 0  # CPU tensors launch nothing
-    gbad = conv_tile_geometry((16, 20, 8), (3, 3), (1, 1), (1, 1), "SAME",
-                              8, 8)
-    with pytest.raises(ValueError, match="W % 8"):
-        accept_tiles(torch.randn(16, 20, 8), torch.randn(gbad.store_shape),
-                     idx, zero, gbad)
+    # a width off the 8-pixel grid: the partial last column is taken, and
+    # nothing past the map is written
+    gr = conv_tile_geometry((16, 20, 8), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
+    xr, sr = torch.randn(16, 24, 8), torch.randn(gr.store_shape)
+    assert torch.equal(accept_tiles(xr, sr.clone(), idx, zero, gr), sr)
+    every = torch.arange(6, dtype=torch.int32)
+    got = accept_tiles(xr, sr.clone(), every, torch.tensor(6), gr)
+    want = sr.clone()
+    want[gr.store_lo_h:gr.store_lo_h + 16, gr.store_lo_w:gr.store_lo_w + 20] \
+        = xr[:, :20]
+    assert torch.equal(got, want)
 
 
 # --------------------------- B6: fused conv + detect -------------------------
@@ -330,21 +336,3 @@ def test_fuse_next_gate_matches_reference(shape, k1, k2, s2, tile):
         if mk is JConv:
             want = rows
     assert rows == want and rows[1:6] == [False] * 5
-
-
-@pytest.mark.parametrize("H,W", [(4, 16), (16, 12)])
-def test_hinted_cuda_layers_refuse_maps_off_the_kernel_gate(H, W):
-    """A deliberate divergence: where the reference falls back to XLA ops
-    (a full-map ``where``), a hinted ``"cuda"`` layer and a forward-hint
-    conv need at least 8 rows and 8-aligned columns (the sparse detect and
-    tile copy kernels) and raise on any device."""
-    cfg = PipelineConfig(device="cpu")
-    g = conv_tile_geometry((H, W, 8), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
-    st = torch.zeros(g.store_shape)
-    x = torch.ones(H, W, 8)
-    hint = tlayers.DirtyHint(mask=torch.ones((-(-H // 8), -(-W // 8)),
-                                             dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="sparse detect"):
-        tlayers._detect_and_mask(x, st, 0.1, g, cfg, hint)
-    with pytest.raises(NotImplementedError, match="tile copy"):
-        tlayers._accept_hinted(x, st, hint, g)

@@ -1482,22 +1482,60 @@ def test_band_stem_equals_dense_cached_within_bf16_ulps_on_card(cuda):
         assert sa[key].tolist() == sb[key].tolist(), key
 
 
-def test_plain_converter_cin3_stem_is_refused_on_card(cuda):
+def test_plain_converter_cin3_stem_equals_plain_on_card(cuda):
     """The plain converter's stem as a CB conv on the kernel path (the
-    variants twin's ``stem=cb_banded``): the full-map detect (B7) refuses
-    its 3 channels (it takes an even count) and nothing falls back to
-    another route; the converters put a small-cin stem on ``patch_stem``
-    or ``dense_cached`` instead."""
+    variants twin's ``stem=cb_banded``): the full-map detect (B7) reads the
+    frame's 3 channels against an input cache of 4 (float32's channel
+    grid), the delta conv (B2) takes that cache with zero weight rows; the
+    card's run equals the CPU's plain versions: stats and argmax maps
+    identical, outputs within 1e-3, the cache's zero channels zero."""
+    from cbinfer_tpu_torch.checkpoint import params_from_numpy
     from cbinfer_tpu_torch.config import PipelineConfig, TileConfig
     from cbinfer_tpu_torch.convert import convert
     from cbinfer_tpu_torch.models import get_model
-    from cbinfer_tpu_torch.network import init_params
+    from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
     from cbinfer_tpu_torch.runner import scan_video
+    from cbinfer_tpu_torch.video import SpriteVideo, SpriteVideoConfig
     specs = get_model("scene", num_classes=8, width=8)
-    net = convert(specs, (64, 128, 3), PipelineConfig(
-        tile=TileConfig(8, 8, 0.375), backend="cuda",
-        compute_dtype="bfloat16", cache_dtype="bfloat16", device="cuda"))
-    params = init_params(specs, (64, 128, 3), seed=0, device=cuda,
-                         dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="detect_full"):
-        scan_video(net, params, torch.rand((2, 64, 128, 3), device=cuda))
+    rng = np.random.default_rng(0)
+    pn, c = [], 3
+    for s in specs:
+        if hasattr(s, "features"):
+            kh, kw = s.kernel
+            pn.append(((rng.standard_normal((kh, kw, c, s.features))
+                        * (2.0 / (kh * kw * c)) ** 0.5).astype(np.float32),
+                       np.zeros(s.features, np.float32)))
+            c = s.features
+        else:
+            pn.append(None)
+    clip = SpriteVideo(SpriteVideoConfig(height=64, width=128, n_sprites=2,
+                                         sprite_size=12, noise_std=0.0,
+                                         seed=3)).clip(4)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        net = convert(specs, (64, 128, 3), PipelineConfig(
+            tile=TileConfig(8, 8, 0.375), backend="cuda", device=dev))
+        reset_launches()
+        runs[dev] = scan_video(net, params_from_numpy(specs, pn, device=dev),
+                               torch.from_numpy(clip).to(dev),
+                               thresholds=[0.05] * 7, collect_stats=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert launches()["detect_full"] and launches()["delta_conv"]
+    (yc, sc, tc), (yg, sg, tg) = runs["cpu"], runs["cuda"]
+    assert sg[0].in_cache.shape[-1] == 4
+    assert not sg[0].in_cache[..., 3:].any()
+    assert torch.equal(yg.argmax(-1).cpu(), yc.argmax(-1))
+    assert torch.allclose(yg.cpu(), yc, atol=1e-3)
+    for a, b in zip(tc, tg):
+        for key in a:
+            assert torch.equal(torch.as_tensor(a[key]).cpu(),
+                               torch.as_tensor(b[key]).cpu()), key
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.GEOMETRY_CASES))
+def test_geometry_cases_on_card(cuda, case):
+    """Ragged maps through B1 and B9, a 3- or 5-channel x through B7, a
+    cin-3 input cache through B2 and cells of 4 and 2 through B4, each
+    against its plain version (chip_smoke.check_geometry_case)."""
+    chip_smoke.check_geometry_case(torch, np, case)

@@ -297,17 +297,6 @@ def test_patch_stem_layer_rejects_unsupported_shapes():
                               torch.zeros(16, 40, 3), spec, cfg)
 
 
-def test_patch_stem_layer_rejects_tiles_finer_than_a_cell():
-    """A configured tile that is not made of whole 8x8 cells has no mask
-    the stem detect kernel could give: the layer raises on any device."""
-    spec = ConvSpec(features=8, backend="patch_stem")
-    cfg = PipelineConfig(tile=TileConfig(4, 8, 0.375), device="cpu")
-    st = tlayers.cb_layer_init(spec, (16, 64, 3), cfg)
-    with pytest.raises(NotImplementedError, match="8x8 cell"):
-        tlayers.cb_conv_apply((torch.zeros(3, 3, 3, 8), None), st,
-                              torch.zeros(16, 64, 3), spec, cfg)
-
-
 @pytest.mark.parametrize("h", [8, 12, 16])
 @pytest.mark.parametrize("w", [32, 48, 64])
 @pytest.mark.parametrize("c", [1, 3, 4])
