@@ -1,7 +1,9 @@
-// The per-pixel detect + accept + dilate step over an HWC map, shared by the
-// full-map detect kernel and by the fused conv + consumer detect, whose x is
-// its own out tile in shared memory. The sparse detect kernel keeps its own
-// row routine (detect_sparse.cu) and shares CbDetectArgs.
+// The per-pixel detect + accept + dilate step over an HWC map of the fused
+// conv + consumer detect, whose x is its own out tile in shared memory; the
+// arguments of the detect kernels (CbDetectArgs); and the comparison of one
+// 4- or 16-byte load unit, shared by the sparse and the full-map detect
+// kernels (detect_sparse.cu, detect_full.cu), which keep their own row
+// routines.
 #pragma once
 
 #include "cb_common.cuh"
@@ -50,16 +52,32 @@ __device__ __forceinline__ int cb_detect_pixels(const T* xr, int x_pix,
   return local;
 }
 
-// Pixels [x0, x0 + n) of row y of an HWC map x against the interior of the
-// padded storage st.
+// max |a - b| over the elements of one 4-byte word, in float32
 template <typename T>
-__device__ __forceinline__ int cb_detect_row(const T* __restrict__ x,
-                                             T* __restrict__ st,
-                                             float* __restrict__ mask,
-                                             float tau, const CbDetectArgs& a,
-                                             int y, int x0, int n, int lane) {
-  const T* xr = x + (long long)y * a.x_row + (long long)x0 * a.C;
-  T* sr = st + (long long)(y + a.slo_h) * a.s_row +
-          (long long)(a.slo_w + x0) * a.C;
-  return cb_detect_pixels(xr, a.C, sr, a.C, mask, tau, a.grid, y, x0, n, lane);
+__device__ __forceinline__ float cb_word_absdiff(unsigned a, unsigned b);
+template <>
+__device__ __forceinline__ float cb_word_absdiff<float>(unsigned a,
+                                                        unsigned b) {
+  return fabsf(__uint_as_float(a) - __uint_as_float(b));
+}
+template <>
+__device__ __forceinline__ float cb_word_absdiff<__nv_bfloat16>(unsigned a,
+                                                                unsigned b) {
+  const float2 fa = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&a));
+  const float2 fb = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return fmaxf(fabsf(fa.x - fb.x), fabsf(fa.y - fb.y));
+}
+
+// ... and over one load unit (4 or 16 bytes)
+template <typename T>
+__device__ __forceinline__ float cb_unit_absdiff(unsigned a, unsigned b) {
+  return cb_word_absdiff<T>(a, b);
+}
+template <typename T>
+__device__ __forceinline__ float cb_unit_absdiff(uint4 a, uint4 b) {
+  return fmaxf(
+      fmaxf(cb_word_absdiff<T>(a.x, b.x), cb_word_absdiff<T>(a.y, b.y)),
+      fmaxf(cb_word_absdiff<T>(a.z, b.z), cb_word_absdiff<T>(a.w, b.w)));
 }

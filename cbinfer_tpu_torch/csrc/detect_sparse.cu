@@ -42,34 +42,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// max |a - b| over the elements of one 4-byte word, in float32
-template <typename T>
-__device__ __forceinline__ float word_absdiff(unsigned a, unsigned b);
-template <>
-__device__ __forceinline__ float word_absdiff<float>(unsigned a, unsigned b) {
-  return fabsf(__uint_as_float(a) - __uint_as_float(b));
-}
-template <>
-__device__ __forceinline__ float word_absdiff<__nv_bfloat16>(unsigned a,
-                                                             unsigned b) {
-  const float2 fa = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&a));
-  const float2 fb = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return fmaxf(fabsf(fa.x - fb.x), fabsf(fa.y - fb.y));
-}
-
-// ... and over one load unit (4 or 16 bytes)
-template <typename T>
-__device__ __forceinline__ float unit_absdiff(unsigned a, unsigned b) {
-  return word_absdiff<T>(a, b);
-}
-template <typename T>
-__device__ __forceinline__ float unit_absdiff(uint4 a, uint4 b) {
-  return fmaxf(fmaxf(word_absdiff<T>(a.x, b.x), word_absdiff<T>(a.y, b.y)),
-               fmaxf(word_absdiff<T>(a.z, b.z), word_absdiff<T>(a.w, b.w)));
-}
-
 // One tile row of 8 pixels, the first `npx` of them inside the map: x at
 // xr, the storage at sr, each pixel `up` load units of type U long. Lane =
 // 4 * pixel + j; lane j of a pixel takes its units j, j + 4, ... NV of them
@@ -98,7 +70,7 @@ __device__ __forceinline__ int detect_row(const T* __restrict__ xr,
     }
 #pragma unroll
     for (int k = 0; k < NV; ++k)
-      if (b + 4 * k < up) m = fmaxf(m, unit_absdiff<T>(xv[k], cv[k]));
+      if (b + 4 * k < up) m = fmaxf(m, cb_unit_absdiff<T>(xv[k], cv[k]));
   }
   m = fmaxf(m, __shfl_xor_sync(kFull, m, 1));
   m = fmaxf(m, __shfl_xor_sync(kFull, m, 2));

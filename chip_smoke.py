@@ -1932,17 +1932,26 @@ def check_tile_conv(torch, np, name):
 
 
 # The geometries the JAX package sends to XLA ops and the port through its
-# kernels: name -> (kernel, H, W, channels (B2: cin; B7: x's), dtype,
-# extra: B1 the layer ("conv" or "pool"), B7 the storage's channels, B2
-# cout, B4 the cell)
+# kernels, and the forms of B7: name -> (kernel, H, W, channels (B2: cin;
+# B7: x's), dtype, extra: B1 the layer ("conv" or "pool"), B7 the
+# storage's channels and the layer, B2 cout, B4 the cell)
 GEOMETRY_CASES = {
     "B1_ragged_15x20_c256": ("detect_sparse", 15, 20, 256, "bf16", "conv"),
     "B1_ragged_33x60_c256": ("detect_sparse", 33, 60, 256, "bf16", "conv"),
     "B1_ragged_5x10_pool_f32": ("detect_sparse", 5, 10, 64, "f32", "pool"),
     "B9_ragged_33x60_c256": ("accept_tiles", 33, 60, 256, "bf16", None),
     "B9_ragged_4x12_c6_f32": ("accept_tiles", 4, 12, 6, "f32", None),
-    "B7_cin3_720x1280": ("detect_full", 720, 1280, 3, "bf16", 8),
-    "B7_cin5_37x70_f32": ("detect_full", 37, 70, 5, "f32", 8),
+    "B7_cin3_720x1280": ("detect_full", 720, 1280, 3, "bf16", (8, "conv")),
+    "B7_cin5_37x70_f32": ("detect_full", 37, 70, 5, "f32", (8, "conv")),
+    "B7_cin3_64x128_f32": ("detect_full", 64, 128, 3, "f32", (4, "conv")),
+    "B7_cin4_37x70": ("detect_full", 37, 70, 4, "bf16", (8, "pool")),
+    "B7_cin3_9x20": ("detect_full", 9, 20, 3, "bf16", (8, "conv")),
+    "B7_c128_720x1280_pool": ("detect_full", 720, 1280, 128, "bf16",
+                              (128, "pool")),
+    "B7_c12_37x70": ("detect_full", 37, 70, 12, "bf16", (12, "conv")),
+    "B7_c56_40x72_pool": ("detect_full", 40, 72, 56, "bf16", (56, "pool")),
+    "B7_c256_24x40_f32": ("detect_full", 24, 40, 256, "f32", (256, "conv")),
+    "B7_c64_20x12_pool": ("detect_full", 20, 12, 64, "bf16", (64, "pool")),
     "B2_cin3_720x1280": ("delta_conv", 720, 1280, 3, "bf16", 128),
     "B2_cin3_44x72_f32": ("delta_conv", 44, 72, 3, "f32", 24),
     "B4_cell4_720x1280": ("stem_detect", 720, 1280, 3, "bf16", 4),
@@ -1954,11 +1963,12 @@ def check_geometry_case(torch, np, name):
     """One GEOMETRY_CASES case on the card against the kernel's plain
     version on the same inputs: B1, B9, B7 and B4 bit for bit (storage,
     mask, npix) at a listed subset and every tile (B1, B9), at tau 0.1 and
-    -1 (B1, B7, B4), and a count of 0 a no-op; B7's channels past x and
-    B9's pixels past the map untouched; B2 on an input cache of 8 (float32:
-    4) channels with zero weight rows past cin within 2e-2 of the plain
-    version over the unpadded 3 channels. Raises AssertionError; returns a
-    summary."""
+    -1 (B1, B7, B4), and a count of 0 a no-op; B7 on a conv's or a pool's
+    storage, changing some pixels at 0.1, every one at -1, its channels
+    past x keeping their values; B9's pixels past the map untouched; B2 on
+    an input cache of 8 (float32: 4) channels with zero weight rows past
+    cin within 2e-2 of the plain version over the unpadded 3 channels.
+    Raises AssertionError; returns a summary."""
     from cbinfer_tpu_torch import layers as L
     from cbinfer_tpu_torch.ops.delta_conv import storage_interior
     from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
@@ -2025,19 +2035,28 @@ def check_geometry_case(torch, np, name):
                 KA.accept_tiles(x, st0.clone(), lists[1][0], zero, g), st0)
         rep.update(tiles=hh * hw, listed=int(lists[0][1]))
     elif kernel == "detect_full":
-        g = conv_tile_geometry((Hm, Wm, extra), (3, 3), (1, 1), (1, 1),
-                               "SAME", 8, 8)
-        st0 = torch.zeros(g.store_shape, dtype=dt, device=dev)
+        cs, layer = extra
+        pool = layer == "pool"
+        g = conv_tile_geometry(
+            (Hm, Wm, cs), (2, 2) if pool else (3, 3), (2, 2) if pool
+            else (1, 1), (1, 1), "VALID" if pool else "SAME", 8, 8)
+        st0 = torch.full(g.store_shape, L.NEG_FILL if pool else 0.0,
+                         dtype=dt, device=dev)
         prev = rand(Hm, Wm, C).to(dt)
-        storage_interior(st0, g)[..., :C] = prev
+        inner = storage_interior(st0, g)
+        inner[..., :C] = prev
+        inner[..., C:] = rand(Hm, Wm, cs - C).to(dt)  # must keep its values
         x = (prev.float() + (torch.rand(Hm, Wm, 1, device=dev,
                                         generator=gen) < 0.3) * 0.5)
+        npix = []
         for tau in (0.1, -1.0):
             a = KDF.detect_full(x, st0.clone(), tau, g)
             b = KDF.detect_full_plain(x, st0.clone(), tau, g)
-            ok = (ok and same(a, b)
-                  and not storage_interior(a[0], g)[..., C:].any())
-        rep.update(storage_channels=extra, npix=int(a[2]))
+            npix.append(int(a[2]))
+            ok = (ok and same(a, b) and torch.equal(
+                storage_interior(a[0], g)[..., C:], inner[..., C:]))
+        ok = ok and 0 < npix[0] < Hm * Wm == npix[1]
+        rep.update(storage_channels=cs, layer=layer, npix=npix)
     elif kernel == "delta_conv":
         q = KC.channel_quantum(dt)
         cs, cout = -(-C // q) * q, extra

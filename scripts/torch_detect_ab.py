@@ -28,7 +28,10 @@ checkout's; B9's over its (tile, part) pairs, split by this checkout's
 channel split (``int cc, int lanes, int cs``) gets this checkout's
 ``lane_split``; B4 either takes the cell grid's window and one thread a
 pixel, or its block plan and load width (``int vec16, int bw``: this
-checkout's ``block_plan`` and ``vec16``). Every tree's kernels are built
+checkout's ``block_plan`` and ``vec16``); B7 either launches a block per
+8 rows x 32 pixels, or takes the grid of its wide path's walk over the
+8x8-pixel tiles (``int cx, int grid``: ``walk_grid`` at the tree's
+``BLOCKS_PER_SM``). Every tree's kernels are built
 with nvcc (sm_90a) and run on the same seeded bf16 inputs at the
 steady-frame shapes and list lengths that ``chip_smoke.py`` records on the
 scene flagship, on ``hintless``, on pose and on ``pose_fwd``, plus one
@@ -40,9 +43,10 @@ events, L2 flushed, the outputs restored and the mask and npix zeroed
 before each launch, the trees taking turns (A B .. B A) for ``--rounds``
 rounds; ``ms_per_launch`` is the kernel alone, ``ms_per_call`` the kernel
 after the zero-fills its tree's wrapper makes (one for a list walker of B1
-and B3 and for B4 with a block plan, one per output before; B5, B8 and B9
-make none), as ``chip_smoke.py`` times a call. Each case reports whether
-every tree's outputs (cache or out cache, mask, npix) equal the first
+and B3, for B4 with a block plan and for B7 with a walk, one per output
+before; B5, B8 and B9 make none), as ``chip_smoke.py`` times a call.
+Each case reports whether every tree's outputs (cache or out cache, mask,
+npix) equal the first
 tree's bit for bit, and for B5 the largest distance in bf16 ulps from the
 first tree's and from this checkout's plain version, and whether the
 first tree's equal the plain version. Prints the card's name and power
@@ -154,7 +158,8 @@ class Tree:
     WALKS = {"B1": r"int cap,\s+int grid", "B3": r"int cap,\s+int grid",
              "B8": r"int cap,\s+int grid",
              "B5": r"int n_tiles,\s+int capacity",
-             "B9": r"int cap,\s+int grid", "B4": r"int vec16,\s+int bw"}
+             "B9": r"int cap,\s+int grid", "B4": r"int vec16,\s+int bw",
+             "B7": r"int cx,\s+int grid"}
     # phrases of the interfaces that take a geometry: a case needing one
     # runs on the trees whose source has it
     TAKES = {("B1", "ragged"): r"int C,\s+int W,",
@@ -214,8 +219,8 @@ class Tree:
                    + [ll] + [i] * (4 if self.walks["B4"] else 10)
                    + [i] * self.takes["cell4"] + [vp]),
             "B7": ("cb_detect_full", [vp] * 4 + tau("B7")
-                   + [i] * (4 + self.takes["narrow"]) + [ll, ll] + [i] * 10
-                   + [vp]),
+                   + [i] * (4 + self.takes["narrow"] + self.walks["B7"])
+                   + [ll, ll] + [i] * 10 + [vp]),
         }
         for kind, (name, argtypes) in self.fn.items():
             f = getattr(ctypes.CDLL(libs[kind]), name)
@@ -427,6 +432,12 @@ def main():
         else:
             walk = None
 
+        def b7_walk(tree):
+            """B7's walk over the 8x8-pixel tiles (the wide path's grid)."""
+            return walk_grid(-(-g.in_h // 8) * -(-g.in_w // 8),
+                             sm_count(torch.cuda.current_device()),
+                             tree.per_sm[kind])
+
         def launch(j):
             tree = trees[j]
             fn = tree.fn[kind]
@@ -485,10 +496,11 @@ def main():
                 sh, sw = g.stride
                 cs = st.shape[-1]
                 cx = [C] if tree.takes["narrow"] else []
+                walk = [b7_walk(tree)] if tree.walks[kind] else []
                 err = fn(
                     x.data_ptr(), st.data_ptr(), mask.data_ptr(),
                     npix.data_ptr(), tau_arg(tree, kind, case["tau"]), 1,
-                    g.in_h, g.in_w, cs, *cx, x.shape[1] * C,
+                    g.in_h, g.in_w, cs, *cx, *walk, x.shape[1] * C,
                     st.shape[1] * cs, g.store_lo_h, g.store_lo_w, g.tiles_h,
                     g.tiles_w, g.th * sh, g.tw * sw, g.pad_lo_h, g.pad_lo_w,
                     g.win_h, g.win_w, stream)
@@ -506,8 +518,9 @@ def main():
 
         def fill(j):
             """The zero-fills of tree j's wrapper: one for a list walker
-            of B1 and B3 and for B4 with a block plan (mask and npix share
-            a buffer), else one per output; none for B5, B8 and B9."""
+            of B1 and B3, for B4 with a block plan and for B7 with a walk
+            (mask and npix share a buffer), else one per output; none for
+            B5, B8 and B9."""
             if kind in ("B5", "B8", "B9"):
                 return
             if trees[j].walks[kind]:
@@ -589,7 +602,11 @@ def main():
                         if tree.walks[kind]
                         else -(-g.in_w // 32) * -(-g.in_h // 8))
             if kind == "B7":
-                return -(-g.in_w // 32) * -(-g.in_h // 8)
+                if not tree.walks[kind]:  # 8 rows x 32 pixels a block
+                    return -(-g.in_w // 32) * -(-g.in_h // 8)
+                if geom == "narrow":  # 8 rows x 256 pixels a block
+                    return -(-g.in_w // 256) * -(-g.in_h // 8)
+                return b7_walk(tree)
             if kind == "B9":
                 return tree.grid(kind, cap, walk[tree][0])[-1]
             return tree.grid(kind, cap, walk)[-1]

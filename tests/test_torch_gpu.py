@@ -1063,6 +1063,40 @@ def test_detect_kernels_take_device_taus_on_card(cuda):
         KDF.detect_full(x, st.clone(), torch.tensor(0.1), g)
 
 
+@pytest.mark.parametrize("cx, cs", [(64, 64), (3, 8)], ids=["wide", "narrow"])
+def test_detect_full_reads_tau_inside_a_graph_on_card(cuda, cx, cs):
+    """B7 captured in a CUDA graph with tau a 0-d view of a device vector:
+    each replay after a new tau is written into the vector equals the
+    plain version at that tau, bit for bit (storage, mask, npix)."""
+    from cbinfer_tpu_torch.ops.delta_conv import storage_interior
+    from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
+    H, W = 40, 72
+    g = conv_tile_geometry((H, W, cs), (3, 3), (1, 1), (1, 1), "SAME", 8, 8)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    prev = torch.randn(H, W, cx, device=cuda, generator=gen)
+    x = (prev + torch.rand(H, W, 1, device=cuda, generator=gen) * 0.4).to(
+        torch.bfloat16)
+    st0 = torch.zeros(g.store_shape, dtype=torch.bfloat16, device=cuda)
+    storage_interior(st0, g)[..., :cx] = prev.to(torch.bfloat16)
+    st = st0.clone()
+    taus = torch.tensor([0.05], device=cuda)
+    KDF.detect_full(x, st, taus[0], g)  # built and launched once eagerly
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = KDF.detect_full(x, st, taus[0], g)
+    counts = []
+    for tau in (0.05, 0.2, -1.0, 0.3):
+        st.copy_(st0)
+        taus.fill_(tau)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = KDF.detect_full_plain(x, st0.clone(), tau, g)
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), tau
+        counts.append(int(out[2]))
+    assert 0 < counts[3] < counts[1] < counts[0] < counts[2] == H * W
+
+
 def test_tuner_sweep_replays_one_graph_on_card(cuda):
     """The tuner's runner: one graph for every tau vector of a clip shape,
     each replay equal to a fresh eager scan at its taus, under the sync
@@ -1535,7 +1569,9 @@ def test_plain_converter_cin3_stem_equals_plain_on_card(cuda):
 
 @pytest.mark.parametrize("case", sorted(chip_smoke.GEOMETRY_CASES))
 def test_geometry_cases_on_card(cuda, case):
-    """Ragged maps through B1 and B9, a 3- or 5-channel x through B7, a
-    cin-3 input cache through B2 and cells of 4 and 2 through B4, each
-    against its plain version (chip_smoke.check_geometry_case)."""
+    """Ragged maps through B1 and B9, B7's wide forms (16- and 4-byte
+    units, batches, ragged and narrow maps) and its narrow ones (3, 4 or 5
+    channels of x on a cache of 8 or 4), a cin-3 input cache through B2
+    and cells of 4 and 2 through B4, each against its plain version
+    (chip_smoke.check_geometry_case)."""
     chip_smoke.check_geometry_case(torch, np, case)

@@ -78,7 +78,18 @@ def _ids(mask):
 @pytest.mark.parametrize("tau", [0.5, -1.0])
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
 def test_detect_full_plain_matches_pallas(name, tau):
-    H, W, C = 32, 48, 8
+    _detect_full_against_pallas(name, tau, 8)
+
+
+@pytest.mark.parametrize("tau", [0.5, -1.0])
+@pytest.mark.parametrize("name", ["conv3x3", "pool2x2"])
+def test_detect_full_plain_matches_pallas_c128(name, tau):
+    """The hintless path's width (its first pool's 128 channels)."""
+    _detect_full_against_pallas(name, tau, 128)
+
+
+def _detect_full_against_pallas(name, tau, C):
+    H, W = 32, 48
     rng = np.random.default_rng(11)
     g, tg = _geoms(H, W, C, name)
     prev = rng.standard_normal((H, W, C)).astype(np.float32)
@@ -99,6 +110,37 @@ def test_detect_full_plain_matches_pallas(name, tau):
     np.testing.assert_array_equal(tnpix.numpy(), np.asarray(jnpix))
     want = H * W if tau < 0 else int((np.abs(x - prev).max(-1) > tau).sum())
     assert int(tnpix[0]) == want > 0
+
+
+@pytest.mark.parametrize("tau", [0.3, -1.0])
+@pytest.mark.parametrize("name", ["conv3x3", "pool2x2"])
+def test_detect_full_narrow_x_matches_pallas_on_zero_padded_x(name, tau):
+    """A 3-channel x over an 8-channel storage (a "cuda" conv's stem cache
+    at the tile convs' channel grid, zero past the frame's channels): the
+    plain version equals the reference's kernel on x zero-padded to 8
+    channels, which compares and accepts all 8: storage, mask and npix."""
+    H, W, cx, C = 24, 40, 3, 8
+    rng = np.random.default_rng(13)
+    g, tg = _geoms(H, W, C, name)
+    prev = np.zeros((H, W, C), np.float32)
+    prev[..., :cx] = rng.standard_normal((H, W, cx))
+    x = prev[..., :cx].copy()
+    x[rng.random((H, W)) < 0.2] += 0.5
+    x[2, 3, 1] += 0.31             # one channel is enough
+    x[H - 1, W - 1] -= 0.9
+    st = _storage(g, prev, GEOMETRIES[name]["margin"])
+    xpad = np.zeros((H, W, C), np.float32)
+    xpad[..., :cx] = x
+    jst, jmask, jnpix = detect_full_pallas(jnp.asarray(xpad),
+                                           jnp.asarray(st), tau, g,
+                                           interpret=True)
+    tst, tmask, tnpix = detect_full(_t(x), _t(st), tau, tg)
+    np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    np.testing.assert_array_equal(tnpix.numpy(), np.asarray(jnpix))
+    assert 0 < int(tnpix[0]) <= H * W
+    assert not tst.numpy()[g.store_lo_h:g.store_lo_h + H,
+                           g.store_lo_w:g.store_lo_w + W, cx:].any()
 
 
 def test_detect_full_reads_logical_region_of_padded_input():

@@ -30,6 +30,7 @@ from cbinfer_tpu_torch.ops import flat4
 from cbinfer_tpu_torch.ops.kernels import launches, reset_launches, walk_grid
 from cbinfer_tpu_torch.ops.kernels import accept as KA
 from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
+from cbinfer_tpu_torch.ops.kernels import detect_full as KDF
 from cbinfer_tpu_torch.ops.kernels import detect_sparse as KD
 from cbinfer_tpu_torch.ops.kernels import pool_fused as KP
 from cbinfer_tpu_torch.ops.kernels import stem_conv as KSC
@@ -212,8 +213,8 @@ def test_detect_pool_fused_plain_matches_pallas(C, blocks):
 # ------------------------ the grid of the list walkers ----------------------
 
 
-@pytest.mark.parametrize("module", [KD, KP, KDP, KSC, KA],
-                         ids=["B1", "B3", "B8", "B5", "B9"])
+@pytest.mark.parametrize("module", [KD, KP, KDP, KSC, KA, KDF],
+                         ids=["B1", "B3", "B8", "B5", "B9", "B7"])
 @pytest.mark.parametrize("rel", ["zero", "below", "at", "above", "all_720p"])
 def test_walk_grid_is_the_list_capped_at_blocks_per_sm(module, rel):
     """B1, B3, B8, B5 and B9 launch min(capacity, k * SMs) blocks, which
@@ -222,7 +223,8 @@ def test_walk_grid_is_the_list_capped_at_blocks_per_sm(module, rel):
     items over 8 warps a block: every tile's, since on overflow the walk
     covers all of them (3600 stem tiles at 720p, 16 items a tile at cout
     128). B9's is its (tile, part) pairs: every hint tile of pose_fwd's
-    90x160 maps, 4 parts a tile at C 256 in bf16."""
+    90x160 maps, 4 parts a tile at C 256 in bf16. B7's wide path walks
+    every 8x8-pixel tile of the map (90x160 at 720p)."""
     sms, k = 132, module.BLOCKS_PER_SM
     stem = t_conv_tile_geometry((720, 1280, 3), (3, 3), (1, 1), (1, 1),
                                 "SAME", 8, 32)
