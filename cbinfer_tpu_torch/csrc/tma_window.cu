@@ -14,26 +14,44 @@
 // window another way. The encoder comes through cudaGetDriverEntryPoint,
 // so the library needs no -lcuda.
 //
-// P1 (write): one block fills a shared tile, the box in its dense order, with
-// the ramp lane + 1 of its innermost extent, fences it for the async proxy,
-// and one thread stores it into the window (cp.async.bulk.tensor, shared to
-// global, one bulk group) and waits for the group.
-// P2 (read): one thread arms an mbarrier with the box's bytes and loads the
-// window (cp.async.bulk.tensor, global to shared); every thread waits on
-// the barrier, then the block stores the tile into the dense output with
-// 16-byte stores (a box row is a multiple of 16 bytes).
+// Bound on the H100: not bytes (a window of at most 227 KB moves in
+// nanoseconds at 3.35 TB/s) but the launch and the steps of one block in
+// order: its fill or load, one copy, the wait before it exits. So the
+// design keeps every thread's work short and leaves the copies to the copy
+// engine.
 //
-// Bound on the H100: bytes, the window written once (P1) or read and
-// written once (P2), at most tens of KB here, so a launch costs its
-// latency. These probes ask what the copy engine accepts, not how fast it
-// is: one block and one copy per call is enough.
+// P1 (write). The first design filled the tile with one 2-byte store an
+// element, each after an integer modulo by the run-time inner extent and
+// an int -> float -> bf16 conversion (64 of them a thread for a 32 KB
+// box), then waited for the store to reach device memory. Now: a box that
+// encodes has rows of vpr = inner / 8 whole 16-byte vectors (1 <= vpr <=
+// 32), and the block is vpr x rows-a-step threads (write_plan in
+// ops/kernels/tma_window.py, passed in as ``threads``): thread (x, y) owns
+// column x, builds its eight ramp values 8x+1 .. 8x+8 once in registers
+// (exact in bf16 up to 256) and stores that 16-byte vector into rows y,
+// y + rows-a-step, ...; a warp's 32 stores are 512 consecutive bytes. The
+// issuing thread prefetches the tensor map at entry so its fetch overlaps
+// the fill; after the proxy fence and the barrier it issues the store and
+// waits only until the copy engine has read the tile (wait_group.read):
+// the kernel's completion makes the writes visible to the next kernel on
+// the stream.
+// P2 (read). The first design had 256 threads spin on the mbarrier, then
+// copy the tile out with 16-byte stores. Now one thread of one warp does
+// everything on the copy engine, as the TPU kernel's two DMAs: it prefetches
+// the map, initialises and arms the mbarrier with the box's bytes, loads
+// the window (cp.async.bulk.tensor, global to shared), waits on the
+// barrier, and copies the tile to the dense output with one bulk copy
+// (cp.async.bulk, shared to global; the output comes from torch.empty, so
+// it is 16-byte aligned, and the box's bytes are a multiple of 16), waiting
+// again only on the read of shared memory.
 #include <cuda.h>
 
 #include "cb_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // P1's most threads (write_plan's cap)
+constexpr int kReadThreads = 32;  // P2: one warp, one thread of it busy
 constexpr int kMaxRank = 5;
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -49,7 +67,6 @@ struct Box {
   int rank;
   int c[kMaxRank];  // origin coordinates, innermost first
   int inner;        // elements of the innermost extent
-  int elems;        // elements of the box
   int bytes;        // bytes of the box (a multiple of 16 once encoded)
 };
 
@@ -95,13 +112,13 @@ CUresult encode(EncodeTiledFn fn, CUtensorMap* map, void* base, int rank,
 Box make_box(int rank, const long long* start, const int* box) {
   Box b{};
   b.rank = rank;
-  b.elems = 1;
+  int elems = 1;
   for (int i = 0; i < rank; ++i) {
     b.c[i] = (int)start[rank - 1 - i];
-    b.elems *= box[i];
+    elems *= box[i];
   }
   b.inner = box[rank - 1];
-  b.bytes = b.elems * (int)sizeof(__nv_bfloat16);
+  b.bytes = elems * (int)sizeof(__nv_bfloat16);
   return b;
 }
 
@@ -149,8 +166,27 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
           "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4])
           : "memory");
   }
+}
+
+// Closes the bulk group of the copies issued so far and waits until the
+// copy engine has read their shared-memory source (not until their writes
+// reach device memory: the kernel's completion covers those).
+__device__ __forceinline__ void bulk_commit_wait_read() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Starts fetching a __grid_constant__ tensor map into the descriptor cache.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Two bf16 values in one 32-bit word, ``lo`` at the lower address.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // cp.async.bulk.tensor load of the map's window into the shared tile,
@@ -202,40 +238,49 @@ __device__ __forceinline__ void tma_load(void* tile, const CUtensorMap* map,
   }
 }
 
+// Block (vpr, rows a step): thread (x, y) fills vector column x of rows y,
+// y + blockDim.y, ... of the box's dense tile.
 __global__ void __launch_bounds__(kThreads)
 tma_window_write_kernel(const __grid_constant__ CUtensorMap map, Box b) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  for (int e = threadIdx.x; e < b.elems; e += blockDim.x)
-    tile[e] = __float2bfloat16_rn((float)(e % b.inner + 1));
+  const bool issuer = threadIdx.x == 0 && threadIdx.y == 0;
+  if (issuer) prefetch_map(&map);
+  const float v = (float)(8 * threadIdx.x + 1);
+  const uint4 ramp = make_uint4(pack_bf16x2(v, v + 1.f),
+                                pack_bf16x2(v + 2.f, v + 3.f),
+                                pack_bf16x2(v + 4.f, v + 5.f),
+                                pack_bf16x2(v + 6.f, v + 7.f));
+  uint4* tile = reinterpret_cast<uint4*>(smem_raw);
+  const uint4* end = tile + (b.bytes >> 4);
+  const int step = blockDim.x * blockDim.y;
+  for (uint4* p = tile + threadIdx.y * blockDim.x + threadIdx.x; p < end;
+       p += step)
+    *p = ramp;
   // the copy engine (the async proxy) reads what these stores wrote
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
-  if (threadIdx.x == 0) tma_store(&map, tile, b);
+  if (issuer) {
+    tma_store(&map, smem_raw, b);
+    bulk_commit_wait_read();
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kReadThreads)
 tma_window_read_kernel(const __grid_constant__ CUtensorMap map, Box b,
                        __nv_bfloat16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  if (threadIdx.x != 0) return;
+  prefetch_map(&map);
   // after the tile: b.bytes is a multiple of 16
   auto* bar = reinterpret_cast<unsigned long long*>(smem_raw + b.bytes);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                     smem_addr(bar))
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-            smem_addr(bar)),
-        "r"(b.bytes)
-        : "memory");
-    tma_load(tile, &map, bar, b);
-  }
+  const uint32_t k = smem_addr(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(k) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   k),
+               "r"(b.bytes)
+               : "memory");
+  tma_load(smem_raw, &map, bar, b);
   uint32_t done = 0;
   while (!done) {
     asm volatile(
@@ -243,12 +288,17 @@ tma_window_read_kernel(const __grid_constant__ CUtensorMap map, Box b,
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(smem_addr(bar))
+        : "r"(k)
         : "memory");
   }
-  const uint4* src = reinterpret_cast<const uint4*>(tile);
-  uint4* dst = reinterpret_cast<uint4*>(out);
-  for (int v = threadIdx.x; v < b.bytes / 16; v += blockDim.x) dst[v] = src[v];
+  // the second copy reads the tile through the async proxy, after this
+  // thread observed the load complete
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(reinterpret_cast<uint64_t>(out)),
+               "r"(smem_addr(smem_raw)), "r"(b.bytes)
+               : "memory");
+  bulk_commit_wait_read();
 }
 
 int set_smem(const void* kernel, int bytes) {
@@ -260,13 +310,16 @@ int set_smem(const void* kernel, int bytes) {
 }  // namespace
 
 // ``shape`` (rank entries, outermost first) of the contiguous bf16 tensor
-// at ``base``; the window starts at ``start`` and spans ``box``. Returns a
-// CUDA error code; ``*cu_result`` is the encoder's CUresult, and when it is
-// not 0 (CUDA_SUCCESS) nothing was launched.
+// at ``base``; the window starts at ``start`` and spans ``box``; the block
+// has ``threads`` threads (write_plan: a multiple of the box row's 16-byte
+// vectors, at most 256). Returns a CUDA error code; ``*cu_result`` is the
+// encoder's CUresult, and when it is not 0 (CUDA_SUCCESS) nothing was
+// launched.
 extern "C" int cb_tma_window_write(void* base, int rank,
                                    const long long* shape,
                                    const long long* start, const int* box,
-                                   int* cu_result, void* stream) {
+                                   int threads, int* cu_result,
+                                   void* stream) {
   *cu_result = 0;
   if (rank < 1 || rank > kMaxRank) return (int)cudaErrorInvalidValue;
   const EncodeTiledFn fn = encode_fn();
@@ -278,9 +331,12 @@ extern "C" int cb_tma_window_write(void* base, int rank,
     return 0;
   }
   const Box b = make_box(rank, start, box);
+  const int vpr = b.inner / 8;  // 16-byte vectors a row: the map encoded
+  if (threads < vpr || threads > kThreads || threads % vpr)
+    return (int)cudaErrorInvalidValue;
   int err = set_smem((const void*)tma_window_write_kernel, b.bytes);
   if (err) return err;
-  tma_window_write_kernel<<<1, kThreads, b.bytes,
+  tma_window_write_kernel<<<1, dim3(vpr, threads / vpr), b.bytes,
                             static_cast<cudaStream_t>(stream)>>>(map, b);
   return (int)cudaGetLastError();
 }
@@ -303,10 +359,12 @@ extern "C" int cb_tma_window_read(const void* base, int rank,
     return 0;
   }
   const Box b = make_box(rank, start, box);
+  // the bulk copy's global address
+  if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
   const int smem = b.bytes + 16;  // the tile, then the mbarrier
   int err = set_smem((const void*)tma_window_read_kernel, smem);
   if (err) return err;
-  tma_window_read_kernel<<<1, kThreads, smem,
+  tma_window_read_kernel<<<1, kReadThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       map, b, static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();

@@ -6,9 +6,15 @@ window of a buffer by one DMA) and ``run_case_read`` (P2: a window of a
 buffer read by one DMA and written out to a dense array). Those probes
 ask which window shapes the chip's copy engine takes; on Hopper the
 engine is TMA, so each wrapper encodes one tensor map whose box is the
-window and moves it with one ``cp.async.bulk.tensor``. The CUDA source
-(``csrc/tma_window.cu``) carries the design note: bytes bound both, one
-block and one copy per call.
+window and moves it with one ``cp.async.bulk.tensor``.
+
+On the H100 the launch bounds both, not bytes (``csrc/tma_window.cu``
+carries the design note). P1's block builds each 16-byte vector of the ramp
+once in registers and stores it into every row it owns, as ``write_plan``
+lays the threads out (no division an element), then one thread stores the
+tile and waits only until the copy engine has read it. P2 is one thread of
+one warp: a tensor load into shared memory and a bulk copy out of it, both
+on the copy engine, as the reference's two DMAs.
 
 A window the card will not encode raises ``WindowRefused`` with the
 encoder's ``CUresult`` and the rules it breaks (``encode_refusal``, the
@@ -37,6 +43,8 @@ MAX_RANK = 5
 MAX_BOX = 256            # elements of one box extent
 ALIGN = 16               # bytes: global address, strides, box rows
 MAX_SMEM = 232448        # dynamic shared memory of one block on the H100
+MAX_THREADS = 256        # P1's block at most
+VEC = ALIGN // 2         # bf16 values in one 16-byte vector
 
 
 class WindowRefused(RuntimeError):
@@ -92,6 +100,23 @@ def encode_refusal(shape: Sequence[int], window, element_size: int = 2,
     return rules
 
 
+def write_plan(box: Sequence[int]) -> Tuple[int, int]:
+    """(threads, vpr) of P1's block for a box: ``vpr`` 16-byte vectors make
+    a box row, and the block is ``vpr`` columns by as many rows a step as
+    fit in ``MAX_THREADS`` threads and the box has rows; thread (x, y)
+    stores vector x of rows y, y + threads / vpr, ... . (0, 0) for a box
+    whose row is not whole vectors of at most ``MAX_BOX`` elements: the
+    encoder refuses it, and nothing is launched."""
+    inner = box[-1]
+    if inner % VEC or not 0 < inner <= MAX_BOX:
+        return 0, 0
+    vpr = inner // VEC
+    rows = 1
+    for b in box[:-1]:
+        rows *= b
+    return vpr * min(MAX_THREADS // vpr, rows), vpr
+
+
 def ramp(box: Sequence[int], device=None) -> torch.Tensor:
     """The P1 tile: ``lane + 1`` over the innermost extent, in bf16 (the
     reference's lane iota plus one), broadcast over the box."""
@@ -117,7 +142,7 @@ def _fn(name):
     if f.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         f.argtypes = [vp, i, vp, vp, vp] \
-            + ([vp] if name == "cb_tma_window_read" else []) + [vp, vp]
+            + ([vp] if name == "cb_tma_window_read" else [i]) + [vp, vp]
         f.restype = ctypes.c_int
     return f
 
@@ -143,7 +168,8 @@ def _card_operands(t: torch.Tensor, window, what: str):
 
 def window_write(dst: torch.Tensor, window, vshape=None) -> torch.Tensor:
     """P1: the ramp written into ``dst[window]`` IN PLACE by one TMA store
-    (the reference aliases its zero buffer to the output). ``vshape``:
+    from a tile filled as ``write_plan`` lays out the block (the reference
+    aliases its zero buffer to the output). ``vshape``:
     the staged tile's shape, as the reference's scratch; it must be the
     window's. Returns ``dst``; raises ``WindowRefused`` when the card does
     not encode the window."""
@@ -156,10 +182,11 @@ def window_write(dst: torch.Tensor, window, vshape=None) -> torch.Tensor:
     if not dst.is_cuda:
         raise ValueError("window_write: the tensor must be on the card")
     shape, start, boxa, _ = _card_operands(dst, window, "window_write")
+    threads, _ = write_plan(box)
     cu = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dst.device).cuda_stream
     err = _fn("cb_tma_window_write")(dst.data_ptr(), dst.ndim, shape, start,
-                                     boxa, ctypes.byref(cu), stream)
+                                     boxa, threads, ctypes.byref(cu), stream)
     check(err, "tma_window_write")
     if cu.value:
         raise WindowRefused("tma_window_write", cu.value, encode_refusal(
@@ -170,8 +197,8 @@ def window_write(dst: torch.Tensor, window, vshape=None) -> torch.Tensor:
 
 def window_read(src: torch.Tensor, window) -> torch.Tensor:
     """P2: ``src[window]`` copied into a new dense tensor by one TMA load
-    and a block's stores; raises ``WindowRefused`` when the card does not
-    encode the window."""
+    into shared memory and one bulk copy out of it; raises
+    ``WindowRefused`` when the card does not encode the window."""
     if src.device.type == "cpu":
         return window_read_plain(src, window)
     if not src.is_cuda:

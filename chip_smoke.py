@@ -67,7 +67,12 @@ Phases, each printing one JSON line:
               accepted window bit-identical to the plain version (each
               kernel needs one), a refused one raising with the buffer
               untouched; ms per launch (L2 flushed), plain ms, one
-              PyTorch copy_'s ms, and the bound (the window's bytes)
+              PyTorch copy_'s ms, the bound (the window's bytes) and the
+              launch floor (an empty one-block kernel); then, untimed, the
+              probe's SWEEP through both kernels: every rank, box rows of
+              1 to 32 16-byte vectors, a single row, the last element of
+              every dimension, a 224 KiB box, and a window for each
+              encoder rule the eleven do not break
   balance     the achieved bf16 GEMM rate (torch.matmul, 8192^3) and device
               copy rate (1 GiB), their ratio beside the data sheet's and
               metrics.MACHINE_BALANCE, the cost model's constant
@@ -4308,7 +4313,12 @@ def probe_dma_phase(torch, np):
     kernel against its plain version on the same inputs (an accepted case
     bit for bit; a refused one raises and leaves the buffer untouched),
     ms per launch with L2 flushed, the plain version's and one PyTorch
-    copy's, and the bound: the window's bytes moved once at PEAK_BYTES."""
+    copy's, the bound (the window's bytes moved once at PEAK_BYTES) and
+    what the launch costs above an empty one-block kernel timed alike.
+    Then, untimed, each window of the probe's SWEEP through both kernels:
+    the card's verdict is the expected one and the rules' prediction, an
+    accepted window bit-identical to the plain version, a refused one
+    raising with its buffer untouched."""
     from cbinfer_tpu_torch.ops.kernels import launches, reset_launches
     from cbinfer_tpu_torch.ops.kernels import tma_window as K
     mod = _load_script("torch_probe_dma_constraints")
@@ -4320,6 +4330,8 @@ def probe_dma_phase(torch, np):
              for n, w in mod.WRITE_CASES] \
         + [(n, sh, w, False) for n, sh, w in mod.READ_CASES]
     rows, out = {}, []
+    floor = _time_launches(torch, lambda: torch.cuda._sleep(0),
+                           lambda: None, 20)
     for rec, (name, shape, window, write) in zip(records, cases):
         _, box = K.window_bounds(shape, window)
         nbytes = int(np.prod(box)) * 2 * (1 if write else 2)
@@ -4378,14 +4390,19 @@ def probe_dma_phase(torch, np):
         bound, by = _bound_ms(0.0, nbytes)
         one.update(values_ok=rec["values_ok"], exact=exact,
                    max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
-                   bound_ms=bound, bound_by=by)
+                   bound_ms=bound, bound_by=by, above_floor_ms=ms - floor)
         out.append(one)
         if not (exact and rec["values_ok"]):
             raise AssertionError(f"probe_dma {name}: kernel and plain "
                                  f"version differ: {one}")
         rows.setdefault(rec["kernel"], one)
-    emit("probe_dma", cases=out, launches=counts,
-         smi=nvidia_smi("name,power.limit"))
+    sweep = [mod.check_sweep_case(c, "cuda") for c in mod.SWEEP]
+    for c, got in zip(mod.SWEEP, sweep):
+        faults = mod.sweep_faults(c, got)
+        if faults:
+            raise AssertionError(f"probe_dma sweep {c.name}: {faults}")
+    emit("probe_dma", cases=out, launches=counts, launch_floor_ms=floor,
+         sweep=sweep, smi=nvidia_smi("name,power.limit"))
     for k in (K.KERNEL_WRITE, K.KERNEL_READ):
         accepted = sum(1 for c in out
                        if c["kernel"] == k.name and c["verdict"] == "accepted")
@@ -4402,7 +4419,7 @@ def probe_dma_phase(torch, np):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "case": r["case"],
+            "launch_floor_ms": floor, "case": r["case"],
             "paths": {"probe_dma": {"launches": counts[k.name]}},
             "cases": [c for c in out if c["kernel"] == k.name]}
 

@@ -18,9 +18,17 @@ objects, which raises, so its read cases print REJECTED whatever the chip
 does.) On the CPU the wrappers run their plain versions: a case prints
 what the encoder's rules predict, then checks the plain version's values.
 The exit code is 1 when an accepted case's values are wrong.
+
+``SWEEP`` holds more windows for P1 and P2 beyond the eleven (every rank,
+box rows of 1 to 32 16-byte vectors, a single row, the last element of
+every dimension, a box near the shared-memory limit, and a window for each
+encoder rule the eleven do not break); ``check_sweep_case`` runs one of
+them through both kernels, ``sweep_faults`` judges a card's record. The card tests, ``chip_smoke.py``'s
+``probe_dma`` phase and ``scripts/torch_tma_ab.py`` use them.
 """
 
 import argparse
+import collections
 import json
 import os
 import sys
@@ -69,6 +77,47 @@ READ_CASES = (
      (ds(9, 8), ds(15, 9), FULL)),
     ("r4 flat read (10,256)@(3,256) of (722,5444)", (722, 5444),
      (ds(3, 10), ds(256, 256))),
+)
+
+
+# A window of a contiguous bf16 tensor whose data starts ``offset`` elements
+# past its allocation's start; ``timed``: one of scripts/torch_tma_ab.py's
+# cases; ``accepted``: the encoder takes it.
+SweepCase = collections.namedtuple(
+    "SweepCase", "name shape window offset timed accepted")
+SWEEP = (
+    SweepCase("s1 rank 1, one vector (8)@(40) of (4096)", (4096,),
+              (ds(40, 8),), 0, True, True),
+    SweepCase("s2 rank 1, vpr 32, last element (256)@(3840) of (4096)",
+              (4096,), (ds(3840, 256),), 0, False, True),
+    SweepCase("s3 rank 2, vpr 3 (37,24)@(3,8) of (40,264)", (40, 264),
+              (ds(3, 37), ds(8, 24)), 0, True, True),
+    SweepCase("s4 rank 3, vpr 5 (5,7,40)@(1,3,8) of (20,12,48)",
+              (20, 12, 48), (ds(1, 5), ds(3, 7), ds(8, 40)), 0, False, True),
+    SweepCase("s5 rank 4, vpr 7 (3,4,9,56)@(2,1,0,8) of (6,5,9,64)",
+              (6, 5, 9, 64), (ds(2, 3), ds(1, 4), FULL, ds(8, 56)), 0,
+              False, True),
+    SweepCase("s6 rank 5, vpr 9 (2,3,4,5,72)@(1,1,1,1,8) of (3,4,5,6,80)",
+              (3, 4, 5, 6, 80), (ds(1, 2), ds(1, 3), ds(1, 4), ds(1, 5),
+                                 ds(8, 72)), 0, True, True),
+    SweepCase("s7 single row, vpr 32 (1,256)@(15,0) of (16,256)", (16, 256),
+              (ds(15, 1), FULL), 0, True, True),
+    SweepCase("s8 last element of each dim (8,9,128)@(56,39,0) of "
+              "(64,48,128)", (R, G, L), (ds(56, 8), ds(39, 9), FULL), 0,
+              False, True),
+    SweepCase("s9 vpr 1, 256 rows (256,8)@(44,8) of (300,16)", (300, 16),
+              (ds(44, 256), ds(8, 8)), 0, False, True),
+    SweepCase("s10 224 KiB (7,128,128)@(1,2,8) of (9,130,136)",
+              (9, 130, 136), (ds(1, 7), ds(2, 128), ds(8, 128)), 0, True,
+              True),
+    SweepCase("s11 box row of 12 B (4,6)@(0,2) of (8,16)", (8, 16),
+              (ds(0, 4), ds(2, 6)), 0, False, False),
+    SweepCase("s12 box extent 257 (257,8)@(0,0) of (300,8)", (300, 8),
+              (ds(0, 257), FULL), 0, False, False),
+    SweepCase("s13 stride of 200 B (4,8)@(0,0) of (8,100)", (8, 100),
+              (ds(0, 4), ds(0, 8)), 0, False, False),
+    SweepCase("s14 address 8 B past 16 (8,64)@(0,0) of (8,64)", (8, 64),
+              (FULL, FULL), 4, False, False),
 )
 
 
@@ -133,6 +182,86 @@ def run_cases(device="cuda", log=print):
     for r in records:
         log(_line(r))
     return records
+
+
+def sweep_buffer(case, device, values=None):
+    """A fresh contiguous bf16 tensor of the case's shape starting
+    ``case.offset`` elements into its allocation: zeros, or ``values``."""
+    n = int(np.prod(case.shape))
+    t = torch.zeros(case.offset + n, dtype=torch.bfloat16, device=device)
+    t = t[case.offset:].view(case.shape)
+    if values is not None:
+        t.copy_(values)
+    return t
+
+
+def check_sweep_case(case, device="cuda"):
+    """One sweep window through P1 (into zeros) and P2 (out of
+    ``read_source``) on ``device``: a record per kernel of the verdict (on
+    the card the encoder's, on the CPU the rules' prediction), and for an
+    accepted window whether the output equals the plain version's and
+    numpy's plain slices bit for bit, for a window the card refuses
+    whether the call raised and left its buffer untouched. On the CPU the
+    wrappers run the plain version on every window."""
+    device = torch.device(device)
+    card = device.type == "cuda"
+    _, box = K.window_bounds(case.shape, case.window)
+    want_w = np.zeros(case.shape, np.float32)
+    want_w[case.window] = np.arange(1, box[-1] + 1, dtype=np.float32)
+    values = read_source(case.shape).to(device)
+    out = dict(case=case.name, shape=list(case.shape),
+               window=_spans(case.window, case.shape), offset=case.offset)
+    for kernel, run, plain, want, buf in (
+            ("write", K.window_write, K.window_write_plain, want_w,
+             sweep_buffer(case, device)),
+            ("read", K.window_read, K.window_read_plain,
+             values.float().cpu().numpy()[case.window],
+             sweep_buffer(case, device, values))):
+        before = buf.clone()
+        rules = K.encode_refusal(case.shape, case.window, 2, buf.data_ptr())
+        rec = dict(rules=rules, verdict_by="card" if card else "rules")
+        got = None
+        if card:
+            try:
+                got = run(buf, case.window)
+            except K.WindowRefused as e:
+                rec.update(verdict="refused", cu_result=e.cu_result,
+                           raised_rules=e.rules,
+                           untouched=bool(torch.equal(buf, before)))
+            else:
+                rec.update(verdict="accepted", cu_result=0)
+        else:  # the plain version, whatever the rules predict
+            got = run(buf, case.window)
+            rec.update(verdict="refused" if rules else "accepted",
+                       cu_result=None)
+        if got is not None:
+            ref = plain(sweep_buffer(case, device, before), case.window)
+            rec.update(exact=bool(torch.equal(got, ref)),
+                       values_ok=bool(np.array_equal(
+                           got.float().cpu().numpy(), want)))
+        out[kernel] = rec
+    return out
+
+
+def sweep_faults(case, record):
+    """What is wrong with a card's ``check_sweep_case`` record: a verdict
+    other than the expected one or the rules' prediction, an accepted
+    output off the plain version or numpy's slices, a refusal without a
+    CUresult, with other rules or with its buffer changed."""
+    faults = []
+    for kernel in ("write", "read"):
+        r = record[kernel]
+        if r["verdict"] != ("accepted" if case.accepted else "refused") \
+                or bool(r["rules"]) == case.accepted:
+            faults.append(f"{kernel}: verdict {r['verdict']}, rules "
+                          f"{r['rules']}")
+        elif case.accepted and not (r["exact"] and r["values_ok"]):
+            faults.append(f"{kernel}: output differs: {r}")
+        elif not case.accepted and not (
+                r["cu_result"] and r["untouched"]
+                and r["raised_rules"] == r["rules"]):
+            faults.append(f"{kernel}: refusal: {r}")
+    return faults
 
 
 def _spans(window, shape):

@@ -1152,6 +1152,25 @@ def test_tma_window_cases_on_card(cuda, i):
     assert torch.equal(got, want)
 
 
+PROBE = chip_smoke._load_script("torch_probe_dma_constraints")
+
+
+@pytest.mark.parametrize("case", PROBE.SWEEP,
+                         ids=[c.name.split()[0] for c in PROBE.SWEEP])
+def test_tma_window_sweep_on_card(cuda, case):
+    """Each sweep window through P1 and P2 on the card (every rank, box
+    rows of 1 to 32 16-byte vectors, a single row, the last element of
+    every dimension, a 224 KiB box, one window per encoder rule): the
+    card's verdict is the expected one and the rules' prediction; an
+    accepted window equals the plain version and numpy's slices bit for
+    bit, a refused one raises with the rules and leaves its buffer
+    untouched."""
+    got = PROBE.check_sweep_case(case, cuda)
+    torch.cuda.synchronize()
+    assert got["write"]["verdict_by"] == got["read"]["verdict_by"] == "card"
+    assert PROBE.sweep_faults(case, got) == []
+
+
 def test_graph_capture_with_host_sync_raises(cuda):
     """A frame function that reads a device value on the host cannot be
     captured: the call raises, nothing runs it eagerly instead."""

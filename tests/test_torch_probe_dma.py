@@ -9,6 +9,8 @@ cannot serve), and its cases are read off its calls."""
 import importlib.util
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -17,6 +19,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from cbinfer_tpu_torch.ops.kernels import tma_window as K
+from test_torch_calibration import _run  # the twins' jax-blocked runner
+from test_torch_scripts_exp import _NO_CUDA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -194,3 +198,107 @@ def test_twin_script_on_the_cpu(twin, tmp_path, capsys):
         "refused", "refused", "refused", "accepted", "refused"]
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 11 and lines[0].startswith("w1 ")
+
+
+# Boxes' outer extents (outermost first) for every row width: ranks 1 to
+# 5, a single row, rows fewer than, equal to and more than a block's rows
+# a step, and 256 rows (the most one extent takes).
+OUTER = [(), (1,), (3,), (37,), (256,), (2, 3), (7, 128), (9, 5, 3),
+         (2, 2, 3, 5)]
+
+
+@pytest.mark.parametrize("inner", range(8, 257, 8))
+def test_write_plan_covers_each_vector_once(inner):
+    """P1's block plan for every legal row width (vpr 1 to 32, with 3, 5,
+    7 and 9, which do not divide 256): thread (x, y) of a (vpr, threads /
+    vpr) block stores vector x of rows y, y + threads / vpr, ...; every
+    16-byte vector of the box is stored exactly once, with the ramp values
+    8x+1 .. 8x+8 that the plain tile holds there, by at most 256 threads."""
+    for outer in OUTER:
+        box = outer + (inner,)
+        threads, vpr = K.write_plan(box)
+        rows = int(np.prod(outer, dtype=np.int64))
+        nvec = rows * vpr
+        assert vpr == inner // 8 and 0 < threads <= 256, box
+        assert threads % vpr == 0 and threads // vpr <= rows, box
+        if rows >= 256 // vpr:
+            assert threads == vpr * (256 // vpr), box
+        stores = np.zeros(nvec, np.int64)
+        tile = np.zeros((nvec, 8), np.float32)
+        for y in range(threads // vpr):
+            for x in range(vpr):
+                at = np.arange(y * vpr + x, nvec, threads)
+                stores[at] += 1
+                tile[at] = np.arange(8 * x + 1, 8 * x + 9)
+        assert (stores == 1).all(), box
+        want = K.ramp(box).float().numpy().reshape(nvec, 8)
+        got = torch.from_numpy(tile).to(torch.bfloat16).float().numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("box", [(8, 36), (4,), (2, 12), (264,), (3, 260)])
+def test_write_plan_has_none_for_boxes_the_encoder_refuses(box):
+    """A box row that is not whole 16-byte vectors, or wider than 256
+    elements, has no plan: the encoder refuses the box first."""
+    assert K.write_plan(box) == (0, 0)
+
+
+@pytest.fixture(scope="module")
+def probe():
+    return _load("torch_probe_dma_constraints_sweep",
+                 os.path.join(REPO, "scripts",
+                              "torch_probe_dma_constraints.py"))
+
+
+SWEEP_RULES = {"s11": "box row = 6 x 2 = 12 B, not a multiple of 16",
+               "s12": "box extent of dim 0 = 257 > 256",
+               "s13": "stride of dim 0 = 200 B, not a multiple of 16",
+               "s14": "global address not 16-byte aligned"}
+
+
+@pytest.mark.parametrize("i", range(14))
+def test_sweep_window_on_the_cpu(probe, i):
+    """Each window of the sweep the card tests run: the encoder rules
+    predict its verdict (each refused one breaks exactly the rule it is
+    there for), and P1's and P2's plain versions equal numpy's plain
+    slices, tolerance 0."""
+    assert len(probe.SWEEP) == 14
+    case = probe.SWEEP[i]
+    got = probe.check_sweep_case(case, "cpu")
+    key = case.name.split()[0]
+    for kernel in ("write", "read"):
+        r = got[kernel]
+        assert r["verdict"] == ("accepted" if case.accepted else "refused")
+        assert r["rules"] == ([SWEEP_RULES[key]] if key in SWEEP_RULES
+                              else [])
+        assert r["exact"] and r["values_ok"], (case.name, kernel)
+
+
+def test_tma_ab_runs_its_cases_on_the_cpu(probe, tmp_path):
+    """scripts/torch_tma_ab.py --device cpu, with jax blocked: its cases
+    are the probe's four accepted windows and each timed sweep window
+    through both kernels, and every plain arm (the plain version and
+    ``copy_``) equals numpy's plain slices; no time is reported."""
+    out = tmp_path / "ab.json"
+    _run("torch_tma_ab.py", ["--device", "cpu", "--out", str(out)])
+    records = json.loads(out.read_text())
+    timed = [c.name for c in probe.SWEEP if c.timed]
+    assert [(r["kernel"], r["case"].split()[0]) for r in records] == \
+        [("P1", "w1"), ("P1", "w4"), ("P1", "w6"), ("P2", "r3")] + \
+        [(k, n.split()[0]) for n in timed for k in ("P1", "P2")]
+    assert all(r["plain_equals_numpy"] and r["copy_equals_numpy"]
+               and r["ms_per_launch"] is None for r in records)
+    assert all(r["plan"] == list(K.write_plan(r["box"]))
+               for r in records if r["kernel"] == "P1")
+
+
+def test_tma_ab_raises_without_cuda(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-c", _NO_CUDA, "scripts/torch_tma_ab.py",
+         "--csrc", "cbinfer_tpu_torch/csrc", "--out",
+         str(tmp_path / "x.json")],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and "REFUSED" in r.stdout, \
+        (r.stdout[-1000:], r.stderr[-2000:])
+    assert not (tmp_path / "x.json").exists()
