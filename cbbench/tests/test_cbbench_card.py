@@ -1,0 +1,39 @@
+"""The control of ``correct`` on the card, at each cell's own size: the
+plain reference at the precision below the configuration's (float8 e4m3
+storage) put in the program's place must come out not correct, on three
+seeds, while a run of the program (``run.run_cell``, a short window), on a
+fresh seed, comes out correct. Run on a machine with a card:
+
+    python -m pytest -m gpu cbbench/tests/test_cbbench_card.py
+"""
+
+import pytest
+
+from cbbench import calibrate, run, spec
+
+pytestmark = pytest.mark.gpu
+
+CELLS = [w["name"] for w in spec.bench()["workloads"]]
+
+
+@pytest.fixture
+def card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the program's kernels have no CPU "
+                    "mode")
+    return "cuda"
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_control_is_not_correct_and_the_program_is(card, cell):
+    readings = list(calibrate.control(
+        cell, [2**31 + 11, 2**31 + 12, 2**31 + 13], device=card))
+    assert len(readings) == 3
+    for r in readings:
+        assert r["correct"] is False and r["failed"] > 0, r
+        assert r["check"]["worst_gap"]["value"] \
+            > r["check"]["worst_gap"]["limit"], r
+    result = run.run_cell(cell, 2**31 + 901, 2.0, False, device=card)
+    assert result["correct"] is True and result["failed"] == 0, \
+        result["check"]
