@@ -1,0 +1,12 @@
+"""Device microseconds per frame of the graph replays' nodes under ``refresh``
+(the refresh frames' dense recompute), over every frame of the profiled pass
+(``stages``: each activity by the stage map of the graph it came from)."""
+
+from cbbench import stages
+
+
+def read(ctx):
+    j = stages.of_ctx(ctx)
+    if j is None or not j.replays:
+        return None
+    return stages.stage_seconds(j)["refresh"] / ctx.slice.frames * 1e6

@@ -17,7 +17,7 @@ version. Layout:
                       converter; one layer table over both net types
   runner              the streaming frame loop; scan_video_jit and
                       FrameStepper replay it as CUDA graphs on the card
-  profiling           torch.profiler trace, stage timer, stats table
+  profiling           torch.profiler trace, stats table
   zoo                 one-call loading of the shipped workloads
   video, metrics      synthetic labelled video, pose targets, mIoU, PCK,
                       FLOP accounting

@@ -43,6 +43,13 @@ def _as_array(v):
     return v.crop() if isinstance(v, L.Feature) else v
 
 
+def layer_scope(k: int, spec) -> str:
+    """Layer k's scope name, the JAX package's: ``L{k}_{kind}``, then
+    ``_{backend}`` where the spec overrides the backend."""
+    backend = getattr(spec, "backend", None)
+    return f"L{k}_{spec.kind}" + (f"_{backend}" if backend else "")
+
+
 def _output(v):
     """A network's output: a copy when it would be a view of a cache that
     the next frame updates in place."""
@@ -101,36 +108,39 @@ class CBNet:
                     and spec.use_cb):
                 tau = taus[cb_i]
                 cb_i += 1
-            if isinstance(spec, ConvSpec) and spec.use_cb:
-                fuse_ctx = None
-                if spec.fuse_next_detect and k + 1 < len(self.specs):
-                    # hand the producer its consumer's cache and tau (cb_i
-                    # already points at the consumer's slot); the fused
-                    # kernel updates that cache in place and the consumer's
-                    # detect is then served by hint.predetect
-                    s2 = self.specs[k + 1]
-                    if (isinstance(s2, ConvSpec) and s2.use_cb
-                            and not s2.forward_hint
-                            and state[k + 1] is not None):
-                        fuse_ctx = L.FuseCtx(
-                            spec=s2, in_cache=state[k + 1].in_cache,
-                            tau=taus[cb_i] if taus is not None else None)
-                x, st, s, hint = L.cb_conv_apply(p, st, x, spec, self.cfg,
-                                                 tau, hint, fuse_ctx=fuse_ctx)
-            elif isinstance(spec, ConvSpec):
-                x = dense_conv_on_feature(x, p, spec, dtype)
-                s, hint = {}, None
-            elif isinstance(spec, PoolSpec) and spec.use_cb:
-                x, st, s, hint = L.cb_pool_apply(st, x, spec, self.cfg, tau,
-                                                 hint)
-            elif isinstance(spec, PoolSpec):
-                x = network.dense_pool(_as_array(x), spec)
-                s, hint = {}, None
-            elif isinstance(spec, UpsampleSpec):
-                x = network.upsample(_as_array(x), spec)
-                s, hint = {}, None
-            else:
-                raise TypeError(spec)
+            with L.stage(layer_scope(k, spec)):
+                if isinstance(spec, ConvSpec) and spec.use_cb:
+                    fuse_ctx = None
+                    if spec.fuse_next_detect and k + 1 < len(self.specs):
+                        # hand the producer its consumer's cache and tau
+                        # (cb_i already points at the consumer's slot); the
+                        # fused kernel updates that cache in place and the
+                        # consumer's detect is then served by hint.predetect
+                        s2 = self.specs[k + 1]
+                        if (isinstance(s2, ConvSpec) and s2.use_cb
+                                and not s2.forward_hint
+                                and state[k + 1] is not None):
+                            fuse_ctx = L.FuseCtx(
+                                spec=s2, in_cache=state[k + 1].in_cache,
+                                tau=(taus[cb_i] if taus is not None
+                                     else None))
+                    x, st, s, hint = L.cb_conv_apply(
+                        p, st, x, spec, self.cfg, tau, hint,
+                        fuse_ctx=fuse_ctx)
+                elif isinstance(spec, ConvSpec):
+                    x = dense_conv_on_feature(x, p, spec, dtype)
+                    s, hint = {}, None
+                elif isinstance(spec, PoolSpec) and spec.use_cb:
+                    x, st, s, hint = L.cb_pool_apply(st, x, spec, self.cfg,
+                                                     tau, hint)
+                elif isinstance(spec, PoolSpec):
+                    x = network.dense_pool(_as_array(x), spec)
+                    s, hint = {}, None
+                elif isinstance(spec, UpsampleSpec):
+                    x = network.upsample(_as_array(x), spec)
+                    s, hint = {}, None
+                else:
+                    raise TypeError(spec)
             stats.append(s)
         return _output(x), state, stats
 
@@ -141,26 +151,32 @@ class CBNet:
                       thresholds: Optional[Sequence[float]] = None):
         """Full-refresh frame: accept everything and recompute everything
         with the dense ops. Same signature and results structure as
-        ``apply``; ``thresholds`` is ignored (a refresh is tau = -inf)."""
+        ``apply``; ``thresholds`` is ignored (a refresh is tau = -inf).
+        Its work runs in the ``refresh`` scope."""
         del thresholds
+        with L.stage("refresh"):
+            return self._refresh(params, state, x)
+
+    def _refresh(self, params: Sequence, state: List, x: torch.Tensor):
         dtype = network.torch_dtype(self.cfg.compute_dtype)
         stats: List[Dict[str, Any]] = []
-        for spec, p, st in zip(self.specs, params, state):
-            if isinstance(spec, ConvSpec) and spec.use_cb:
-                x, st, s, _ = L.cb_conv_refresh(p, st, x, spec, self.cfg)
-            elif isinstance(spec, ConvSpec):
-                x = dense_conv_on_feature(x, p, spec, dtype)
-                s = {}
-            elif isinstance(spec, PoolSpec) and spec.use_cb:
-                x, st, s, _ = L.cb_pool_refresh(st, x, spec, self.cfg)
-            elif isinstance(spec, PoolSpec):
-                x = network.dense_pool(_as_array(x), spec)
-                s = {}
-            elif isinstance(spec, UpsampleSpec):
-                x = network.upsample(_as_array(x), spec)
-                s = {}
-            else:
-                raise TypeError(spec)
+        for k, (spec, p, st) in enumerate(zip(self.specs, params, state)):
+            with L.stage(layer_scope(k, spec)):
+                if isinstance(spec, ConvSpec) and spec.use_cb:
+                    x, st, s, _ = L.cb_conv_refresh(p, st, x, spec, self.cfg)
+                elif isinstance(spec, ConvSpec):
+                    x = dense_conv_on_feature(x, p, spec, dtype)
+                    s = {}
+                elif isinstance(spec, PoolSpec) and spec.use_cb:
+                    x, st, s, _ = L.cb_pool_refresh(st, x, spec, self.cfg)
+                elif isinstance(spec, PoolSpec):
+                    x = network.dense_pool(_as_array(x), spec)
+                    s = {}
+                elif isinstance(spec, UpsampleSpec):
+                    x = network.upsample(_as_array(x), spec)
+                    s = {}
+                else:
+                    raise TypeError(spec)
             stats.append(s)
         return _output(x), state, stats
 

@@ -186,46 +186,48 @@ class CBGraphNet:
                 hint = hint._replace(predetect=None)
             tau = taus[cb_ix[n.name]] if (taus is not None
                                           and _is_cb(n.spec)) else None
-            if isinstance(n.spec, ConcatSpec):
-                vals[n.name] = torch.cat(
-                    [_as_array(vals[i]) for i in n.inputs], dim=-1)
-                in_hints = [hints[i] for i in n.inputs]
-                if any(h is None for h in in_hints):
-                    hints[n.name] = None
+            with L.stage(n.name):
+                if isinstance(n.spec, ConcatSpec):
+                    vals[n.name] = torch.cat(
+                        [_as_array(vals[i]) for i in n.inputs], dim=-1)
+                    in_hints = [hints[i] for i in n.inputs]
+                    if any(h is None for h in in_hints):
+                        hints[n.name] = None
+                    else:
+                        m = in_hints[0].mask
+                        for h in in_hints[1:]:
+                            m = m | h.mask
+                        hints[n.name] = L.DirtyHint(mask=m)
+                    stats[n.name] = {}
+                elif isinstance(n.spec, ConvSpec) and n.spec.use_cb:
+                    fuse_ctx = None
+                    cons = fused_map.get(n.name)
+                    if cons is not None and state.get(cons) is not None:
+                        fuse_ctx = L.FuseCtx(
+                            spec=by_name[cons].spec,
+                            in_cache=state[cons].in_cache,
+                            tau=(taus[cb_ix[cons]] if taus is not None
+                                 else None))
+                    y, _, s, h = L.cb_conv_apply(
+                        params[n.name], state[n.name], xin, n.spec, self.cfg,
+                        tau, hint, fuse_ctx=fuse_ctx)
+                    vals[n.name], hints[n.name], stats[n.name] = y, h, s
+                elif isinstance(n.spec, ConvSpec):
+                    vals[n.name] = dense_conv_on_feature(xin, params[n.name],
+                                                         n.spec, dtype)
+                    hints[n.name], stats[n.name] = None, {}
+                elif isinstance(n.spec, PoolSpec) and n.spec.use_cb:
+                    y, _, s, h = L.cb_pool_apply(state[n.name], xin, n.spec,
+                                                 self.cfg, tau, hint)
+                    vals[n.name], hints[n.name], stats[n.name] = y, h, s
+                elif isinstance(n.spec, PoolSpec):
+                    vals[n.name] = network.dense_pool(_as_array(xin), n.spec)
+                    hints[n.name], stats[n.name] = None, {}
+                elif isinstance(n.spec, UpsampleSpec):
+                    vals[n.name] = network.upsample(_as_array(xin), n.spec)
+                    hints[n.name], stats[n.name] = None, {}
                 else:
-                    m = in_hints[0].mask
-                    for h in in_hints[1:]:
-                        m = m | h.mask
-                    hints[n.name] = L.DirtyHint(mask=m)
-                stats[n.name] = {}
-            elif isinstance(n.spec, ConvSpec) and n.spec.use_cb:
-                fuse_ctx = None
-                cons = fused_map.get(n.name)
-                if cons is not None and state.get(cons) is not None:
-                    fuse_ctx = L.FuseCtx(
-                        spec=by_name[cons].spec,
-                        in_cache=state[cons].in_cache,
-                        tau=taus[cb_ix[cons]] if taus is not None else None)
-                y, _, s, h = L.cb_conv_apply(
-                    params[n.name], state[n.name], xin, n.spec, self.cfg,
-                    tau, hint, fuse_ctx=fuse_ctx)
-                vals[n.name], hints[n.name], stats[n.name] = y, h, s
-            elif isinstance(n.spec, ConvSpec):
-                vals[n.name] = dense_conv_on_feature(xin, params[n.name],
-                                                     n.spec, dtype)
-                hints[n.name], stats[n.name] = None, {}
-            elif isinstance(n.spec, PoolSpec) and n.spec.use_cb:
-                y, _, s, h = L.cb_pool_apply(state[n.name], xin, n.spec,
-                                             self.cfg, tau, hint)
-                vals[n.name], hints[n.name], stats[n.name] = y, h, s
-            elif isinstance(n.spec, PoolSpec):
-                vals[n.name] = network.dense_pool(_as_array(xin), n.spec)
-                hints[n.name], stats[n.name] = None, {}
-            elif isinstance(n.spec, UpsampleSpec):
-                vals[n.name] = network.upsample(_as_array(xin), n.spec)
-                hints[n.name], stats[n.name] = None, {}
-            else:
-                raise TypeError(n.spec)
+                    raise TypeError(n.spec)
         return _output(vals[self.output]), state, stats
 
     def apply_refresh(self, params: Dict[str, Any], state: Dict[str, Any],
@@ -235,30 +237,38 @@ class CBGraphNet:
         with the dense ops. Same signature and results structure as
         ``apply``, so the runner's refresh policies work on a DAG as on a
         sequential net; ``thresholds`` is ignored (a refresh is
-        tau = -inf)."""
+        tau = -inf). Its work runs in the ``refresh`` scope."""
         del thresholds
+        with L.stage("refresh"):
+            return self._refresh(params, state, x)
+
+    def _refresh(self, params: Dict[str, Any], state: Dict[str, Any],
+                 x: torch.Tensor):
         dtype = network.torch_dtype(self.cfg.compute_dtype)
         vals: Dict[str, Any] = {"input": x}
         stats: Dict[str, Dict[str, Any]] = {}
         for n in self.nodes:
             xin = vals[n.inputs[0]]
             s: Dict[str, Any] = {}
-            if isinstance(n.spec, ConcatSpec):
-                y = torch.cat([_as_array(vals[i]) for i in n.inputs], dim=-1)
-            elif isinstance(n.spec, ConvSpec) and n.spec.use_cb:
-                y, _, s, _ = L.cb_conv_refresh(params[n.name], state[n.name],
-                                               xin, n.spec, self.cfg)
-            elif isinstance(n.spec, ConvSpec):
-                y = dense_conv_on_feature(xin, params[n.name], n.spec, dtype)
-            elif isinstance(n.spec, PoolSpec) and n.spec.use_cb:
-                y, _, s, _ = L.cb_pool_refresh(state[n.name], xin, n.spec,
-                                               self.cfg)
-            elif isinstance(n.spec, PoolSpec):
-                y = network.dense_pool(_as_array(xin), n.spec)
-            elif isinstance(n.spec, UpsampleSpec):
-                y = network.upsample(_as_array(xin), n.spec)
-            else:
-                raise TypeError(n.spec)
+            with L.stage(n.name):
+                if isinstance(n.spec, ConcatSpec):
+                    y = torch.cat([_as_array(vals[i]) for i in n.inputs],
+                                  dim=-1)
+                elif isinstance(n.spec, ConvSpec) and n.spec.use_cb:
+                    y, _, s, _ = L.cb_conv_refresh(
+                        params[n.name], state[n.name], xin, n.spec, self.cfg)
+                elif isinstance(n.spec, ConvSpec):
+                    y = dense_conv_on_feature(xin, params[n.name], n.spec,
+                                              dtype)
+                elif isinstance(n.spec, PoolSpec) and n.spec.use_cb:
+                    y, _, s, _ = L.cb_pool_refresh(state[n.name], xin, n.spec,
+                                                   self.cfg)
+                elif isinstance(n.spec, PoolSpec):
+                    y = network.dense_pool(_as_array(xin), n.spec)
+                elif isinstance(n.spec, UpsampleSpec):
+                    y = network.upsample(_as_array(xin), n.spec)
+                else:
+                    raise TypeError(n.spec)
             vals[n.name], stats[n.name] = y, s
         return _output(vals[self.output]), state, stats
 

@@ -44,9 +44,16 @@ Stage scopes: the regions the JAX package names with ``jax.named_scope``
 (``detect``, ``accept_hinted``, ``compact``, ``delta_kernel``,
 ``patch_conv``, ``band_conv``, ``cached_conv``, ``out_pad``) are
 ``torch.profiler.record_function`` ranges of the same names here
-(``stage``), so a profile attributes each launch to its stage. They are
-host-side only and opened only while a profiler records: no device op, no
-host sync, nothing inside a CUDA graph.
+(``stage``), so a profile attributes each launch to its stage; the layers
+(``L{k}_{kind}``, as the JAX package's ``convert``) and ``refresh`` are
+scopes of the same helper. The fused forward-hint pool, which the JAX
+package leaves unscoped, opens ``compact`` and ``delta_kernel`` too, so
+that every sort of a frame lies in a ``compact`` scope. They are
+host-side only and opened only while a profiler records or the runner
+captures a graph: no device op, no host sync, nothing inside a CUDA
+graph. A capture notes which scopes added each node (``StageRecorder``),
+so the graph's stage map attributes a replay's device activities, which
+run no scope.
 
 Lane padding: the JAX package pads every channel dim to 128 on its
 ``"pallas"`` backend; the port stores logical widths (the delta conv
@@ -97,13 +104,82 @@ STEM_BACKENDS = ("band_cached", "dense_cached_flat")  # conv layers only
 _NO_SCOPE = contextlib.nullcontext()
 
 
+class StageRecorder:
+    """Which scopes were open when each node of a CUDA graph was added,
+    noted while the runner captures it (``runner._Graphs._capture`` sets
+    ``_RECORDER``; one capture at a time). ``count()`` is the capturing
+    graph's node count: every scope notes it at its entry and its exit, so
+    the nodes added while a scope is innermost belong to its path, the
+    open scopes' names joined by ``/`` (``L3_conv/compact``,
+    ``refresh/L0_conv``; "" outside every scope)."""
+
+    def __init__(self, count):
+        self.count = count
+        self.open = []
+        self.marks = [(0, "")]  # (node count, path of the nodes from there)
+
+    def mark(self):
+        self.marks.append((self.count(), "/".join(self.open)))
+
+    def paths(self, n: int):
+        """The path of each of the first ``n`` nodes."""
+        out = []
+        for (_, path), (end, _) in zip(self.marks,
+                                       self.marks[1:] + [(n, "")]):
+            out.extend([path] * max(min(end, n) - len(out), 0))
+        return out
+
+
+class _RecordedScope:
+    __slots__ = ("rec", "name", "range")
+
+    def __init__(self, rec: StageRecorder, name: str):
+        self.rec, self.name, self.range = rec, name, None
+
+    def __enter__(self):
+        self.rec.open.append(self.name)
+        self.rec.mark()
+        if torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        self.rec.open.pop()
+        self.rec.mark()
+        return False
+
+
+_RECORDER: Optional[StageRecorder] = None
+
+
 def stage(name: str):
-    """The profiler range of one stage (the JAX package's ``named_scope``
-    of the same name), or nothing while no profiler records: a
-    ``record_function`` costs the host microseconds on every call."""
+    """The program's one scope helper: a stage (the JAX package's
+    ``named_scope`` of the same name), a layer (``L{k}_{kind}``, a DAG
+    node's name), ``refresh``, ``out_map``, ``stats`` and the runner's
+    host spans (``runner.*``). While a profiler records it is a
+    ``record_function`` range; while the runner captures a graph it also
+    notes the graph's node count (``StageRecorder``); otherwise it is
+    nothing, two flag checks: a ``record_function`` costs the host
+    microseconds on every call, and a replay runs no scope at all."""
+    if _RECORDER is not None:
+        return _RecordedScope(_RECORDER, name)
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SCOPE
+
+
+@contextlib.contextmanager
+def recording(recorder: StageRecorder):
+    """Scopes opened inside note their nodes into ``recorder``."""
+    global _RECORDER
+    _RECORDER = recorder
+    try:
+        yield recorder
+    finally:
+        _RECORDER = None
 
 
 @dataclasses.dataclass
@@ -921,12 +997,14 @@ def cb_pool_apply(state: CBLayerState, x, spec: PoolSpec,
         # 8x16 blocks, as in the JAX package: the values would not change
         # without it, the stats would
         hm = hint.mask
-        pair = hm[:, 0::2] | hm[:, 1::2]
-        dcomp = compact.compact_mask(pair, pair.numel())
+        with stage("compact"):
+            pair = hm[:, 0::2] | hm[:, 1::2]
+            dcomp = compact.compact_mask(pair, pair.numel())
         x = _to_width(x, c_store, H, W)
-        _, maskf = detect_pool_fused(x, state.out_cache, dcomp.idx,
-                                     dcomp.count, g, hint_h=HINT_TILE,
-                                     hint_w=2 * HINT_TILE)
+        with stage("delta_kernel"):
+            _, maskf = detect_pool_fused(x, state.out_cache, dcomp.idx,
+                                         dcomp.count, g, hint_h=HINT_TILE,
+                                         hint_w=2 * HINT_TILE)
         mask = maskf > 0.5
         touched = mask.sum(dtype=torch.int32)
         stats = {

@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels (nvcc -> shared library with
-a plain C interface -> ctypes).
+a plain C interface -> ctypes), and the host-only graph reader beside them
+(``graph_nodes``, read by ``ops/kernels/graph_nodes.py``).
 
 Every ``csrc/*.cu`` file becomes its own library, built at first use into
 ``build/kernels/`` beside the package (listed in ``.gitignore``). The nvcc
@@ -24,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "kernels"
 SOURCES = ("detect_sparse", "delta_conv", "pool_fused", "stem_detect",
            "stem_conv", "detect_full", "delta_pool", "delta_conv_detect",
-           "accept_tiles", "tma_window")
+           "accept_tiles", "tma_window", "graph_nodes")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

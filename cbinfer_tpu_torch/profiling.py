@@ -2,19 +2,22 @@
 
 * ``trace(logdir)``: a ``torch.profiler`` context writing a Chrome /
   TensorBoard trace of the host and (on the card) the device, in which the
-  hand-written kernels appear by their CUDA names.
+  hand-written kernels appear by their CUDA names, inside the program's
+  scopes (``layers.stage``: ``L{k}_{kind}`` layers, their stages,
+  ``refresh``, ``out_map``, ``stats``) and the runner's host spans
+  (``runner.call``, ``runner.key``, ``runner.copy_in``,
+  ``runner.replay[.refresh]``, ``runner.copy_out``). A CUDA graph's replay
+  runs no scope: its activities are attributed by the graph's stage map
+  (``runner._Graphs.info()``'s ``nodes``, ``runner.stage_maps()``).
 * always-on counters: every CB layer returns its changed / computed /
   detect tile counts through the stats channel; ``summarize_stats``
   renders them.
-* ``stage_timer``: coarse host-side wall-clock section timing for scripts.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict
 
 import numpy as np
 import torch
@@ -34,15 +37,6 @@ def trace(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)):
         yield logdir
-
-
-@contextlib.contextmanager
-def stage_timer(record: Dict[str, float], name: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        record[name] = record.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _np(v) -> np.ndarray:

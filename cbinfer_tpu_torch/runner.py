@@ -25,9 +25,10 @@ import numpy as np
 import torch
 
 from .config import ConvSpec
+from .layers import StageRecorder, recording, stage
 from .netview import NetView
 from .network import torch_dtype
-from .ops.kernels import launches
+from .ops.kernels import graph_nodes, launches
 
 STAT_KEYS = ("changed_pixels", "changed_tiles", "computed_tiles",
              "detect_tiles", "n_tiles", "overflow")
@@ -200,9 +201,13 @@ def scan_video(net, params, frames: torch.Tensor,
             refresh = refresh_start and t == 0
         step = net.apply_refresh if refresh else net.apply
         y, state, stats = step(params, state, frames[t], thresholds)
-        ys.append(out_map(y) if out_map is not None else y)
+        if out_map is not None:
+            with stage("out_map"):
+                y = out_map(y)
+        ys.append(y)
         if collect_stats:
-            lay, vec = _frame_counters(stats, frames.device)
+            with stage("stats"):
+                lay, vec = _frame_counters(stats, frames.device)
             if layout is None:
                 layout = lay
             elif lay != layout:
@@ -212,15 +217,18 @@ def scan_video(net, params, frames: torch.Tensor,
     if collect_stats and vectors[0] is None:
         out_stats = _layer_dicts(layout, (), ())
     elif collect_stats:
-        table = torch.stack(vectors, 1)  # (counters, T)
-        n_int = sum(1 for _, keys in layout[1] for _, b in keys if not b)
-        if collect_stats == "mean":
-            # an exact integer sum, then one rounding to float32
-            means = table.sum(1).float().div_(n).unbind(0)
-            out_stats = _layer_dicts(layout, means[:n_int], means[n_int:])
-        else:
-            out_stats = _layer_dicts(layout, table[:n_int].unbind(0),
-                                     table[n_int:].bool().unbind(0))
+        with stage("stats"):
+            table = torch.stack(vectors, 1)  # (counters, T)
+            n_int = sum(1 for _, keys in layout[1] for _, b in keys
+                        if not b)
+            if collect_stats == "mean":
+                # an exact integer sum, then one rounding to float32
+                means = table.sum(1).float().div_(n).unbind(0)
+                out_stats = _layer_dicts(layout, means[:n_int],
+                                         means[n_int:])
+            else:
+                out_stats = _layer_dicts(layout, table[:n_int].unbind(0),
+                                         table[n_int:].bool().unbind(0))
     return torch.stack(ys), state, out_stats
 
 
@@ -329,11 +337,44 @@ def _copy_out(tree):
 
 class _Graph:
     """One captured graph: its static input and outputs, the kernel
-    launches its capture recorded, and how often it was replayed."""
+    launches its capture recorded, its stage map (``nodes``: per node that
+    runs on the card as one activity, in capture order, its scope path,
+    kind and kernel name; ``_stage_map``), and how often it was
+    replayed."""
 
-    def __init__(self, graph, frames, out, launched, meta):
+    def __init__(self, graph, frames, out, launched, meta, nodes):
         self.graph, self.frames, self.out = graph, frames, out
         self.launches, self.meta, self.replays = launched, meta, 0
+        self.nodes = nodes
+        self.span = ("runner.replay.refresh" if (meta or {}).get(
+            "refresh_start") else "runner.replay")
+
+
+def _stage_map(paths: Sequence[str], listed) -> List[Tuple]:
+    """A captured graph's nodes (``graph_nodes.nodes``: type and kernel
+    name, in capture order) and each one's scope path -> (path, kind,
+    name) of the nodes that run on the card as one activity each: kind
+    ``kernel`` (name the demangled function name, or None where CUDA
+    gave none), ``memcpy`` or ``memset`` (name None). A one-stream capture
+    is a chain, so a replay runs them in this order."""
+    return [(path, graph_nodes.ACTIVITY_KIND[t], name)
+            for path, (t, name) in zip(paths, listed)
+            if t in graph_nodes.ACTIVITY_KIND]
+
+
+# The stage maps of the graphs this process captured last, the newest
+# last (``stage_maps``).
+_STAGE_MAPS: "collections.deque[Dict[str, Any]]" = collections.deque(
+    maxlen=16)
+
+
+def stage_maps() -> List[Dict[str, Any]]:
+    """The stage maps of the last 16 graphs this process captured, the
+    newest last, as ``_Graphs.info()`` gives them (the capture's ``meta``
+    and its ``nodes``), kept after their runner has dropped them: a profile
+    of their replays is attributed by them once the runner is gone (a
+    benchmark reads its trace after closing the program)."""
+    return list(_STAGE_MAPS)
 
 
 class _Graphs:
@@ -349,7 +390,16 @@ class _Graphs:
     ``fn`` is captured on a static copy of the frames, with any host sync
     raising, and every later call of the key copies its frames in,
     replays, and returns a copy of the outputs. A capture or replay that
-    fails raises: nothing runs the eager loop instead."""
+    fails raises: nothing runs the eager loop instead. ``bound``, a
+    (params, state) pair, completes the key on the card with their
+    addresses (``_addresses``).
+
+    Host spans (``layers.stage``, profiler ranges only while a profiler
+    records): ``runner.key`` (the key and the lookup), ``runner.copy_in``
+    (the frames into the static copy; ``scan_video_jit`` writes its
+    thresholds in one too), ``runner.replay`` (``runner.replay.refresh``
+    for a graph captured with ``refresh_start``) and
+    ``runner.copy_out``."""
 
     def __init__(self, limit: int):
         self.limit = limit
@@ -358,19 +408,26 @@ class _Graphs:
         self._pool = None
         self.captures = 0  # graphs captured so far, dropped ones included
 
-    def run(self, key: Tuple, fn: Callable, frames: torch.Tensor, meta=None):
+    def run(self, key: Tuple, fn: Callable, frames: torch.Tensor, meta=None,
+            bound: Optional[Tuple[Any, Any]] = None):
         if frames.device.type == "cpu":
             return fn(frames)
         if frames.device.type != "cuda":
             raise ValueError(f"frames on {frames.device}: the graph runner "
                              "takes CUDA or CPU tensors")
-        entry = self._graphs.get(key)
+        with stage("runner.key"):
+            if bound is not None:
+                key = key + (_addresses(*bound),)
+            entry = self._graphs.get(key)
         if entry is not None:
             self._graphs.move_to_end(key)
-            entry.frames.copy_(frames)
-            entry.graph.replay()
+            with stage("runner.copy_in"):
+                entry.frames.copy_(frames)
+            with stage(entry.span):
+                entry.graph.replay()
             entry.replays += 1
-            return _copy_out(entry.out)
+            with stage("runner.copy_out"):
+                return _copy_out(entry.out)
         out = fn(frames)
         self._graphs[key] = self._capture(fn, frames, meta)
         while len(self._graphs) > self.limit:
@@ -383,15 +440,21 @@ class _Graphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = launches()
+        graph_nodes.prepare()
         # entering the capture synchronises the device on purpose; inside
-        # it, any host sync raises (the caller's mode is restored after)
+        # it, any host sync raises (the caller's mode is restored after);
+        # every scope notes the graph's node count (layers.StageRecorder)
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
         try:
             with torch.cuda.graph(graph, pool=self._pool):
+                stream = torch.cuda.current_stream().cuda_stream
+                rec = StageRecorder(lambda: graph_nodes.node_count(stream))
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    out = fn(static)
+                    with recording(rec):
+                        out = fn(static)
+                    listed = graph_nodes.nodes(stream)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
         finally:
@@ -399,15 +462,28 @@ class _Graphs:
         launched = {k: v - before[k] for k, v in launches().items()
                     if v != before[k]}
         self.captures += 1
-        return _Graph(graph, static, out, launched, meta)
+        nodes = _stage_map(rec.paths(len(listed)), listed)
+        _STAGE_MAPS.append({**(meta or {}), "nodes": nodes})
+        return _Graph(graph, static, out, launched, meta, nodes)
 
     def info(self) -> List[Dict[str, Any]]:
         """Per live graph: what the caller described at capture
         (``meta``), the kernel launches the capture recorded (a replay
         launches them again; the wrappers' counters count the capture
-        only), and the replays so far."""
+        only), its stage map (``nodes``, as ``_stage_map`` gives them) and
+        the replays so far."""
         return [{**(g.meta or {}), "launches": dict(g.launches),
-                 "replays": g.replays} for g in self._graphs.values()]
+                 "nodes": list(g.nodes), "replays": g.replays}
+                for g in self._graphs.values()]
+
+
+def _call_span(call: Callable) -> Callable:
+    """``call`` inside the ``runner.call`` host span (``layers.stage``)."""
+    @functools.wraps(call)
+    def spanned(*args, **kwargs):
+        with stage("runner.call"):
+            return call(*args, **kwargs)
+    return spanned
 
 
 def write_taus(static: torch.Tensor, thresholds) -> torch.Tensor:
@@ -442,10 +518,12 @@ def scan_video_jit(net):
     state object (other addresses) captures anew; at most 4 graphs stay
     live (a refresh and a steady graph for two keys). On CPU tensors it is
     the eager ``scan_video``. ``fn.graphs`` holds the runner
-    (``fn.graphs.info()``)."""
+    (``fn.graphs.info()``). Each call runs in the ``runner.call`` host
+    span."""
     graphs = _Graphs(4)
     statics: Dict[torch.device, torch.Tensor] = {}
 
+    @_call_span
     def run(params, frames, state, *, thresholds=None, refresh_start=False,
             collect_stats=True, out_map=None):
         taus = None
@@ -455,10 +533,11 @@ def scan_video_jit(net):
                 taus = statics[frames.device] = torch.empty(
                     len(thresholds), dtype=torch.float32,
                     device=frames.device)
-            write_taus(taus, thresholds)
+            with stage("runner.copy_in"):  # an input the graph reads
+                write_taus(taus, thresholds)
         key = (tuple(frames.shape), frames.dtype, frames.device,
                bool(refresh_start), collect_stats, out_map,
-               thresholds is not None, _addresses(params, state))
+               thresholds is not None)
 
         def fn(fs):
             ys, _, stats = scan_video(net, params, fs, state,
@@ -469,7 +548,7 @@ def scan_video_jit(net):
             return ys, stats
         ys, stats = graphs.run(key, fn, frames, meta={
             "frames": int(frames.shape[0]),
-            "refresh_start": bool(refresh_start)})
+            "refresh_start": bool(refresh_start)}, bound=(params, state))
         return ys, state, stats
 
     run.graphs = graphs
@@ -594,10 +673,13 @@ class FrameStepper:
         self._t = 0
         self._since_refresh = 0
 
-    def _key(self, kind, frames, refresh):
-        return (kind, tuple(frames.shape), frames.dtype, refresh,
-                _addresses(self._params, self._state))
+    def _run(self, kind, fn, frames, refresh):
+        return self.graphs.run(
+            (kind, tuple(frames.shape), frames.dtype, refresh), fn, frames,
+            meta={"frames": int(frames.shape[0]), "refresh_start": refresh},
+            bound=(self._params, self._state))
 
+    @_call_span
     def __call__(self, frame) -> Tuple[torch.Tensor, Any]:
         # refresh decisions key off _since_refresh (shared with
         # step_chunk) rather than _t % refresh_every, so mixing the two
@@ -611,19 +693,20 @@ class FrameStepper:
         def fn(fs):
             y, _, stats = step(self._params, self._state, fs[0], self._taus)
             if self._out_map is not None:
-                y = self._out_map(y)
+                with stage("out_map"):
+                    y = self._out_map(y)
             if self._collect_stats == "packed":
-                stats = pack_stats(stats, self._device)
+                with stage("stats"):
+                    stats = pack_stats(stats, self._device)
             elif not self._collect_stats:
                 stats = []
             return y, stats
-        y, stats = self.graphs.run(self._key("frame", frames, refresh), fn,
-                                   frames, meta={"frames": 1,
-                                                 "refresh_start": refresh})
+        y, stats = self._run("frame", fn, frames, refresh)
         self._since_refresh = 1 if refresh else self._since_refresh + 1
         self._t += 1
         return y, stats
 
+    @_call_span
     def step_chunk(self, frames) -> Tuple[torch.Tensor, Any]:
         """K consecutive frames ((K, H, W, C)) in one dispatch; returns
         ((K, ...) outputs, mean-form stats). The per-call overhead
@@ -644,9 +727,7 @@ class FrameStepper:
                                       refresh_start=refresh,
                                       out_map=self._out_map)
             return ys, stats
-        ys, stats = self.graphs.run(self._key("chunk", frames, refresh), fn,
-                                    frames, meta={"frames": k,
-                                                  "refresh_start": refresh})
+        ys, stats = self._run("chunk", fn, frames, refresh)
         self._since_refresh = k if refresh else self._since_refresh + k
         self._t += k
         return ys, stats

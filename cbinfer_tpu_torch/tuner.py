@@ -32,7 +32,7 @@ from .config import ConvSpec, PoolSpec
 from .metrics import _np, effective_cost_view, effective_flops_view
 from .netview import NetView, hint_reaches
 from .network import resolve_device
-from .runner import (_addresses, _Graphs, _tensors, pack_stats, scan_video,
+from .runner import (_Graphs, _tensors, pack_stats, scan_video,
                      unpack_stats, write_taus)
 
 
@@ -114,8 +114,7 @@ def _make_runner(net, params, refresh_every=None):
                                           thresholds=tv,
                                           refresh_every=refresh_every)
                 return ys, stats
-            return graphs.run(key + (_addresses(params, state),), fn,
-                              frames)
+            return graphs.run(key, fn, frames, bound=(params, state))
 
     run.graphs, run.states = graphs, states
     return run

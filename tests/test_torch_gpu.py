@@ -1594,3 +1594,85 @@ def test_geometry_cases_on_card(cuda, case):
     and cells of 4 and 2 through B4, each against its plain version
     (chip_smoke.check_geometry_case)."""
     chip_smoke.check_geometry_case(torch, np, case)
+
+
+# ---- the stage map: a replay's activities by the scopes that captured them
+
+
+def test_stage_map_attributes_a_profiled_replay(cuda):
+    """One replay of the w16 scene flagship's steady graph under the
+    profiler: the runner's host spans in order (the thresholds and the
+    frames copied in, the key, the replay, the copy out, all inside
+    ``runner.call``); the activities of its graph launch (by correlation
+    id) are as many as the map's nodes; the join attributes every
+    activity of the call (the map's nodes, the runner's copies); the
+    port's kernels, per scope, sum to the capture's launches; B2 runs
+    under ``delta_kernel``, the radix sorts under ``compact``, B1 and B4
+    under ``detect``."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    from cbbench import stages, trace
+    from cbinfer_tpu_torch.ops.kernels import KERNELS
+    from cbinfer_tpu_torch.runner import scan_video_jit, stage_maps
+    net, params, taus, clip, state = _graph_net(cuda, "scene")
+    run = scan_video_jit(net)
+    chunks = _chunks(clip)
+    for ch in chunks[:2]:  # the eager call and its capture, then a replay
+        run(params, ch, state, thresholds=taus)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(params, chunks[2], state, thresholds=taus)
+        torch.cuda.synchronize()
+    (info,) = run.graphs.info()
+    assert stage_maps()[-1]["nodes"] == info["nodes"]
+    events = list(prof.profiler.kineto_results.events())
+    launch = {e.correlation_id() for e in events
+              if e.name() == "cudaGraphLaunch"}
+    on_card = [e for e in events if str(e.device_type()).endswith("CUDA")
+               and not e.is_user_annotation()]
+    assert len(launch) == 1
+    assert sum(e.correlation_id() in launch for e in on_card) \
+        == len(info["nodes"])
+    acts, host = trace.device_activities(prof)
+    spans = [h[0] for h in sorted(host, key=lambda h: h[1])
+             if h[0].startswith("runner.")]
+    assert spans == ["runner.call", "runner.copy_in", "runner.key",
+                     "runner.copy_in", "runner.replay", "runner.copy_out"]
+    j = stages.join(acts, host, [info])
+    assert len(j.replays) == 1 and j.replays[0][2] == 0
+    assert j.unattributed_s() == 0 and j.runner_s() > 0, [
+        (a.name, w) for a, w in zip(j.acts, j.where) if w is None]
+    # a kernel function is <source stem>[_variant]_kernel; a function
+    # that is no template prints no return type, and its arguments may
+    # name namespaced types, so the name is searched, not split
+    stems = {os.path.splitext(os.path.basename(k.source))[0]: k.name
+             for k in KERNELS}
+    pattern = re.compile("(?<![A-Za-z0-9_])(" + "|".join(
+        sorted(stems, key=len, reverse=True)) + ")(?:_[a-z0-9]+)*_kernel")
+
+    def port_kernel(name):
+        m = pattern.search(name)
+        return stems[m.group(1)] if m else None
+
+    by_scope, by_kernel = {}, {}
+    for a, w in zip(j.acts, j.where):
+        k = port_kernel(a.name)
+        if "radixsort" in a.name.lower().replace("_", ""):
+            assert stages.stage_of(w) == "compact", (a.name, w)
+        if k is None:
+            continue
+        assert w != stages.RUNNER
+        by_scope[(w, k)] = by_scope.get((w, k), 0) + 1
+        by_kernel[k] = by_kernel.get(k, 0) + 1
+    assert by_kernel == info["launches"], by_scope
+    want = {"delta_conv": "delta_kernel", "detect_sparse": "detect",
+            "stem_detect": "detect"}
+    got = {(k, stages.stage_of(w)) for w, k in by_scope if k in want}
+    assert got == set(want.items()), got
+    assert any(stages.stage_of(w) == "compact" and "radixsort" in
+               a.name.lower().replace("_", "")
+               for a, w in zip(j.acts, j.where))
+    print("stage map:", len(info["nodes"]), "nodes;",
+          stages.top_pairs(j, 4))

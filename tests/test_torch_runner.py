@@ -395,16 +395,23 @@ def test_summarize_stats_same_string(nets, form):
 
 
 def test_stage_timer_and_trace(tmp_path, nets):
+    """``profiling.trace`` writes one Chrome trace of a scan (a refresh
+    frame, then a change-based one) in which every layer's scope
+    (``L{k}_{kind}``), the stages inside them and ``refresh`` appear as
+    host ranges."""
     _, _, tnet, tparams = nets
-    record = {}
-    with profiling.stage_timer(record, "scan"):
-        with profiling.trace(str(tmp_path / "trace")) as logdir:
-            scan_video(tnet, tparams, torch.from_numpy(_clip(8, 2)))
-    with profiling.stage_timer(record, "scan"):
-        pass
-    assert record["scan"] > 0
-    files = os.listdir(logdir)
-    assert any(f.endswith(".json") for f in files), files
+    with profiling.trace(str(tmp_path / "trace")) as logdir:
+        scan_video(tnet, tparams, torch.from_numpy(_clip(8, 2)),
+                   refresh_every=2)
+    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+    assert len(files) == 1, os.listdir(logdir)
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events
+             if e.get("cat") == "user_annotation"}
+    layers = {f"L{k}_{s.kind}" for k, s in enumerate(tnet.specs)}
+    assert layers | {"refresh", "detect", "compact", "delta_kernel"} \
+        <= names, sorted(names)
 
 
 # -------------------------------- checkpoints --------------------------------
