@@ -48,7 +48,9 @@ Stage scopes: the regions the JAX package names with ``jax.named_scope``
 (``L{k}_{kind}``, as the JAX package's ``convert``) and ``refresh`` are
 scopes of the same helper. The fused forward-hint pool, which the JAX
 package leaves unscoped, opens ``compact`` and ``delta_kernel`` too, so
-that every sort of a frame lies in a ``compact`` scope. They are
+that every compaction of a changed-tile list lies in a ``compact`` scope
+(the hint lists that B1 and B9 walk are compacted inside ``detect`` and
+``accept_hinted``). They are
 host-side only and opened only while a profiler records or the runner
 captures a graph: no device op, no host sync, nothing inside a CUDA
 graph. A capture notes which scopes added each node (``StageRecorder``),

@@ -43,14 +43,15 @@ class Kernel:
     launches: int = 0
 
 
-from . import (accept, delta_conv, delta_conv_detect, delta_pool,  # noqa: E402
-               detect_full, detect_sparse, pool_fused, stem_conv, stem_detect,
-               tma_window)
+from . import (accept, compact_tiles, delta_conv,  # noqa: E402
+               delta_conv_detect, delta_pool, detect_full, detect_sparse,
+               pool_fused, stem_conv, stem_detect, tma_window)
 
 KERNELS = (detect_sparse.KERNEL, delta_conv.KERNEL, pool_fused.KERNEL,
            stem_detect.KERNEL, stem_conv.KERNEL, delta_conv_detect.KERNEL,
            detect_full.KERNEL, delta_pool.KERNEL, accept.KERNEL,
-           tma_window.KERNEL_WRITE, tma_window.KERNEL_READ)
+           tma_window.KERNEL_WRITE, tma_window.KERNEL_READ,
+           compact_tiles.KERNEL)
 
 
 def reset_launches() -> None:

@@ -25,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "kernels"
 SOURCES = ("detect_sparse", "delta_conv", "pool_fused", "stem_detect",
            "stem_conv", "detect_full", "delta_pool", "delta_conv_detect",
-           "accept_tiles", "tma_window", "graph_nodes")
+           "accept_tiles", "tma_window", "compact_tiles", "graph_nodes")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

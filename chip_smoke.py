@@ -357,30 +357,32 @@ RESULTS = {}
 # paths' numbers are derived from their converted specs (per_frame_launches),
 # seg's and pose_graph's are both written here and derived, and must agree
 PER_FRAME = {
-    "flagship": {"stem_detect": 1, "stem_conv": 1, "detect_pool_fused": 2,
-                 "detect_sparse": 3, "delta_conv": 3},
-    "dense_stem": {"detect_pool_fused": 2, "detect_sparse": 3,
-                   "delta_conv": 3},
-    "hintless": {"detect_full": 1, "delta_pool": 2, "detect_sparse": 4,
-                 "delta_conv": 3},
-    "seg": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 6,
-            "delta_conv": 6, "detect_pool_fused": 2},
-    "pose_graph": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 8,
-                   "delta_conv": 7, "delta_conv_detect": 17,
-                   "detect_pool_fused": 2, "delta_pool": 1},
+    "flagship": {"stem_detect": 1, "compact_tiles": 9, "stem_conv": 1,
+                 "detect_pool_fused": 2, "detect_sparse": 3, "delta_conv": 3},
+    "dense_stem": {"compact_tiles": 8, "detect_pool_fused": 2,
+                   "detect_sparse": 3, "delta_conv": 3},
+    "hintless": {"detect_full": 1, "compact_tiles": 9, "delta_pool": 2,
+                 "detect_sparse": 4, "delta_conv": 3},
+    "seg": {"stem_detect": 1, "compact_tiles": 15, "stem_conv": 1,
+            "detect_sparse": 6, "delta_conv": 6, "detect_pool_fused": 2},
+    "pose_graph": {"stem_detect": 1, "compact_tiles": 36, "stem_conv": 1,
+                   "detect_sparse": 8, "delta_conv": 7,
+                   "delta_conv_detect": 17, "detect_pool_fused": 2,
+                   "delta_pool": 1},
     # the CLI's net: the plain converter with the flagship's stem, so both
     # pools re-detect and the 1x1 head is a CB conv
-    "cli": {"stem_detect": 1, "stem_conv": 1, "detect_sparse": 6,
-            "delta_pool": 2, "delta_conv": 4},
+    "cli": {"stem_detect": 1, "compact_tiles": 13, "stem_conv": 1,
+            "detect_sparse": 6, "delta_pool": 2, "delta_conv": 4},
     # the backends phase's forms (BACKEND_FORMS): a band or flat stem
-    # before the kernel pipeline runs dense_stem's kernels; the bounded
-    # plain backend runs none
-    "band_stem": {"detect_pool_fused": 2, "detect_sparse": 3,
-                  "delta_conv": 3},
-    "flat_stem": {"detect_pool_fused": 2, "detect_sparse": 3,
-                  "delta_conv": 3},
-    "torch_f32": {},
-    "torch_bf16": {},
+    # before the kernel pipeline runs dense_stem's kernels (the band stem
+    # compacts its bounded list too); the bounded plain backend runs only
+    # the compaction of each CB layer's bounded list
+    "band_stem": {"compact_tiles": 9, "detect_pool_fused": 2,
+                  "detect_sparse": 3, "delta_conv": 3},
+    "flat_stem": {"compact_tiles": 8, "detect_pool_fused": 2,
+                  "detect_sparse": 3, "delta_conv": 3},
+    "torch_f32": {"compact_tiles": 5},
+    "torch_bf16": {"compact_tiles": 5},
 }
 # what zoo.load must give the two workloads of the last phases: CB layers,
 # the fused consumer detect, the policy file it came from (None: "none")
@@ -739,13 +741,19 @@ def capture_frame(torch, ctx, path, net, taus, state, av,
                   out_shape=(H // 4, W // 4, NUM_CLASSES), frame=None):
     """One more (steady-state) frame (the next of video ``av``, or
     ``frame``) with every kernel call recorded: the inputs each kernel of
-    the path gets at the path's own shapes."""
+    the path gets at the path's own shapes (the compactions' as
+    ``compact_tiles``)."""
     from cbinfer_tpu_torch import layers as L
     calls = []
     names = ("detect_sparse", "delta_conv", "detect_pool_fused",
              "stem_detect", "stem_conv", "detect_full", "delta_pool",
              "delta_conv_detect", "accept_tiles")
     saved = {n: getattr(L, n) for n in names}
+    compact_mask = L.compact.compact_mask
+
+    def compact_recorder(mask, capacity):
+        calls.append((path, "compact_tiles", [mask.clone(), capacity], {}))
+        return compact_mask(mask, capacity)
 
     def recorder(name):
         def wrapper(*args, **kw):
@@ -766,10 +774,12 @@ def capture_frame(torch, ctx, path, net, taus, state, av,
     try:
         for n in names:
             setattr(L, n, recorder(n))
+        L.compact.compact_mask = compact_recorder
         logits = net.apply(ctx.wl.params, state, frame, taus)[0]
     finally:
         for n in names:
             setattr(L, n, saved[n])
+        L.compact.compact_mask = compact_mask
     if (tuple(logits.shape) != out_shape
             or not bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{path}: logits {tuple(logits.shape)} not "
@@ -1127,8 +1137,9 @@ def per_frame_launches(net):
     converted net (a CBNet or a CBGraphNet): which layer detects for
     itself, which is pre-detected by its producer's fused kernel (on a DAG
     only the consumer ``fused_consumer_map`` names), which forwards its
-    producer's hint. A hint reaches a layer from a CB producer, or from a
-    concat whose inputs all carry one."""
+    producer's hint, and which lists it compacts (its changed tiles, and
+    the hint's tiles before B1 or B9). A hint reaches a layer from a CB
+    producer, or from a concat whose inputs all carry one."""
     from cbinfer_tpu_torch import layers as L
     from cbinfer_tpu_torch.netview import NetView
     view = NetView.of(net)
@@ -1157,18 +1168,25 @@ def per_frame_launches(net):
         g = L._geometry(spec, row.in_shape, cfg)
         if cfg.backend == "patch_stem":
             add("stem_detect")
+            add("compact_tiles")
             add("stem_conv")
-        elif cfg.backend in ("dense_cached", "dense_cached_flat",
-                             "band_cached", "torch"):
+        elif cfg.backend in ("dense_cached", "dense_cached_flat"):
             pass  # detects and convolves with torch ops, no kernel
+        elif cfg.backend in ("band_cached", "torch"):
+            add("compact_tiles")  # the bounded list; the rest torch ops
         elif (spec.kind == "pool" and spec.forward_hint and hint
               and L.fused_pool_gate(spec, g, cfg)):
+            add("compact_tiles")  # the pair mask
             add("detect_pool_fused")
         else:
             if spec.kind == "conv" and spec.forward_hint and hint:
+                add("compact_tiles")  # the hint list
                 add("accept_tiles")
             elif i not in predetected:
+                if hint:
+                    add("compact_tiles")  # the hint list
                 add("detect_sparse" if hint else "detect_full")
+            add("compact_tiles")
             j = consumer.get(i)
             if spec.kind == "pool":
                 add("delta_pool")
@@ -2122,6 +2140,7 @@ def check_kernels(torch, np, calls):
                                                   storage_interior)
     from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
     from cbinfer_tpu_torch.ops.kernels import accept as KA
+    from cbinfer_tpu_torch.ops.kernels import compact_tiles as KCT
     from cbinfer_tpu_torch.ops.kernels import delta_conv as KC
     from cbinfer_tpu_torch.ops.kernels import delta_conv_detect as KF
     from cbinfer_tpu_torch.ops.kernels import delta_pool as KDP
@@ -2594,6 +2613,32 @@ def check_kernels(torch, np, calls):
                 if not torch.equal(st_k, sk):
                     raise AssertionError("accept_tiles: the index_copy_ "
                                          "yardstick disagrees")
+        elif name == "compact_tiles":
+            mask, cap = args
+            ik, ck = KCT.compact_tiles(mask, cap)
+            ip, cp = KCT.compact_tiles_plain(mask, cap)
+            ok = torch.equal(ik, ip) and torch.equal(ck, cp)
+            # every flag set, listed up to three eighths of the tiles:
+            # the count past the capacity, no sentinel
+            full = torch.ones_like(mask)
+            part = -(-3 * mask.numel() // 8)
+            fk, fck = KCT.compact_tiles(full, part)
+            fp, fcp = KCT.compact_tiles_plain(full, part)
+            okf = torch.equal(fk, fp) and torch.equal(fck, fcp)
+            fail_unless(ok and okf, dict(
+                kernel=name, path=path, call=li, exact=ok,
+                all_set_bounded_exact=okf, count=int(ck),
+                n_tiles=mask.numel(), capacity=cap,
+                passes=-(-mask.numel() // KCT.PASS)))
+            ms = _time_launches(torch, lambda: KCT.compact_tiles(mask, cap),
+                                lambda: None, 20)
+            pms = _time_launches(
+                torch, lambda: KCT.compact_tiles_plain(mask, cap),
+                lambda: None, 5, sleep_cycles=0)
+            # the flags read once, the list and the count written once;
+            # exact, as checked above
+            nbytes = mask.numel() + cap * 4 + 4
+            acc(path, name, ms, pms, *_bound_ms(0.0, nbytes), 0.0)
         else:  # delta_pool
             st, idx, out0, g = args
             count = kw["count"]
@@ -2655,12 +2700,12 @@ def check_kernels(torch, np, calls):
         torch, lambda: (torch.zeros(90 * 160 + 1, dtype=torch.int32,
                                     device="cuda"), torch.cuda._sleep(0)),
         lambda: None, 20)}
-    # ... and of B5, B8 and B9, which make no fill: an empty one-block
-    # kernel
+    # ... and of B5, B8, B9 and the compaction, which make no fill: an
+    # empty one-block kernel
     floor = _time_launches(torch, lambda: torch.cuda._sleep(0),
                            lambda: None, 20)
-    for name in ("stem_conv", "delta_pool", "accept_tiles"):
-        context[name]["launch_floor_no_fill_ms"] = floor
+    for name in ("stem_conv", "delta_pool", "accept_tiles", "compact_tiles"):
+        context.setdefault(name, {})["launch_floor_no_fill_ms"] = floor
     fused_ctx = context.get("delta_conv_detect")
     if fused_ctx:
         fused_ctx["unfused_pair_ms"] /= fused_ctx.pop("calls")

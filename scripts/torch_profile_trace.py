@@ -71,7 +71,7 @@ KERNEL_STAGE = {
     "stem_detect": "detect", "accept_tiles": "detect",
     "delta_conv": "delta_conv", "delta_conv_detect": "delta_conv",
     "stem_conv": "delta_conv", "delta_pool": "delta_pool",
-    "detect_pool_fused": "fused_pool",
+    "detect_pool_fused": "fused_pool", "compact_tiles": "compact",
     "tma_window_write": "glue", "tma_window_read": "glue",
 }
 # the stage scopes of layers.py -> stages, as the reference's scope table
@@ -305,7 +305,7 @@ def trace(name, H=720, W=1280, T=None, stats="stack", device="cuda",
                          "kernel names" + (" and, for the rest, by the "
                                            "innermost stage scope around "
                                            "the launch" if suffix else
-                                           "; radix sorts as compact, "
+                                           "; the compaction as compact, "
                                            "the rest glue"))}
             log(f"{name + suffix}: " + json.dumps(
                 {k: round(v, 2) for k, v in row["per_frame_us"].items()})

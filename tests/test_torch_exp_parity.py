@@ -230,6 +230,9 @@ def test_self_times_and_classifier_equal_the_reference():
     assert mod.kernel_stage("void (anonymous namespace)::delta_conv_wg_"
                             "kernel<64>(__nv_bfloat16 const*, int)") \
         == "delta_conv"
+    assert mod.kernel_stage("(anonymous namespace)::compact_tiles_kernel("
+                            "unsigned char const*, int*, int*, Args)") \
+        == "compact"
     assert mod.kernel_stage("void cub::DeviceRadixSortOnesweepKernel<>"
                             ) == "compact"
     assert mod.kernel_stage("void at::native::radixSortKVInPlace<-2, -1, "

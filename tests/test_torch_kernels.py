@@ -406,15 +406,53 @@ def test_stem_detect_load_width(dtype, C, shift):
 # ------------------------------ glue around them ----------------------------
 
 
-@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
-def test_compact_mask_matches_jax(density):
+COMPACT_SHAPES = ((1, 1), (6, 10), (23, 40), (33, 60), (45, 80), (90, 80),
+                  (135, 240))
+COMPACT_CASES = [pytest.param((6, 10), d, 1.0, id=str(d))
+                 for d in (0.0, 0.3, 1.0)] + [
+    pytest.param(shape, d, share, id=f"{shape[0]}x{shape[1]}-{d}-{share}")
+    for shape in COMPACT_SHAPES for d in ("first", "last", 0.0, 0.3, 1.0)
+    for share in (1.0, 0.375)
+    if not (shape == (6, 10) and share == 1.0 and d in (0.0, 0.3, 1.0))]
+
+
+@pytest.mark.parametrize("shape,density,cap_share", COMPACT_CASES)
+def test_compact_mask_matches_jax(shape, density, cap_share):
+    """The list and count against the JAX package's: no flag, the first
+    or the last alone, a share of flags set; every shape of the card's
+    tests (a count that is no multiple of 16, two of its passes), the
+    capacity all tiles or three eighths of them (the count past it)."""
     rng = np.random.default_rng(11)
-    mask = rng.uniform(size=(6, 10)) < density
-    want = jcompact.compact_mask(jnp.asarray(mask), mask.size)
-    got = tcompact.compact_mask(_t(mask), mask.size)
+    mask = np.zeros(shape, bool)
+    if density == "first":
+        mask.flat[0] = True
+    elif density == "last":
+        mask.flat[-1] = True
+    else:
+        mask = rng.uniform(size=shape) < density
+    cap = mask.size if cap_share == 1.0 else -(-3 * mask.size // 8)
+    want = jcompact.compact_mask(jnp.asarray(mask), cap)
+    got = tcompact.compact_mask(_t(mask), cap)
     np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
     assert int(got.count) == int(want.count)
     assert got.idx.dtype == torch.int32 and got.count.dtype == torch.int32
+    assert got.idx.shape == (cap,) and got.count.shape == ()
+
+
+@pytest.mark.parametrize("mask,capacity,match", [
+    (torch.zeros((6, 10), dtype=torch.uint8), 60, "must be bool"),
+    (torch.zeros((6, 10)), 60, "must be bool"),
+    (torch.zeros((6, 10), dtype=torch.int32), 60, "must be bool"),
+    (torch.zeros((6, 10), dtype=torch.bool), -1, "capacity -1 < 0"),
+    (torch.zeros((6, 10), dtype=torch.bool, device="meta"), 60,
+     "on the card"),
+])
+def test_compact_tiles_refuses_what_it_does_not_take(mask, capacity, match):
+    """A mask that is not bool, a negative capacity and a tensor on
+    neither the CPU nor the card raise before anything runs."""
+    from cbinfer_tpu_torch.ops.kernels import compact_tiles as KCT
+    with pytest.raises(ValueError, match=match):
+        KCT.compact_tiles(mask, capacity)
 
 
 @pytest.mark.parametrize("H,W,k,s", [(20, 24, 3, 1), (32, 48, 3, 1),
