@@ -1,15 +1,22 @@
-"""The control of ``correct``, read on the card at a cell's own size:
+"""The two readings each limit of ``correct`` is set from, on the card at a
+cell's own size:
 
     python3 -m cbbench.calibrate --workload <cell> --seeds 1,2,3 [--out PATH]
 
-For each seed it makes that seed's ring, runs the plain reference over
-one pass of it at the configuration's precision and again at the
-precision below (float8 e4m3 storage), puts the second's answers (the
-argmax of its own outputs) in the program's place, and judges them as a
-run judges the program's: one JSON line per seed, with ``worst_gap``
-beside the cell's limit, on standard output and in ``--out``. The
-program's readings are the ``check`` of ordinary runs
-(``python3 -m cbbench.run``).
+For each seed it makes that seed's ring and runs the judged pass of a run
+(``run.judged_pass``: the program through ``FrameStepper`` over one pass,
+each frame's stored state judged node by node), with the control beside
+it: per node the reference's own function at float8 e4m3 storage on the
+program's same stored input, and the answers of the reference's last
+layer at that storage. In cells with the free-running check the
+control's answers are instead the reference's own over the ring at float8
+storage, and the program's are the judged pass's (a run holds them equal
+to the window's, bit for bit). Each side is then judged by
+``run.verdict``, the code that decides a run's ``correct``. It prints one
+JSON line per seed, on standard output and in ``--out``: each side's
+compared numbers beside their limits, its failed frames and whether it is
+correct, and the largest gap per node. The program's ``mismatched`` comes
+from runs (``python3 -m cbbench.run``).
 """
 
 from __future__ import annotations
@@ -17,30 +24,44 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
+import types
 
 from . import frames, run, spec
 
 
-def control(cell_name: str, seeds, device: str = "cuda", overrides=None):
-    """Yield one reading of the control per seed."""
+def readings(cell_name: str, seeds, device: str = "cuda", overrides=None):
+    """Yield one reading of the program and the control per seed."""
     cell = spec.cell(cell_name)
     config = spec.config(cell["config"])
+    limits = cell["limits"]
     prep = run.prepare(cell, config, device, overrides)
-    del prep.wl  # the reference needs only the pinned files
     h, w = prep.shape[:2]
     for seed in seeds:
+        t0 = time.perf_counter()
         ring = frames.make_ring(cell["video"], prep.ring_frames, seed, h, w,
                                 device)
-        ref_out, _ = run.reference_pass(prep, config, ring)
-        ctl, _ = run.reference_pass(prep, config, ring,
-                                    storage="float8_e4m3fn")
-        answers = ctl.argmax(-1)
-        if config["output"]["kind"] == "class_map":
-            answers = answers.to(prep.torch.uint8)
-        check, failed = run.judge(ref_out, [(0, answers)], cell["limits"])
-        yield {"cell": cell_name, "seed": seed, "failed": failed,
-               "correct": failed == 0, "check": check}
-        del ring, ref_out, ctl, answers
+        jp = run.judged_pass(prep, config, ring, control=True)
+        ctl = types.SimpleNamespace(
+            layer_gap=jp.control_layer_gap, answer_gap=jp.control_answer_gap,
+            decisions=prep.torch.zeros_like(jp.decisions),
+            answers=jp.control_answers, judge=jp.judge)
+        ref_out = None
+        if "worst_gap" in limits:
+            ref_out = run.reference_pass(prep, config, ring)
+            ctl.answers = run.answers_of(run.reference_pass(
+                prep, config, ring, storage="float8_e4m3fn"),
+                config["output"])
+        sides = {}
+        for side, ns in (("program", jp), ("control", ctl)):
+            check, failed, correct = run.verdict(
+                ns, [(0, ns.answers)], limits, ref_out)
+            sides[side] = {"check": check, "failed": failed,
+                           "correct": correct}
+        yield {"cell": cell_name, "seed": seed, **sides,
+               "by_node": jp.judge.by_node(),
+               "seconds": time.perf_counter() - t0}
+        del ring, jp, ctl, ref_out
 
 
 def main(argv=None) -> int:
@@ -52,7 +73,7 @@ def main(argv=None) -> int:
     seeds = [int(s) for s in args.seeds.split(",") if s]
     out = open(args.out, "a") if args.out else None
     try:
-        for r in control(args.workload, seeds):
+        for r in readings(args.workload, seeds):
             line = json.dumps(r)
             print(line, flush=True)
             if out:

@@ -5,16 +5,20 @@ kernels must move for a given list of tiles.
 Copies, kept here so that a change to the program cannot move the
 yardstick: ``metrics.layer_flops_per_tile`` (operations per tile),
 ``chip_smoke.py::_bound_ms`` and the kernel table's bytes per launch
-(``chip_smoke.py``'s ``kernels`` phase). Everything is counted from the
-masks the plain reference computes (``reference.py``), never from the
-program's counters. Each input byte is counted once and each output byte
-once; operations count the output pixels a map really has (a tile that
-overhangs a map's edge counts its pixels inside the map only).
+(``chip_smoke.py``'s ``kernels`` phase). Everything is counted by
+``Counter`` from the judged pass's changed-pixel masks
+(``layerwise.py``), worked out by the τ rule from the program's stored
+state, which the decision check holds the program's caches to exactly;
+never from the program's counters. Each input byte is counted once and
+each output byte once; operations count the output pixels a map really
+has (a tile that overhangs a map's edge counts its pixels inside the map
+only).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -141,3 +145,129 @@ def b8_delta_pool(cover_px, C, es, out_px, tiles):
     """Re-detecting pool's tile pass: the listed windows read, the outputs
     written, the list."""
     return cover_px * C * es + out_px * C * es + tiles * 4 + 4
+
+
+# ------------------- launches per frame, from the masks -------------------
+
+HINT = 8          # the dirty-hint grid between layers
+STEM_TILE = (8, 32)
+
+
+class Counter:
+    """Each frame's kernel launches and operations, node by node, from the
+    masks that decide the program's work: per CB node the changed input
+    pixels ``d`` (None on a refresh frame, which recomputes densely), and
+    from them the changed output tiles, the 8x8 dirty hints between nodes
+    (OR-ed at a concat), the stem's capacity overflow, and a ``B6``
+    producer's launch, which its consumer's detect completes
+    (``netdef.fused_consumers``). Call ``node`` for every node of a frame
+    in topological order, after ``start``."""
+
+    def __init__(self, nodes, capacity_fraction: float, es: int, device):
+        from . import netdef
+        self.nodes = {n["name"]: n for n in nodes}
+        self.consumer = netdef.fused_consumers(nodes)
+        self.out_changed = netdef.out_changed
+        self.capacity_fraction = capacity_fraction
+        self.es = es
+        self.launches = Launches(device)
+        self.flops = torch.zeros((), dtype=torch.float64, device=device)
+        self.start()
+
+    def start(self):
+        self.hints: Dict[str, torch.Tensor] = {}
+        self.pending: Dict[str, tuple] = {}
+
+    def _dense_flops(self, n, shape) -> float:
+        if n["kind"] != "conv":
+            return 0.0
+        c, h, w = shape
+        return float(h * w * flops_per_pixel(n["kernel"], c, n["features"]))
+
+    def node(self, name: str, shape, d: Optional[torch.Tensor],
+             refresh: bool):
+        """Node ``name`` of this frame, its input of (C, H, W) ``shape``."""
+        n = self.nodes[name]
+        hint = self.hints.get(n["inputs"][0])
+        out = None
+        if n["kind"] == "concat":
+            ins = [self.hints.get(i) for i in n["inputs"]]
+            if not refresh and all(h is not None for h in ins):
+                out = ins[0]
+                for h in ins[1:]:
+                    out = out | h
+        elif n["kind"] == "pool" and n["forward"]:
+            if not refresh:
+                out = self._pool_fused(shape, hint)
+        elif not n["cb"] or d is None:
+            self.flops += self._dense_flops(n, shape)
+        else:
+            out = self._cb(n, shape, d, hint, self.pending.pop(name, None))
+        self.hints[name] = out
+
+    def _pool_fused(self, shape, hint):
+        C = shape[0]
+        pairs = hint[:, 0::2] | hint[:, 1::2]
+        out = tile_or(hint, 2, 2)  # a pooled 8x8 tile: 2x2 hints
+        self.launches.add("B3", 0.0, b3_pool_fused(
+            pairs.sum(), C, self.es, out.numel()))
+        return out
+
+    def _cb(self, n, shape, d, hint, pending):
+        kernels = n["kernels"]
+        C, H, W = shape
+        npix = d.sum()
+        changed = self.out_changed(d, n)
+        oh, ow = changed.shape
+        if pending is not None:  # the producer's B6 ran this detect
+            kid, args = pending
+            self.launches.add(kid, args[0], b6_conv_detect(
+                *args[1:], npix2=npix,
+                out_tiles2=math.ceil(oh / HINT) * math.ceil(ow / HINT)))
+        k = n["kernel"]
+        keff = (k - 1) * n["dilation"] + 1
+        if "B4" in kernels:  # the stem: detect on the frame, 8x32 tiles
+            cells = tile_or(changed, HINT, HINT)
+            stem = tile_or(changed, *STEM_TILE)
+            listed = stem.sum()
+            cap = max(1, min(math.ceil(self.capacity_fraction * stem.numel()),
+                             stem.numel()))
+            overflow = listed > cap
+            work = stem | overflow
+            self.launches.add("B4", 0.0, b4_stem_detect(
+                H, W, C, 4, self.es, npix, cells.numel()))
+            px = tiles_to_pixels(work, *STEM_TILE, oh, ow)
+            n_px = px.sum()
+            cout = n["features"]
+            fl = n_px * flops_per_pixel(k, C, cout)
+            cover = window_cover(px, keff, 1, (keff - 1) // 2, H, W)
+            self.launches.add("B5", fl, b5_stem_conv(
+                cover, C, n_px, cout, self.es, k * k * C * cout, listed))
+            self.flops += fl
+            return cells | overflow
+        tiles = tile_or(changed, HINT, HINT)
+        n_tiles = tiles.sum()
+        px = tiles_to_pixels(tiles, HINT, HINT, oh, ow)
+        n_px = px.sum()
+        if "B1" in kernels:
+            own = tiles_to_pixels(hint, HINT, HINT, H, W).sum()
+            self.launches.add("B1", 0.0, b1_detect_sparse(
+                own, npix, C, self.es, tiles.numel(), hint.sum()))
+        if n["kind"] == "pool":  # re-detecting pool: B8 on its tiles
+            w = n["window"]
+            cover = window_cover(px, w, w, 0, H, W)
+            self.launches.add("B8", 0.0, b8_delta_pool(
+                cover, C, self.es, n_px, n_tiles))
+            return tiles
+        cout = n["features"]
+        fl = n_px * flops_per_pixel(k, C, cout)
+        cover = window_cover(px, keff, 1, (keff - 1) // 2, H, W)
+        wn = k * k * C * cout
+        self.flops += fl
+        if "B6" in kernels:
+            self.pending[self.consumer[n["name"]]] = (
+                "B6", (fl, cover, C, n_px, cout, self.es, wn, n_tiles))
+        elif "B2" in kernels:
+            self.launches.add("B2", fl, b2_delta_conv(
+                cover, C, n_px, cout, self.es, wn, n_tiles))
+        return tiles

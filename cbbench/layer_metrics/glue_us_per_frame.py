@@ -1,6 +1,7 @@
-"""Device microseconds per frame of every activity that is neither one of
-the port's CUDA kernels nor the compaction's sorts: elementwise work,
-copies, fills, reductions, cuBLAS, over the profiled pass."""
+"""Device microseconds per frame of every activity that is not one of the
+port's CUDA kernels by stem (``trace.STEM_KERNEL``): elementwise work,
+copies, fills, reductions, cuBLAS and the compaction kernel
+``compact_tiles``, over the profiled pass."""
 
 from cbbench import trace
 

@@ -1,7 +1,7 @@
 """Device microseconds per frame of the graph replays' nodes under ``compact``
-(the sorts and their glue), outside ``refresh``, over every frame of the
-profiled pass (``stages``: each activity by the stage map of the graph it
-came from)."""
+(the compaction kernel and its glue), outside ``refresh``, over every frame
+of the profiled pass (``stages``: each activity by the stage map of the
+graph it came from)."""
 
 from cbbench import stages
 

@@ -10,9 +10,17 @@ window then drives the cell's entry for ``--seconds``: ``chunk`` cells
 replay ``runner.scan_video_jit`` over the ring's chunks, at most the
 cell's ``in_flight`` chunks in flight; ``live`` cells step
 ``runner.FrameStepper`` one frame a call and synchronise after each.
-Once the window has closed and the program's state is freed, the plain
-reference (``reference.py``) runs one pass over the ring and every output
-of the window is judged against it.
+Once the window has closed and its state is freed, the judged pass runs
+the program once more over the ring, through ``runner.FrameStepper`` (K =
+1) with the cell's refresh cadence, and after each frame hands its stored
+state to the layer-wise judgement (``layerwise.py``): every CB node's
+decisions and values, from the program's own inputs and caches. The
+judged pass's answers must equal the window's at the same ring positions,
+bit for bit, and are judged against the reference's last layer computed
+from the program's own input to it. Cells whose limits name
+``worst_gap`` also keep the free-running check: the plain reference
+(``reference.py``) runs one pass of its own over the ring and every
+output of the window is judged against it.
 
 ``--trace 0`` prints the cell's end-to-end metrics; ``--trace 1`` profiles
 one pass over the ring after the window (``torch.profiler``, events read
@@ -37,7 +45,7 @@ import sys  # noqa: E402
 import types  # noqa: E402
 from typing import Dict, List, Optional  # noqa: E402
 
-from . import guard, spec  # noqa: E402
+from . import guard, netdef, spec  # noqa: E402
 
 # build and kernel caches inside the checkout, at fixed paths
 os.environ.setdefault("TRITON_CACHE_DIR",
@@ -78,7 +86,8 @@ def prepare(cell: dict, config: dict, device: str,
         backend="cuda", compute_dtype=config["compute_dtype"],
         cache_dtype=config["cache_dtype"], device=device)
     wl = zoo.load(config["zoo"], shape, cfg)
-    n_cb = sum(1 for layer in config["layers"] if layer["cb"])
+    nodes = netdef.nodes_of(config)
+    n_cb = sum(1 for n in nodes if n["cb"])
     want_fuse = bool(config.get("fuse_detect", False))
     if (wl.weights != "trained(npz)" or wl.tau_source != "tuned"
             or wl.warnings or wl.fuse_detect != want_fuse
@@ -88,8 +97,7 @@ def prepare(cell: dict, config: dict, device: str,
             f"zoo.load({config['zoo']!r}) is not the pinned configuration: "
             f"{wl.weights} {wl.tau_source} {wl.warnings} fuse "
             f"{wl.fuse_detect} taus {wl.taus}")
-    if len(wl.net.specs) != len(config["layers"]):
-        raise RuntimeError("the loaded net has another layer count")
+    check_net(wl, nodes)
     chunk = int(o.get("chunk", cell["chunk"]))
     ring = int(o.get("ring_frames", cell["ring_frames"]))
     refresh = int(o.get("refresh_every_frames",
@@ -102,6 +110,34 @@ def prepare(cell: dict, config: dict, device: str,
         torch=torch, wl=wl, shape=shape, chunk=chunk, ring_frames=ring,
         refresh=refresh, out_map=out_map_of(config["output"]),
         weights_path=wpath, taus=taus, device=device)
+
+
+def check_net(wl, nodes):
+    """The loaded net is the configuration's: as many nodes (a chain's
+    layers, a DAG's nodes by name and inputs), each of the kind, width and
+    kernel stated, CB where it says so."""
+    if wl.kind == "graph":
+        got = [(n.name, list(n.inputs), n.spec) for n in wl.net.nodes]
+    else:
+        got = [(str(i), [str(i - 1) if i else "input"], s)
+               for i, s in enumerate(wl.net.specs)]
+    if len(got) != len(nodes):
+        raise RuntimeError(f"the loaded net has {len(got)} nodes, the "
+                           f"configuration {len(nodes)}")
+    for (name, inputs, sp), n in zip(got, nodes):
+        kernel = getattr(sp, "kernel", None) or getattr(sp, "window", None)
+        want = (n["name"], n["inputs"], n["kind"], bool(n["cb"]))
+        have = (name, inputs, sp.kind, bool(getattr(sp, "use_cb", False)))
+        if n["kind"] == "conv":
+            want += (n["features"], (n["kernel"],) * 2,
+                     (n["dilation"],) * 2)
+            have += (sp.features, tuple(kernel), tuple(sp.dilation))
+        elif n["kind"] == "pool":
+            want += ((n["window"],) * 2,)
+            have += (tuple(kernel),)
+        if want != have:
+            raise RuntimeError(f"node {n['name']}: the loaded net has "
+                               f"{have}, the configuration {want}")
 
 
 class ChunkEntry:
@@ -252,27 +288,110 @@ def profile_pass(entry, live: bool, dev):
     return outs, acts, host, t0, t1, frames
 
 
-def reference_pass(prep, config: dict, ring, storage: str = "bfloat16",
-                   count: bool = False):
+def reference_pass(prep, config: dict, ring, storage: str = "bfloat16"):
     """The plain reference over one pass of the ring: per frame the
     output the program's is judged against (class maps: (R, H, W, C)
-    logits; heat argmaxes: (R, K, H*W) heat), and the reference object
-    (its counts with ``count``)."""
+    logits; heat argmaxes: (R, K, H*W) heat)."""
     import numpy as np
     torch = prep.torch
     from .reference import Reference
     weights = dict(np.load(prep.weights_path))
-    ref = Reference(config, weights, prep.taus, prep.device, storage, count)
+    ref = Reference(config, weights, prep.taus, prep.device, storage)
     outs = []
     with torch.no_grad():
         for t in range(prep.ring_frames):
             y = ref.step(ring[t], refresh=t % prep.refresh == 0)
-            if config["output"]["kind"] == "class_map":
-                outs.append(y.permute(1, 2, 0).contiguous())
-            else:
-                k = int(config["output"]["keypoints"])
-                outs.append(y[-k:].reshape(k, -1))
-    return torch.stack(outs), ref
+            outs.append(as_judged(y, config["output"]))
+    return torch.stack(outs)
+
+
+def as_judged(y, output: dict):
+    """A reference's (C, H, W) output in the form answers are judged
+    against: (H, W, C) logits of a class map; (K, H*W) heat of a heat
+    argmax."""
+    if output["kind"] == "class_map":
+        return y.permute(1, 2, 0).contiguous()
+    k = int(output["keypoints"])
+    return y[-k:].reshape(k, -1)
+
+
+def answers_of(judged, output: dict):
+    """The answers a judged-form output gives (the reference's own, as the
+    control's): its argmax."""
+    a = judged.argmax(-1)
+    return a.to(sys.modules["torch"].uint8) \
+        if output["kind"] == "class_map" else a
+
+
+def judged_pass(prep, config: dict, ring, control: bool = False,
+                count: bool = False):
+    """The program once more over one pass of the ring, one frame a call
+    through ``runner.FrameStepper`` with the cell's refresh cadence, each
+    frame's stored state judged node by node (``layerwise.LayerJudge``)
+    and its answer against the reference's last layer computed from the
+    program's own input to it. Returns the pass's answers and, per frame,
+    its largest ``layer_gap``, its pixels outside the decision rule and
+    its widest ``answer_gap`` (with ``control``, the control's answers and
+    its two gaps too), and the judge (with ``count``, its launch counts:
+    from the changed pixels the decision check holds the program's to)."""
+    import numpy as np
+    from cbinfer_tpu_torch.runner import FrameStepper
+    from .layerwise import LayerJudge
+    torch = prep.torch
+    judge = LayerJudge(config, dict(np.load(prep.weights_path)), prep.taus,
+                       prep.shape, prep.device, control, count)
+    stepper = FrameStepper(prep.wl.net, prep.wl.params,
+                           thresholds=prep.wl.taus,
+                           refresh_every=prep.refresh, out_map=prep.out_map)
+    state = stepper.state
+    nodes = [n for n in judge.nodes if n["cb"]]
+    cached = [n["name"] for n in nodes
+              if not (n["kind"] == "pool" and n["forward"])]
+
+    def of(name):
+        return state[int(name)] if isinstance(state, list) else state[name]
+    answers, rows, cans = [], [], []
+    with torch.no_grad():
+        for t in range(prep.ring_frames):
+            refresh = t % prep.refresh == 0
+            before = {} if refresh else {k: of(k).in_cache.clone()
+                                         for k in cached}
+            y, _ = stepper(ring[t])
+            stored = {n["name"]: (before.get(n["name"]),
+                                  of(n["name"]).in_cache,
+                                  of(n["name"]).out_cache) for n in nodes}
+            ref, ctl, gap, wrong, cgap = judge.frame(ring[t], refresh,
+                                                     stored)
+            r = as_judged(ref, config["output"])[None]
+            row = [gap, wrong, gaps(r, 0, y[None]).amax()]
+            if control:
+                a = answers_of(as_judged(ctl, config["output"]),
+                               config["output"])
+                row += [cgap, gaps(r, 0, a[None]).amax()]
+                cans.append(a)
+            answers.append(y)
+            rows.append(torch.stack([v.double() for v in row]))
+            del before, stored
+    del stepper, state
+    cols = torch.stack(rows).T
+    out = types.SimpleNamespace(
+        answers=torch.stack(answers), layer_gap=cols[0],
+        decisions=cols[1].long(), answer_gap=cols[2], judge=judge)
+    if control:
+        out.control_layer_gap, out.control_answer_gap = cols[3], cols[4]
+        out.control_answers = torch.stack(cans)
+    return out
+
+
+def mismatched(outs, answers):
+    """How many of the window's answers differ, in any bit, from the
+    judged pass's at the same ring position."""
+    torch = sys.modules["torch"]
+    n = torch.zeros((), dtype=torch.int64, device=answers.device)
+    for pos, y in outs:
+        a = answers[pos:pos + y.shape[0]]
+        n += (y != a).reshape(y.shape[0], -1).any(1).sum()
+    return int(n)
 
 
 def gaps(ref_out, pos: int, y):
@@ -317,6 +436,39 @@ def judge(ref_out, outs, limits: Dict[str, float]):
         failed += (per_frame > limit).sum()
     check = {"worst_gap": {"value": float(worst), "limit": limit}}
     return check, int(failed)
+
+
+def verdict(jp, outs, limits: Dict[str, float], ref_out=None):
+    """What decides ``correct``: the judged pass's numbers beside their
+    limits, and (with ``ref_out``, cells whose limits name ``worst_gap``)
+    the free-running check's. Returns (the numbers compared, each beside
+    its limit; the frames that fail them: a judged frame over a limit or
+    outside the decision rule, a window's answer that differs from the
+    judged pass's, a frame over ``worst_gap``; whether the outputs are
+    correct). The exact comparisons have the limit 0."""
+    bad = (jp.layer_gap > limits["layer_gap"]) | (jp.decisions > 0)
+    check = {"layer_gap": {"value": float(jp.layer_gap.max()),
+                           "limit": limits["layer_gap"]}}
+    if "answer_gap" in limits:
+        bad |= jp.answer_gap > limits["answer_gap"]
+        check["answer_gap"] = {"value": float(jp.answer_gap.max()),
+                               "limit": limits["answer_gap"]}
+    n_mis = mismatched(outs, jp.answers)
+    check["decisions"] = {"value": int(jp.decisions.sum()), "limit": 0}
+    check["mismatched"] = {"value": n_mis, "limit": 0}
+    failed = int(bad.sum()) + n_mis
+    if ref_out is not None:
+        c, f = judge(ref_out, outs, limits)
+        check, failed = {**c, **check}, failed + f
+    correct = failed == 0 and all(
+        c["value"] <= c["limit"] for c in check.values())
+    return check, failed, correct
+
+
+def free(dev):
+    gc.collect()
+    if dev.cuda:
+        dev.torch.cuda.empty_cache()
 
 
 def card(query: str = "name,power.limit") -> str:
@@ -381,27 +533,33 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool,
     notes = window_notes(win, cuda)
     outs = win.outs
     ctx = types.SimpleNamespace(entry=cell["entry"], host_call_s=win.host,
-                                slice=None, ref_launches=None,
+                                slice=None, maps=None, ref_launches=None,
                                 ref_flops=None)
     if traced:
+        from . import stages
         p_outs, acts, host, t0, t1, n = profile_pass(entry, live, dev)
         outs = outs + p_outs
         ctx.slice = types.SimpleNamespace(acts=acts, host=host, t0=t0,
                                           t1=t1, frames=n)
+        ctx.maps = stages.program_maps()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     entry.close()
-    del entry, prep.wl
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    del entry
+    free(dev)
+    t_judge = time.perf_counter()
+    jp = judged_pass(prep, config, ring, count=traced)
+    del prep.wl
+    free(dev)
     t_ref = time.perf_counter()
-    ref_out, ref = reference_pass(prep, config, ring, count=traced)
-    check, failed = judge(ref_out, outs, cell["limits"])
+    ref_out = (reference_pass(prep, config, ring)
+               if "worst_gap" in cell["limits"] else None)
+    check, failed, correct = verdict(jp, outs, cell["limits"], ref_out)
     print(f"cbbench: set-up {setup_s:.3f} s, window {win.wall:.3f} s, "
-          f"reference and judgement {time.perf_counter() - t_ref:.3f} s; "
-          f"{notes}", file=sys.stderr)
-    correct = failed == 0 and all(
-        c["value"] <= c["limit"] for c in check.values())
+          f"judged pass {t_ref - t_judge:.3f} s, free-running reference "
+          f"{time.perf_counter() - t_ref:.3f} s; {notes}", file=sys.stderr)
+    print(f"cbbench: answer_gap {float(jp.answer_gap.max())!r}; by node "
+          "[layer_gap, decisions]: " + json.dumps(jp.judge.by_node()),
+          file=sys.stderr)
     metrics = {}
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -420,8 +578,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool,
             metrics[name] = {"value": values[name], "unit": m["unit"]}
     else:
         from . import trace
-        ctx.ref_launches = ref.launches.host()
-        ctx.ref_flops = float(ref.flops)
+        ctx.ref_launches = jp.judge.counter.launches.host()
+        ctx.ref_flops = float(jp.judge.counter.flops)
         for name, m in spec.metrics_of(bench, cell_name, "per_layer"):
             v = spec.reader(name)(ctx)
             if v is not None:

@@ -289,12 +289,16 @@ _CACHE: List = []  # [(slice, number of maps, Join)]: the last join
 
 def of_ctx(ctx) -> Optional[Join]:
     """The join of a run's profiled pass (``ctx.slice``) by the program's
-    maps, made once for all readers; None without a device trace or
-    maps."""
+    maps (``ctx.maps``, those it kept when the pass ended, where the run
+    took them: graphs captured later, such as the judged pass's, would
+    fit the pass's replays too), made once for all readers; None without
+    a device trace or maps."""
     s = getattr(ctx, "slice", None)
     if s is None or not s.acts:
         return None
-    maps = program_maps()
+    maps = getattr(ctx, "maps", None)
+    if maps is None:
+        maps = program_maps()
     if not maps:
         return None
     if _CACHE and _CACHE[0][0] is s and _CACHE[0][1] == len(maps):

@@ -7,7 +7,7 @@ import os
 
 import pytest
 
-from cbbench import spec
+from cbbench import netdef, spec
 
 BENCH_KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
               "end_to_end", "per_layer"}
@@ -88,7 +88,7 @@ def test_cell_and_config_files(bench):
         cfg = spec.config(c["name"])
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"]
-        n_cb = sum(layer["cb"] for layer in cfg["layers"])
+        n_cb = sum(n["cb"] for n in netdef.nodes_of(cfg))
         taus = spec.load_json(os.path.join(spec.ROOT, cfg["taus"]["file"]))
         assert len(taus["thresholds"]) == n_cb
 

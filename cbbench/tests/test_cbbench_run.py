@@ -20,14 +20,44 @@ SEED = 2**31 + 5
 CONTRACT_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
+# a test cell over the OpenPose DAG (``tests/pose_graph.cam1.json``): the
+# node path, concats, B6 and the heat argmax answers through a whole run
+GRAPH = "pose_graph.cam1"
+SHAPE = {GRAPH: [80, 128, 3]}
+
+
+def _tests_first(real):
+    def find(name):
+        path = os.path.join(spec.HERE, "tests", f"{name}.json")
+        return spec.load_json(path) if os.path.exists(path) else real(name)
+    return find
+
+
+@pytest.fixture(autouse=True)
+def declared_test_cells(monkeypatch):
+    """The test cell found by name beside the benchmark's, and declared
+    wherever ``scene.cam1`` is (the chunk cells' metrics)."""
+    monkeypatch.setattr(spec, "cell", _tests_first(spec.cell))
+    monkeypatch.setattr(spec, "config", _tests_first(spec.config))
+    bench = spec.bench()
+    for kind in ("end_to_end", "per_layer"):
+        for m in bench[kind]:
+            if "scene.cam1" in m.get("workloads", []):
+                m["workloads"].append(GRAPH)
+    monkeypatch.setattr(spec, "bench", lambda: bench)
+
+
 def _run(cell, traced=False, seconds=0.3):
     return run.run_cell(cell, SEED, seconds, traced, device="cpu",
-                        overrides=SMALL)
+                        overrides=dict(SMALL, in_shape=SHAPE.get(
+                            cell, SMALL["in_shape"])))
 
 
 @pytest.mark.parametrize("cell,traced", [("scene.cam1", False),
                                          ("scene.live", False),
-                                         ("scene.pan", True)])
+                                         ("scene.pan", True),
+                                         (GRAPH, False),
+                                         (GRAPH, True)])
 def test_the_result_line_has_the_contract_keys(cell, traced):
     r = _run(cell, traced)
     keys = list(r)
@@ -83,7 +113,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("name", ["reference.py", "costs.py", "frames.py",
-                                  "trace.py", "guard.py", "spec.py"])
+                                  "trace.py", "guard.py", "spec.py",
+                                  "netdef.py", "layerwise.py"])
 def test_the_yardstick_imports_nothing_of_the_program(name):
     mods = list(_imports(os.path.join(spec.HERE, name)))
     assert not guard.forbidden_modules(mods, guard.FORBIDDEN_IN_REFERENCE)
@@ -123,22 +154,29 @@ def test_heat_argmax_answers_and_their_gaps():
 # ----------------------------------------------------- broken underneath
 
 
+def _nets():
+    from cbinfer_tpu_torch.convert import CBNet
+    from cbinfer_tpu_torch.graph import CBGraphNet
+    return CBNet, CBGraphNet
+
+
 def _stale_state(monkeypatch):
     """A step that returns its state unchanged: every steady frame gives
     the last refresh frame's output."""
-    from cbinfer_tpu_torch.convert import CBNet
-    real = CBNet.apply_refresh
     last = {}
 
-    def refresh(self, params, state, x, taus=None):
-        y, st, stats = real(self, params, state, x, taus)
-        last["y"] = y
-        return y, st, stats
+    def wrap(real):
+        def refresh(self, params, state, x, taus=None):
+            y, st, stats = real(self, params, state, x, taus)
+            last["y"] = y
+            return y, st, stats
+        return refresh
 
     def apply(self, params, state, x, taus=None):
         return last["y"], state, []
-    monkeypatch.setattr(CBNet, "apply_refresh", refresh)
-    monkeypatch.setattr(CBNet, "apply", apply)
+    for net in _nets():
+        monkeypatch.setattr(net, "apply_refresh", wrap(net.apply_refresh))
+        monkeypatch.setattr(net, "apply", apply)
 
 
 def _half_the_chunk(monkeypatch):
@@ -157,8 +195,6 @@ def _half_the_chunk(monkeypatch):
 def _altered_answer(monkeypatch):
     """An answer altered where it is produced: the network's output is
     raised at one place of another class (heat channel) than its best."""
-    from cbinfer_tpu_torch.convert import CBNet
-
     def wrap(real):
         def step(self, params, state, x, taus=None):
             y, st, stats = real(self, params, state, x, taus)
@@ -168,15 +204,18 @@ def _altered_answer(monkeypatch):
             flat[0, c] += 50.0
             return y, st, stats
         return step
-    monkeypatch.setattr(CBNet, "apply", wrap(CBNet.apply))
-    monkeypatch.setattr(CBNet, "apply_refresh", wrap(CBNet.apply_refresh))
+    for net in _nets():
+        monkeypatch.setattr(net, "apply", wrap(net.apply))
+        monkeypatch.setattr(net, "apply_refresh", wrap(net.apply_refresh))
 
 
 @pytest.mark.parametrize("cell,fault", [
     ("scene.cam1", _stale_state), ("scene.cam1", _half_the_chunk),
     ("scene.cam1", _altered_answer), ("scene.live", _stale_state),
     ("scene.live", _altered_answer), ("scene.pan", _stale_state),
-    ("scene.pan", _half_the_chunk), ("scene.pan", _altered_answer)])
+    ("scene.pan", _half_the_chunk), ("scene.pan", _altered_answer),
+    (GRAPH, _stale_state), (GRAPH, _half_the_chunk),
+    (GRAPH, _altered_answer)])
 def test_correct_is_false_with_the_timed_path_broken(cell, fault,
                                                      monkeypatch):
     fault(monkeypatch)

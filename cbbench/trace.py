@@ -3,9 +3,9 @@
 
 The binning is a frozen copy of ``scripts/torch_profile_trace.py``'s
 (``KERNEL_STAGE``, ``port_kernel``, ``kernel_stage``): the port's kernel
-functions are named ``<source stem>[_variant]_kernel``, the radix sorts of
-the stream compaction are ``torch.sort``'s (cub's) kernels, and every
-other device activity is glue. The stems are listed here, not read from
+functions are named ``<source stem>[_variant]_kernel``, and every other
+device activity is glue, the compaction kernel ``compact_tiles`` among
+them (it has no stem here). The stems are listed here, not read from
 the program's registry, so a later change to the program cannot rebin.
 """
 
@@ -57,14 +57,10 @@ def port_kernel(fn_name: str) -> Optional[str]:
 
 
 def kernel_stage(name: str) -> str:
-    """A device activity's stage: the port's kernels by id, the radix
-    sorts as ``compact``, everything else ``glue``."""
+    """A device activity's stage: the port's kernels by id, everything
+    else ``glue``."""
     k = port_kernel(name)
-    if k is not None:
-        return KERNEL_STAGE[k]
-    if "radixsort" in name.lower().replace("_", ""):
-        return "compact"
-    return "glue"
+    return "glue" if k is None else KERNEL_STAGE[k]
 
 
 def device_activities(prof) -> Tuple[List[Activity], List[Tuple]]:
