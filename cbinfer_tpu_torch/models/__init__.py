@@ -1,6 +1,7 @@
 """Model registry of the port (the scene, seg and pose families of
-``cbinfer_tpu.models``; the DAG ``models.pose.pose_graph`` is built by a
-call of its own, not through the registry)."""
+``cbinfer_tpu.models``; the DAGs ``models.pose.pose_graph`` and
+``models.pose.openpose_coco`` are built by calls of their own, not through
+the registry)."""
 
 from typing import Callable, Dict, List
 

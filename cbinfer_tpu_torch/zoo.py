@@ -1,6 +1,7 @@
 """Workload zoo: one-call loading of the shipped model families (port of
 ``cbinfer_tpu.zoo``: the sequential ``scene``, ``seg`` and ``pose``
-workloads and the DAG ``pose_graph``).
+workloads and the DAG ``pose_graph``; and ``openpose``, the published COCO
+OpenPose DAG, which the JAX package does not have).
 
 A registry maps each workload name to its architecture, trained checkpoint,
 tuned threshold vector and measured per-layer backend policy, so user code
@@ -49,6 +50,8 @@ class _Entry:
     tau_json: str
     policy_json: str
     model_kwargs: Dict[str, Any]
+    # a "graph" entry's builder in ``models.pose``: (nodes, output name)
+    graph_builder: str = "pose_graph"
 
 
 REGISTRY: Dict[str, _Entry] = {
@@ -72,6 +75,14 @@ REGISTRY: Dict[str, _Entry] = {
                          f"{_CK}/pose_graph_w64.npz",
                          f"{_CK}/pose_graph_w64_tau.json",
                          f"{_REPO}/POLICY_pose_graph.json", {}),
+    # seeded He-normal weights (scripts/torch_make_openpose_weights.py),
+    # not trained ones: OpenPose at its published widths for the
+    # benchmark, its taus tuned against its own dense path
+    "openpose": _Entry("graph", 64, "pck",
+                       f"{_CK}/openpose_coco.npz",
+                       f"{_CK}/openpose_coco_tau.json",
+                       f"{_REPO}/POLICY_openpose.json", {},
+                       graph_builder="openpose_coco"),
 }
 
 
@@ -157,10 +168,11 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
     ``UpsampleSpec`` is removed and recorded as ``upsample_scale`` (it is
     argmax-transparent: callers upsample the class map instead, the argmax
     then a nearest ``upsample_scale`` of the uint8 map). A ``"graph"``
-    workload builds ``models.pose.pose_graph`` through
-    ``graph.convert_graph_flagship``; its policy overrides are keyed by
-    node name. ``width`` builds the architecture at another channel width
-    than the registry's (the calibration scripts' small CPU runs): no
+    workload builds its ``models.pose`` builder (``pose_graph``,
+    ``openpose_coco``) through ``graph.convert_graph_flagship``; its
+    policy overrides are keyed by node name. ``width`` builds the
+    architecture at another channel width than the registry's (the
+    calibration scripts' small CPU runs): no
     trained checkpoint fits it, so its weights are random from ``seed``
     (a warning says so); the tau file applies as long as the CB layer
     count matches."""
@@ -168,7 +180,7 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
     from .convert import convert_flagship, num_cb_layers
     from .graph import convert_graph_flagship, init_graph_params
     from .models import get_model
-    from .models.pose import pose_graph
+    from .models import pose as pose_models
     from .network import init_params, torch_dtype
 
     if name not in REGISTRY:
@@ -213,7 +225,8 @@ def load(name: str, in_shape: Tuple[int, int, int] = (720, 1280, 3),
     weights = f"random(numpy seed {seed})"
     up_scale = None
     if e.kind == "graph":
-        nodes, out_name = pose_graph(width=e.width, **e.model_kwargs)
+        nodes, out_name = getattr(pose_models, e.graph_builder)(
+            width=e.width, **e.model_kwargs)
         net = with_policy_fallback(lambda x, fz: convert_graph_flagship(
             nodes, in_shape, cfg, output=out_name, extra_overrides=x,
             fuse_detect=fz))

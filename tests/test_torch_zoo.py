@@ -61,8 +61,12 @@ def test_load_flat_tau_and_registry():
     assert tw.taus == jw.taus == [0.07] * 6
     assert tw.tau_source == jw.tau_source == "fixed(0.07)"
     assert tw.refresh_every is None and jw.refresh_every is None
-    assert zoo.names() == jzoo.names()
-    for n in zoo.names():
+    # the port's entries the JAX package shares, in its order, and the
+    # port's own (the published OpenPose, which the JAX package lacks)
+    shared = [n for n in zoo.names() if n in jzoo.names()]
+    assert shared == jzoo.names()
+    assert [n for n in zoo.names() if n not in shared] == ["openpose"]
+    for n in shared:
         te, je = zoo.REGISTRY[n], jzoo.REGISTRY[n]
         assert (te.kind, te.width, te.metric, te.npz, te.tau_json,
                 te.policy_json, te.model_kwargs) == (
@@ -122,8 +126,8 @@ def test_workload_clip_is_byte_identical(name):
     assert gf.tobytes() == wf.tobytes() and gl.tobytes() == wl.tobytes()
     np.testing.assert_array_equal(tvideo.CLASS_PALETTE_HARD,
                                   jvideo.CLASS_PALETTE_HARD)
-    # every workload of the zoo has a profile, as in the reference
-    for n in zoo.names():
+    # every workload the zoo shares with the reference has its profile
+    for n in [n for n in zoo.names() if n in jzoo.names()]:
         assert tvideo.workload_video_kwargs(n) \
             == jvideo.workload_video_kwargs(n)
     with pytest.raises(KeyError):
