@@ -3,8 +3,8 @@
 //
 //   bf16 (the main path): a changed out tile of up to 64 pixels is one
 //   CLUSTER of ``csize`` blocks; each block computes slices of n_blk output
-//   channels (ops/conv_plan.py holds the plan, from cout alone, and packs
-//   the weights). A block has 160 threads:
+//   channels (ops/conv_plan.py holds the plan, from cout and the kernel,
+//   and packs the weights). A block has 160 threads:
 //     warp 4, the producer: lane 0 streams the block's packed weight slices
 //     through a ring of ``stages`` stages of 4 k-steps (16 input channels
 //     each) in shared memory, one 1-D bulk copy (cp.async.bulk) per stage,

@@ -18,15 +18,18 @@
 // copies, streams its weight slice through a shared-memory ring (packed
 // once per weight tensor by ops/conv_plan.py) and runs wgmma with A from
 // registers. The grid is sized to the listed capacity; clusters at or past
-// *count exit at once.
+// *count exit at once. A block's pace is its chain of k-steps, whatever its
+// slice's width (ops/conv_plan.py), so past cout 64 slices are 64 channels
+// wide: fewer blocks for the same work.
 //
 // Split plan at 720p (ops/conv_plan.py; n_blk x csize):
 //   scene w128: 3x3 128->256 (360 rows) and 256->256 (x2, 180 rows) 64 x 4
-//   pose w64: 64->64 (720 rows) 64 x 1; 64->128, 128->128 (360) 32 x 4;
+//   pose w64: 64->64 (720 rows) 64 x 1; 64->128, 128->128 (360) 64 x 2;
 //     128->256, 256->256 (180) 64 x 4; 256->512 (90) 64 x 8; 512->256,
 //     256->256, 56->256 and the 1x1 256->256 (90) 64 x 4; 256->128,
-//     128->128 and the 1x1 128->128 (90) 32 x 4; the 1x1 ->56 (90) 64 x 1
+//     128->128 and the 1x1 128->128 (90) 64 x 2; the 1x1 ->56 (90) 64 x 1
 //     (8 zero channels, not stored).
+//   OpenPose (656x368): the 7x7 128->128 and 192->128 (46 rows) 64 x 2.
 #include "cb_conv.cuh"
 
 namespace {

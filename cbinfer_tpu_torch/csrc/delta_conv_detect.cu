@@ -18,9 +18,10 @@
 // Bound on the H100: operations, as delta_conv (the detect adds one read
 // and at most one write of a 64 x cout tile to ~38-604 MFLOP of GEMM).
 // Design (bf16): delta_conv's cluster (cb_conv.cuh: one block per slice
-// of n_blk output channels, the same split plan, so the same sums in the
-// same order). A pixel's channels are spread over the cluster, so the
-// detect runs across it: in the epilogue each block takes, per pixel, the
+// of n_blk output channels, every output's sums in delta_conv's order;
+// at 64 < cout <= 128 its slices are 32 channels wide, delta_conv's 64).
+// A pixel's channels are spread over the cluster, so the detect runs
+// across it: in the epilogue each block takes, per pixel, the
 // max |y - cache| over its own channels into shared memory; after a
 // cluster barrier every block reads the csize partial maxima through
 // distributed shared memory (mapa + ld.shared::cluster) and takes their
@@ -41,7 +42,7 @@
 // detected nor accepted. That equals the unfused detect, whose blocks touch
 // only the rows their tile owns.
 //
-// Split plan: as delta_conv.cu (pose w64 at 720p, n_blk x csize: 64->128
+// Split plan (pose w64 at 720p, n_blk x csize: 64->128
 // (360 rows) 32 x 4; 128->256, 256->256 (180) 64 x 4; 256->512 (90)
 // 64 x 8; 512->256, 56->256, 256->256 and 1x1 256->256 (90) 64 x 4;
 // 256->128, 128->128, 1x1 128->128 (90) 32 x 4; 1x1 128->56 (90) 64 x 1).

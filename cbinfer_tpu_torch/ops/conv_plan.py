@@ -3,14 +3,26 @@
 
 A changed out tile of 64 pixels is computed by a CLUSTER of ``csize``
 blocks, each owning slices of ``n_blk`` output channels. The plan depends
-on cout alone, so B2 and B6 sum every output in the same order (B6 stays
-bit-identical to B2 followed by B1):
+on cout and the kernel alone:
 
     cout <= 64        one block, n_blk = 16, 32 or 64 (cout rounded up)
-    64 < cout <= 128  n_blk = 32, csize = cout / 32 (128 -> 4 x 32)
+    64 < cout <= 128  B2: n_blk = 64, csize 2; B6: n_blk = 32, csize =
+                      cout / 32 (128 -> 4 x 32)
     cout > 128        n_blk = 64, csize = min(8, cout / 64) (256 -> 4 x 64,
                       512 -> 8 x 64); past 512 a block takes slices rank,
                       rank + 8, ... in turn
+
+A block's pace is set by its chain of k-steps (ldmatrix, wgmma, the ring's
+barriers), not by its slice's width: on the card a k-step of a 64-channel
+slice takes no longer than one of a 32-channel slice, and neither the
+weight stream nor the MMAs move it (PERF.md, section 6). So B2 computes
+cout 128 with 2 blocks of 64 channels rather than 4 of 32, which halves
+the blocks of a launch (at 96.8 KB a block, OpenPose's Mconv1, the 4-block
+clusters of its 66 tiles did not fit one wave). Every output sums its
+products in the same k order at either width, and the card gives the same
+bits (the tile-conv card tests hold B2 to B6's plan bit for bit), so B6
+stays bit-identical to B2 followed by B1. B6 keeps its 32-channel slices:
+its paths were not measured at 64.
 
 A slice past cout (cout off the n_blk grid) is computed on zero weights
 and not stored. A block streams its slices' weights through a ring of ``stages``
@@ -48,12 +60,12 @@ class ConvPlan(NamedTuple):
     smem: int     # dynamic shared memory bytes of one block
 
 
-def split(cout: int):
-    """(n_blk, csize, slices) for cout output channels."""
+def split(cout: int, detect: bool = False):
+    """(n_blk, csize, slices) for cout output channels; ``detect``: B6's."""
     if cout <= 64:
         n = 16 if cout <= 16 else 32 if cout <= 32 else 64
     else:
-        n = 32 if cout <= 128 else 64
+        n = 32 if detect and cout <= 128 else 64
     slices = -(-cout // n)
     return n, min(MAX_CLUSTER, slices), slices
 
@@ -77,7 +89,7 @@ def conv_plan(cin: int, cout: int, kh: int, kw: int, win_h: int,
     B6's, whose block also stages the consumer cache's 64 pixels at its
     channels when it has one slice. Raises when the window does not fit a
     block's shared memory."""
-    n, csize, slices = split(cout)
+    n, csize, slices = split(cout, detect)
     window = win_h * win_w * pixel_stride(cin) * 2
     if detect and slices <= csize:
         window += 64 * (n + 8) * 2
@@ -99,14 +111,14 @@ def _swizzle(n: int, device) -> torch.Tensor:
     return torch.arange(8, device=device).view(1, 8) ^ (r % 8)
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (kh, kw, cin, cout) -> the packed operand, (slices, stages,
-    n_blk, 8, 8): [s, g, r, c, e] is the weight of input row
-    64 g + 8 (c ^ r % 8) + e (taps in HWIO order, each padded to 16
-    channels) and output channel s n_blk + r; zeros where either is
-    padding."""
+def pack_weights(w: torch.Tensor, n: int) -> torch.Tensor:
+    """HWIO (kh, kw, cin, cout) -> the packed operand of slices of ``n``
+    output channels (the plan's n_blk), (slices, stages, n, 8, 8):
+    [s, g, r, c, e] is the weight of input row 64 g + 8 (c ^ r % 8) + e
+    (taps in HWIO order, each padded to 16 channels) and output channel
+    s n + r; zeros where either is padding."""
     kh, kw, cin, cout = w.shape
-    n, _, slices = split(cout)
+    slices = -(-cout // n)
     cin16 = -(-cin // 16) * 16
     steps = k_steps(cin, kh, kw)
     wp = w.new_zeros((steps * 16, slices * n))
@@ -130,12 +142,14 @@ def unpack_weights(wp: torch.Tensor, kh: int, kw: int, cin: int,
         .reshape(kh, kw, cin, cout)
 
 
-def packed_weights(w: torch.Tensor) -> torch.Tensor:
-    """The packed copy of ``w``, made at its first use and kept on the
-    tensor itself (beside the HWIO weights the plain versions read); made
-    anew if ``w`` was written in place since."""
+def packed_weights(w: torch.Tensor, n: int) -> torch.Tensor:
+    """The packed copy of ``w`` in slices of ``n`` channels, made at its
+    first use and kept on the tensor itself (beside the HWIO weights the
+    plain versions read); made anew if ``w`` was written in place since."""
     got = getattr(w, "_cb_packed", None)
     if got is None or got[0] != w._version:
-        got = (w._version, pack_weights(w))
+        got = (w._version, {})
         w._cb_packed = got
-    return got[1]
+    if n not in got[1]:
+        got[1][n] = pack_weights(w, n)
+    return got[1][n]

@@ -140,8 +140,8 @@ def delta_conv(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     dh, dw = g.dilation
     kh, kw = g.kernel
     if dtype == torch.bfloat16:
-        wk, plan = packed_weights(w), conv_plan(cin, cout, kh, kw, g.win_h,
-                                                 g.win_w)
+        plan = conv_plan(cin, cout, kh, kw, g.win_h, g.win_w)
+        wk = packed_weights(w, plan.n_blk)
     else:
         wk, plan = w, (0,) * 6
     stream = torch.cuda.current_stream(xp.device).cuda_stream

@@ -3,11 +3,12 @@
 Replaces ``cbinfer_tpu/ops/pallas/delta_conv_detect.py::
 delta_conv_detect_pallas``. The CUDA source (``csrc/delta_conv_detect.cu``)
 carries the design note: operations bound it on the H100 as they bound the
-delta conv, whose cluster it shares (the same split plan, so the same
-sums); the blocks of a tile's cluster combine their per-pixel maxima
-through distributed shared memory and accept their own channels of the
-changed pixels, so the consumer never re-reads the tile and needs no
-launch or hint compaction of its own.
+delta conv, whose tile conv it shares (every output summed in the same
+order; its slices are 32 channels wide at 64 < cout <= 128); the blocks
+of a tile's cluster combine their per-pixel maxima through distributed
+shared memory and accept their own channels of the changed pixels, so the
+consumer never re-reads the tile and needs no launch or hint compaction
+of its own.
 """
 
 from __future__ import annotations
@@ -140,8 +141,8 @@ def delta_conv_detect(xp: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     kh, kw = g.kernel
     s2h, s2w = g2.stride
     if dtype == torch.bfloat16:
-        wk, plan = packed_weights(w), conv_plan(cin, cout, kh, kw, g.win_h,
-                                                 g.win_w, True)
+        plan = conv_plan(cin, cout, kh, kw, g.win_h, g.win_w, True)
+        wk = packed_weights(w, plan.n_blk)
     else:
         wk, plan = w, (0,) * 6
     stream = torch.cuda.current_stream(xp.device).cuda_stream

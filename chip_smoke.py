@@ -1875,16 +1875,25 @@ TILE_CONV_CASES = {
     "tile8x16": (24, 64, 32, 64, 3, 1, 1, (8, 16), None),
     "tile16x16_ragged": (44, 72, 64, 128, 3, 1, 1, (16, 16), None),
     "tile16x32_cout256": (40, 96, 128, 256, 3, 1, 1, (16, 32), None),
+    # OpenPose's 7x7 convs on its stride-8 map (66 tiles): Mconv1 on the
+    # 185-channel concat stored at 192, Mconv2-5
+    "openpose_7x7_cin192": (46, 82, 192, 128, 7, 1, 1, (8, 8), None),
+    "openpose_7x7_cin128": (46, 82, 128, 128, 7, 1, 1, (8, 8), None),
+    # B2's second 64-channel slice half past cout (B6: three of 32)
+    "cout96_ragged_wide_slice": (20, 48, 64, 96, 3, 1, 1, (8, 8), 3),
 }
 
 
 def check_tile_conv(torch, np, name):
     """One TILE_CONV_CASES case in bf16 on the card, at counts 0, 1, a
     few tiles and every tile of a capacity-long list: B2 within 2e-2 of
-    its plain version, tiles not listed bit-identical, count 0 a no-op;
-    B6 equal bit for bit to B2 followed by B1 (out cache, consumer cache,
-    mask, npix) at tau2 0.05, -1 and 1e9, and its conv within 2e-2 of the
-    plain version. Raises AssertionError; returns a summary."""
+    its plain version, tiles not listed bit-identical, count 0 a no-op,
+    and equal bit for bit to B2 launched on B6's plan (32-channel slices
+    where B2 takes 64); B6 equal bit for bit to B2 followed by B1 (out
+    cache, consumer cache, mask, npix) at tau2 0.05, -1 and 1e9, and its
+    conv within 2e-2 of the plain version. Raises AssertionError; returns
+    a summary."""
+    from cbinfer_tpu_torch.ops.conv_plan import conv_plan
     from cbinfer_tpu_torch.ops.geometry import conv_tile_geometry
     from cbinfer_tpu_torch.ops.kernels import delta_conv as KC
     from cbinfer_tpu_torch.ops.kernels import delta_conv_detect as KF
@@ -1918,6 +1927,15 @@ def check_tile_conv(torch, np, name):
         count = torch.tensor(c, dtype=torch.int32, device=dev)
         ok_ = KC.delta_conv(xp, idx, w, b, out0.clone(), g, "relu", dt,
                             count=count)
+        KC.conv_plan = lambda *a: conv_plan(*a, True)  # B6's slices
+        try:
+            o6 = KC.delta_conv(xp, idx, w, b, out0.clone(), g, "relu", dt,
+                               count=count)
+        finally:
+            KC.conv_plan = conv_plan
+        if not torch.equal(ok_, o6):
+            raise AssertionError(f"delta_conv {name} count {c}: B2's plan "
+                                 "and B6's give other bits")
         op_ = KC.delta_conv_plain(xp, idx, w, b, out0.clone(), g, "relu", dt,
                                   count=count)
         listed = torch.zeros(g.n_tiles, dtype=torch.bool, device=dev)

@@ -24,14 +24,16 @@ zeroed (the wrapper's work) before each launch, the
 trees taking turns (A B .. B A) for ``--rounds`` rounds. Each case also
 reports every tree's largest difference from the first tree's output
 (another summation order: within 2e-2, not bit for bit) and, for B6,
-whether each tree's consumer mask and npix equal the first tree's. Prints
-the card's name and power limit, then one JSON line per case. Needs a
-CUDA GPU and nvcc.
+whether each tree's consumer mask and npix equal the first tree's; the
+plan each tree launches. ``--cases REGEX`` picks cases by kernel and name
+(``--cases "B2 openpose"``). Prints the card's name and power limit, then
+one JSON line per case. Needs a CUDA GPU and nvcc.
 """
 
 import argparse
 import ctypes
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -58,6 +60,35 @@ CASES = [
     ("B2", "pose 90x160 1x1 256->56", (90, 160), 256, 56, 1, None, 26),
     ("B2", "cin-3 stem 720x1280 3x3 8->128 (cin padded)", (720, 1280), 8,
      128, 3, None, 1440),
+    # openpose.cam1 at tau 0: every tile of each map; the stride-8 map is
+    # 46x82 (cin 192: the 185-channel concat on the 8-channel grid)
+    ("B2", "openpose 46x82 7x7 192->128 (Mconv1)", (46, 82), 192, 128, 7,
+     None, 66),
+    ("B2", "openpose 46x82 7x7 128->128 (Mconv2-5)", (46, 82), 128, 128, 7,
+     None, 66),
+    ("B2", "openpose 46x82 1x1 128->128 (Mconv6)", (46, 82), 128, 128, 1,
+     None, 66),
+    ("B2", "openpose 46x82 3x3 128->128 (s1 branches)", (46, 82), 128, 128,
+     3, None, 66),
+    ("B2", "openpose 46x82 3x3 256->128 (conv4_4_CPM)", (46, 82), 256, 128,
+     3, None, 66),
+    ("B2", "openpose 46x82 3x3 512->512 (bb_conv4_2)", (46, 82), 512, 512, 3,
+     None, 66),
+    ("B2", "openpose 46x82 3x3 512->256 (conv4_3_CPM)", (46, 82), 512, 256,
+     3, None, 66),
+    ("B2", "openpose 46x82 1x1 128->512 (s1 conv5_4)", (46, 82), 128, 512, 1,
+     None, 66),
+    ("B2", "openpose 92x164 3x3 256->256 (bb_conv3_x)", (92, 164), 256, 256,
+     3, None, 252),
+    ("B2", "openpose 184x328 3x3 128->128 (bb_conv2_2)", (184, 328), 128,
+     128, 3, None, 943),
+    ("B2", "openpose 184x328 3x3 64->128 (bb_conv2_1)", (184, 328), 64, 128,
+     3, None, 943),
+    # scene.pan: every tile of the 360- and 180-row maps
+    ("B2", "scene 360x640 3x3 128->256 every tile", (360, 640), 128, 256, 3,
+     None, 3600),
+    ("B2", "scene 180x320 3x3 256->256 every tile", (180, 320), 256, 256, 3,
+     None, 920),
     ("B6", "pose 360x640 3x3 64->128", (360, 640), 64, 128, 3, 3, 602),
     ("B6", "pose 180x320 3x3 128->256", (180, 320), 128, 256, 3, 3, 306),
     ("B6", "pose 180x320 3x3 256->256", (180, 320), 256, 256, 3, 3, 190),
@@ -112,8 +143,13 @@ class Tree:
         kh, kw, cin, cout = w.shape
         if not self.wgmma:
             return w, []
-        return self.plan.pack_weights(w), list(self.plan.conv_plan(
-            cin, cout, kh, kw, g.win_h, g.win_w, detect))
+        plan = list(self.plan.conv_plan(cin, cout, kh, kw, g.win_h, g.win_w,
+                                        detect))
+        # a newer tree's packing takes the plan's slice width, an older
+        # tree's derives it from cout
+        takes_n = len(inspect.signature(self.plan.pack_weights).parameters)
+        n = [plan[0]] if takes_n > 1 else []
+        return self.plan.pack_weights(w, *n), plan
 
 
 def main():
@@ -121,6 +157,8 @@ def main():
     ap.add_argument("--csrc", action="append", required=True)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--cases", default="",
+                    help="regex on '<kernel> <case name>'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -134,6 +172,8 @@ def main():
     stream = torch.cuda.current_stream().cuda_stream
     bf = torch.bfloat16
     for kind, name, (h, w_), cin, cout, k, k2, n in CASES:
+        if not re.search(args.cases, f"{kind} {name}"):
+            continue
         gen = torch.Generator(device="cuda").manual_seed(0)
         g = conv_tile_geometry((h, w_, cin), (k, k), (1, 1), (1, 1), "SAME",
                                8, 8)
@@ -221,6 +261,7 @@ def main():
             for j in (order if r % 2 == 0 else order[::-1]):
                 series[args.csrc[j]].append(time_one(j))
         print(json.dumps({"kernel": kind, "case": name, "tiles": n,
+                          "plans": [p for _, p in ops],
                           "max_abs_diff_vs_first": diff,
                           "mask_npix_equal_first": same_detect,
                           "ms_per_launch": series}), flush=True)

@@ -427,10 +427,11 @@ def test_pose_frame_loop_never_syncs_with_host(cuda, path):
 @pytest.mark.parametrize("case", sorted(chip_smoke.TILE_CONV_CASES))
 def test_tile_conv_cases_on_card(cuda, case):
     """The bf16 tile conv (B2) within 2e-2 of its plain version at counts
-    0, 1, a few and every tile, tiles not listed untouched; B6 equal bit
-    for bit to B2 then B1 at tau2 0.05, -1 and 1e9: clusters of 1 to 8
-    blocks, a ragged last slice, cin and cout off the 16-channel grid,
-    dilation, stride, th*tw < 64, the 90- and 180-row maps."""
+    0, 1, a few and every tile, tiles not listed untouched, equal bit for
+    bit to B2 on B6's plan; B6 equal bit for bit to B2 then B1 at tau2
+    0.05, -1 and 1e9: clusters of 1 to 8 blocks, a ragged last slice, cin
+    and cout off the 16-channel grid, dilation, stride, th*tw < 64, the
+    90- and 180-row maps, OpenPose's 7x7 convs."""
     chip_smoke.check_tile_conv(torch, np, case)
 
 
